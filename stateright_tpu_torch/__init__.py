@@ -1,0 +1,26 @@
+"""stateright_tpu_torch — the PyTorch/CUDA port of the stateright_tpu model
+checker, for NVIDIA Hopper cards.
+
+The port runs the default breadth-first device search: a `TensorModel`'s
+`checker().spawn_cuda()` starts it on the CUDA card (or on the CPU with
+`device="cpu"`), with the visited-set insert as a hand-written CUDA kernel
+(csrc/visited_insert.cu). It imports torch, never jax, and nothing of the
+stateright_tpu package.
+"""
+
+from .core.discovery import HasDiscoveries
+from .core.model import Expectation
+from .core.path import Path
+from .core.report import ReportData, Reporter, WriteReporter
+from .tensor.model import TensorModel, TensorProperty
+
+__all__ = [
+    "Expectation",
+    "HasDiscoveries",
+    "Path",
+    "ReportData",
+    "Reporter",
+    "TensorModel",
+    "TensorProperty",
+    "WriteReporter",
+]

@@ -1,0 +1,13 @@
+"""The port's registry of engine-knob string literals — only the names the
+device BFS path uses. Pure Python, no torch import."""
+
+from __future__ import annotations
+
+#: Visited-set insert designs. "pallas" keeps the JAX package's name for the
+#: same bucketed insert-if-absent contract; here it is the hand-written CUDA
+#: kernel in csrc/visited_insert.cu (plain torch version for CPU tensors).
+INSERT_VARIANTS = ("pallas",)
+
+#: HasDiscoveries kinds (core/discovery.py), the early-finish policies the
+#: resident engine encodes as required/any bitmasks (tensor/resident.py).
+FINISH_KINDS = ("all", "any", "any_failures", "all_failures", "all_of", "any_of")

@@ -1,0 +1,15 @@
+"""The batched device search: tensor models, fingerprints, the visited-set
+insert (a CUDA kernel on the card) and the resident BFS engine."""
+
+from .fingerprint import device_fingerprint, pack_fp, unpack_fp
+from .model import TensorModel, TensorProperty
+from .resident import ResidentSearch
+
+__all__ = [
+    "ResidentSearch",
+    "TensorModel",
+    "TensorProperty",
+    "device_fingerprint",
+    "pack_fp",
+    "unpack_fp",
+]

@@ -1,0 +1,136 @@
+"""The port's plain visited-set insert (stateright_tpu_torch/tensor/
+pallas_hashtable.py insert_plain, the CPU form of the CUDA kernel) against
+the JAX package's Pallas kernel in interpret mode: per call `is_new` lane
+for lane, `dump()` keys and parents, overflow, and table conversion."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stateright_tpu.tensor.pallas_hashtable import PallasHashTable as JaxTable
+from stateright_tpu_torch.tensor import pallas_hashtable as ph
+from stateright_tpu_torch.tensor.fingerprint import pack_fp
+from stateright_tpu_torch.tensor.inserts import resolve_insert
+
+
+def _batches(rng, n_batches, size, pool_size):
+    """The batches of tests/test_pallas_hashtable.py: draws from a small pool
+    of uniformly spread keys (heavy duplication within and across batches)."""
+    pool_lo = rng.integers(1, 2**32, pool_size, dtype=np.uint32)
+    pool_hi = rng.integers(0, 2**32, pool_size, dtype=np.uint32)
+    for _ in range(n_batches):
+        ix = rng.integers(0, pool_size, size)
+        parent = rng.integers(1, 2**31, size, dtype=np.uint32)
+        active = rng.random(size) < 0.9
+        yield pool_lo[ix], pool_hi[ix], parent, parent + 1, active
+
+
+def _port_args(lo, hi, plo, phi, active):
+    t = lambda a: torch.from_numpy(a.astype(np.int64))  # noqa: E731
+    return pack_fp(t(lo), t(hi)), pack_fp(t(plo), t(phi)), torch.from_numpy(active)
+
+
+@pytest.mark.parametrize("pool_size", [40, 2000])
+def test_plain_insert_equals_jax_kernel_lane_for_lane(pool_size):
+    rng = np.random.default_rng(7)
+    jt = JaxTable(13, n_partitions=8, interpret=True)
+    pt = ph.PallasHashTable(13, n_partitions=8)
+    for lo, hi, plo, phi, active in _batches(rng, 4, 256, pool_size):
+        rj = jt.insert(*(jnp.asarray(a) for a in (lo, hi, plo, phi, active)))
+        rp = pt.insert(*_port_args(lo, hi, plo, phi, active))
+        assert not bool(rj.overflow) and not bool(rp.overflow)
+        np.testing.assert_array_equal(rp.is_new.numpy(), np.asarray(rj.is_new))
+        assert pt.dump() == jt.dump()  # keys AND parents
+    assert len(pt.dump()) == (40 if pool_size == 40 else len(jt.dump()))
+
+
+def test_repeated_batch_gives_no_new_keys():
+    rng = np.random.default_rng(1)
+    pt = ph.PallasHashTable(12)
+    batch = next(_batches(rng, 1, 512, 300))
+    args = _port_args(*batch)
+    first = pt.insert(*args)
+    assert int(first.is_new.sum()) == len(pt.dump()) > 0
+    again = pt.insert(*args)
+    assert not bool(again.is_new.any()) and not bool(again.overflow)
+
+
+def test_overflow_reported_in_both():
+    # 2^10 slots (one partition) offered 1500 distinct keys: both kernels
+    # flag overflow and both fill every slot.
+    rng = np.random.default_rng(2)
+    lo = np.unique(rng.integers(1, 2**32, 1600, dtype=np.uint32))[:1500]
+    rng.shuffle(lo)
+    hi = rng.integers(0, 2**32, 1500, dtype=np.uint32)
+    par = np.ones(1500, np.uint32)
+    act = np.ones(1500, bool)
+    jt = JaxTable(10, n_partitions=1, interpret=True)
+    pt = ph.PallasHashTable(10, n_partitions=1)
+    rj = jt.insert(*(jnp.asarray(a) for a in (lo, hi, par, par, act)))
+    rp = pt.insert(*_port_args(lo, hi, par, par, act))
+    assert bool(rj.overflow) and bool(rp.overflow)
+    assert int(rp.is_new.sum()) == int(np.asarray(rj.is_new).sum()) == 1024
+    assert len(pt.dump()) == len(jt.dump()) == 1024
+
+
+def test_inactive_lanes_and_batch_duplicates():
+    key = torch.tensor([5 | (1 << 32), 5 | (1 << 32), 9 | (2 << 32), 7])
+    par = torch.tensor([11, 12, 13, 14])
+    t_key = torch.zeros(1 << 12, dtype=torch.int64)
+    t_par = torch.zeros_like(t_key)
+    _, _, is_new, ovf = ph.insert_plain(
+        t_key, t_par, key, par, torch.tensor([True, True, True, False])
+    )
+    assert is_new.tolist() == [True, False, True, False] and not bool(ovf)
+    assert ph.dump_table(t_key, t_par) == {5 | (1 << 32): 11, 9 | (2 << 32): 13}
+
+
+def test_jax_table_round_trip_and_probe():
+    # A table built by the JAX kernel converts slot for slot, probes
+    # correctly in the port (its keys are present, their parents found),
+    # and converts back unchanged.
+    rng = np.random.default_rng(9)
+    jt = JaxTable(12, n_partitions=4, interpret=True)
+    batches = list(_batches(rng, 3, 256, 500))
+    for lo, hi, plo, phi, active in batches:
+        jt.insert(*(jnp.asarray(a) for a in (lo, hi, plo, phi, active)))
+    arrays = [np.asarray(a) for a in (jt.t_lo, jt.t_hi, jt.p_lo, jt.p_hi)]
+    t_key, t_par = ph.from_jax_table(*arrays)
+    for got, want in zip(ph.to_jax_table(t_key, t_par), arrays):
+        np.testing.assert_array_equal(got, want)
+    assert ph.dump_table(t_key, t_par) == jt.dump()
+    insert = resolve_insert("pallas")
+    for lo, hi, plo, phi, active in batches:
+        key, par, act = _port_args(lo, hi, plo, phi, active)
+        _, _, is_new, _ = insert(t_key, t_par, key, par, act, n_partitions=4)
+        assert not bool(is_new.any())
+    absent = torch.tensor([12345 | (77 << 32)], dtype=torch.int64)
+    assert int(absent[0]) not in ph.dump_table(t_key, t_par)
+    assert int(ph.lookup(t_key, t_par, absent, n_partitions=4)[0]) == 0
+    keys = t_key[t_key != 0]
+    np.testing.assert_array_equal(
+        ph.lookup(t_key, t_par, keys, n_partitions=4).numpy(),
+        t_par[t_key != 0].numpy(),
+    )
+
+
+def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
+    # The dispatch keys on the tensor's device alone: a CUDA table goes to
+    # the kernel wrapper (here a stand-in, as this box has no card).
+    from stateright_tpu_torch.tensor import inserts
+
+    seen = []
+
+    class FakeDevice:
+        type = "cuda"
+
+    class FakeTable:
+        device = FakeDevice()
+
+    monkeypatch.setattr(inserts, "insert_kernel", lambda *a: seen.append("kernel"))
+    monkeypatch.setattr(inserts, "insert_plain", lambda *a: seen.append("plain"))
+    resolve_insert("pallas")(FakeTable(), None, None, None, None)
+    assert seen == ["kernel"]
+    with pytest.raises(ValueError):
+        resolve_insert("sort")

@@ -1,0 +1,63 @@
+"""The port stands alone: it imports torch and never jax or the JAX package,
+and its entry point runs on the CUDA card unless the caller asks for the
+CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "stateright_tpu_torch"
+
+
+def _imported_roots(path: Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_file_imports_jax_or_the_jax_package(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "stateright_tpu"}
+
+
+def test_running_the_port_loads_neither_jax_nor_the_jax_package():
+    code = (
+        "import sys\n"
+        "from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys\n"
+        "c = TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12, device='cpu').join()\n"
+        "assert (c.state_count(), c.unique_state_count()) == (1146, 288)\n"
+        "c.discoveries()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_spawn_cuda_defaults_to_the_card():
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    if torch.cuda.is_available():
+        pytest.skip("this box has a CUDA device; the default runs there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12)
