@@ -182,6 +182,7 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     )
     parent = torch.randint(1, 2**31, (B,), device=dev, generator=gen)
     del present
+    sectors = scan_sectors(ph, torch, base_key, key[active])
     _, new = chk.compare(TABLE_2PC10, key, parent, active, tables=(base_key, base_par))
     n_active, n_new = int(active.sum()), int(new.sum())
     log(f"[kernel] 2pc-10 step shape: {B} lanes, {n_active} active, {n_new} new: agree")
@@ -194,16 +195,31 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
 
     ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active), restore)
     plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active), restore)
-    # Bytes the function must move: each lane's key, parent and active flag
-    # read once and its is_new written once; one 32-byte sector of the
-    # home bucket read per active lane; key + parent written per new key.
-    nbytes = B * (8 + 8 + 1 + 1) + n_active * 32 + n_new * 16
+    # Bytes the function must move: every lane's active flag read and is_new
+    # written; an active lane's key and one 32-byte sector of its home
+    # bucket read; a new key's parent read and its key + parent written.
+    nbytes = B * (1 + 1) + n_active * (8 + 32) + n_new * (8 + 16)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    # What this bucket layout makes a lane read: its whole chain prefix.
+    scan_bytes = B * (1 + 1) + n_active * 8 + sectors * 32 + n_new * (8 + 16)
     log(f"[kernel] time at step shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s); no single PyTorch "
         "call computes insert-if-absent, so library_ms is null")
+    log(f"[kernel] chain scan at step shape: {sectors / n_active:.3f} 32-byte sectors "
+        f"per active lane; with those sectors the bytes are {scan_bytes}, "
+        f"{scan_bytes / H100_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes,
                 n_active=n_active, n_new=n_new, lanes=B)
+
+
+def scan_sectors(ph, torch, t_key, keys):
+    """32-byte sectors of the key array that the kernel's chain scan reads
+    for `keys` against table `t_key` (one partition split, the default): up
+    to and including the key's slot, or the chain's first empty slot. Home
+    rows start on a sector, four slots to a sector."""
+    base, start, V = ph._locate(t_key, keys, None)
+    off = ph._first_key_or_empty(t_key, keys, base, start, torch.zeros_like(keys), V)
+    return int((off.clamp(max=V - 1) // 4 + 1).sum())
 
 
 def check_fingerprint_on_card(torch):

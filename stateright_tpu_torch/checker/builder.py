@@ -41,7 +41,6 @@ class CheckerBuilder:
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device: str = "cuda",
-        **engine_kwargs,
     ):
         """Spawn the batched device checker (tensor/resident.py). It runs on
         the CUDA card unless `device="cpu"` is passed; with `device="cuda"`
@@ -54,5 +53,4 @@ class CheckerBuilder:
             table_log2=table_log2,
             queue_log2=queue_log2,
             device=device,
-            **engine_kwargs,
         )

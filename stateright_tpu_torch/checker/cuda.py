@@ -26,10 +26,9 @@ class CudaChecker(Checker):
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device: str = "cuda",
-        **engine_kwargs,
     ):
-        """`engine_kwargs` pass through to ResidentSearch (chunk_steps). The engine is built here, on the caller's thread, so a
-        bad option or a missing CUDA device raises from spawn_cuda()."""
+        """The engine is built here, on the caller's thread, so a bad
+        option or a missing CUDA device raises from spawn_cuda()."""
         from ..tensor.model import TensorModel
         from ..tensor.resident import ResidentSearch
 
@@ -42,7 +41,7 @@ class CudaChecker(Checker):
         super().__init__(model)
         self._search = ResidentSearch(
             model, batch_size, table_log2, queue_log2=queue_log2,
-            device=device, **engine_kwargs,
+            device=device,
         )
         self._options = options
         self._result = None

@@ -9,7 +9,7 @@ terminal states, and appends the new states at the queue tail — no host
 involvement.
 
 PyTorch has no device `while_loop`, so the host enqueues fixed chunks of
-`chunk_steps` steps and reads the counters once per chunk. Each step first
+CHUNK_STEPS steps and reads the counters once per chunk. Each step first
 evaluates the stop condition on the device and, once it holds, pops nothing
 and counts nothing: steps past the stop are no-ops, and the counts are
 exactly the JAX engine's.
@@ -48,6 +48,10 @@ from .pallas_hashtable import dump_table, lookup
 # Abort-code bits of the carry's `overflow` counter (nonzero stops the search).
 ABORT_TABLE = 1  # a visited-table partition is full
 ABORT_QUEUE = 2  # the frontier queue tail crossed its capacity
+
+# Steps enqueued between host reads of the counters: the granularity of the
+# timeout and of progress reports.
+CHUNK_STEPS = 16
 
 
 def _abort_reason(code: int) -> str:
@@ -106,14 +110,11 @@ class ResidentSearch:
         batch_size: int = 2048,
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
-        chunk_steps: int = 16,
         device="cuda",
     ):
         """`queue_log2` caps the frontier queue at 2^queue_log2 rows
         (default: table_log2, the always-sufficient bound; 2pc-10 needs
-        2^26 for its 61.5 M unique states). `chunk_steps` is the number of
-        steps enqueued between host reads of the counters (the timeout and
-        progress granularity). `device` defaults to the CUDA card; with no
+        2^26 for its 61.5 M unique states). `device` defaults to the CUDA card; with no
         CUDA device it raises — pass device="cpu" to run on the CPU."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -122,14 +123,11 @@ class ResidentSearch:
                 "pass device='cpu' to run the search on the CPU"
             )
         check_table_log2(table_log2)
-        if chunk_steps < 1:
-            raise ValueError("chunk_steps must be positive")
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
         self.queue_log2 = table_log2 if queue_log2 is None else queue_log2
         self.insert = resolve_insert("pallas")
-        self.chunk_steps = chunk_steps
         self.props = model.properties()
         # Rows of slack past the nominal queue capacity: one step appends at
         # most K*A rows (append_new writes a full K*A block at the tail).
@@ -298,7 +296,7 @@ class ResidentSearch:
         c = self._c
         timed_out = False
         while True:
-            for _ in range(self.chunk_steps):
+            for _ in range(CHUNK_STEPS):
                 go = self._should_continue(c, req, anym, target, max_steps)
                 self._step(c, go, tmd)
             go = self._should_continue(c, req, anym, target, max_steps)

@@ -12,6 +12,7 @@ from stateright_tpu.core.discovery import HasDiscoveries as JaxHD
 from stateright_tpu.tensor import models as jm
 from stateright_tpu_torch import HasDiscoveries, WriteReporter
 from stateright_tpu_torch.tensor import models as tm
+from stateright_tpu_torch.tensor import resident
 from stateright_tpu_torch.tensor.resident import ResidentSearch
 
 
@@ -124,11 +125,11 @@ def test_table_overflow_is_reported():
         c.join()
 
 
-def test_chunk_size_does_not_change_results():
-    runs = [
-        ResidentSearch(tm.TensorTwoPhaseSys(3), 32, 12, chunk_steps=k, device="cpu").run()
-        for k in (1, 7, 64)
-    ]
+def test_chunk_size_does_not_change_results(monkeypatch):
+    runs = []
+    for k in (1, 7, 64):
+        monkeypatch.setattr(resident, "CHUNK_STEPS", k)
+        runs.append(ResidentSearch(tm.TensorTwoPhaseSys(3), 32, 12, device="cpu").run())
     assert {(r.state_count, r.unique_state_count, r.max_depth, r.steps) for r in runs} == {
         (runs[0].state_count, 288, runs[0].max_depth, runs[0].steps)
     }
