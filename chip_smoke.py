@@ -4,27 +4,42 @@ NVIDIA card. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each asserting (any failure exits non-zero):
+Phases, each asserting (any failure exits non-zero), each printing its
+seconds on a line of its own:
 
 1. device: the card's name and power limit;
-2. build: nvcc builds csrc/visited_insert.cu (the visited-set insert kernel);
+2. build: nvcc builds csrc/visited_insert.cu (the visited-set insert kernel,
+   plain and fused Bloom-suspect forms);
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
    card — a heavy-duplicate pool, a 2^20-lane batch into a 2^24-slot table
    at half load, an overflow case, and a batch shaped like one 2pc-10 step
    (1,703,936 lanes into 2^27 slots at half load), which is also timed;
-4. anchors through `spawn_cuda()`: LinearEquation(2, 4, 7), 2pc-3, 2pc-4
-   and 2pc-5 at their golden counts, each going through the kernel;
-5. the main path at full width: 2pc-10 (batch 32768, table 2^27, queue
-   2^26) to the golden (817,760,258 generated, 61,515,776 unique);
-6. a short profiled window of 2pc-10 steps: where the device time goes.
+4. fused kernel vs plain: the same cases again with a populated Bloom
+   summary, and the 2pc-10 step shape against a 2^25-slot table at the
+   high-water fill with a 2^28-bit summary of ~38 M spilled keys, timed
+   (fused kernel, plain-form kernel, plain version);
+5. anchors through `spawn_cuda()`: LinearEquation(2, 4, 7), 2pc-3, 2pc-4
+   and 2pc-5 at their golden counts, each going through the kernel, and
+   each equal to the CPU run in counts, depth and discoveries;
+6. the tiered anchor: 2pc-4 through a 2^11 hot tier (store="tiered") —
+   golden counts, spills, suspects, the seed's one plain-form launch and a
+   fused launch every step, and the CPU run's counts and store counters;
+7. the device-store path at full width: 2pc-10 (batch 32768, table 2^27,
+   queue 2^26) to the golden (817,760,258 generated, 61,515,776 unique);
+8. this slice's main path at full width: 2pc-10 through a 2^25 hot tier
+   (store="tiered", high water 0.85, summary 2^28 bits) to the same golden,
+   both witnesses replayed;
+9. a short profiled window of 2pc-10 steps: where the device time goes.
 
 The last three lines are the card's name and power limit, one JSON object
-with the kernel's numbers, and `{"ok": true, "device": {...}}`.
+with the kernels' numbers, and `{"ok": true, "device": {...}}`.
+`python3 chip_smoke.py --only 2,4,6` runs a subset (no result lines).
 
-`max_abs_err` of the insert kernel compares what the kernel and the plain
-version store, not floats: the largest absolute difference between the
-sorted stored keys of the two tables, and between their per-call new-key
-counts, over every comparison above (0 = identical sets).
+`max_abs_err` of the insert compares what the kernel and the plain version
+return and store, not floats: the largest absolute difference, over every
+comparison above, between their per-lane `is_new` (and `suspect`) flags,
+the sorted stored keys and parents of the two tables, and their new-key
+counts (0 = identical).
 """
 
 from __future__ import annotations
@@ -38,6 +53,12 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10 = 32768, 27, 26
 GOLDEN_2PC10 = (817_760_258, 61_515_776)
+# The tiered main path: a 2^25 hot tier (2^26 still spills: 61.5 M unique
+# states > 0.85 x 2^26), spilling past 0.85 fill down to 0.60, behind a
+# 2^28-bit summary — ~6 bits for each of the ~35-41 M states it spills.
+TABLE_TIERED, HIGH_WATER, SUMMARY_LOG2 = 25, 0.85, 28
+SPILLED_AT_STEP = 38_000_000  # summary load of the fused step-shape case
+STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspects_dup")
 
 
 def log(msg: str) -> None:
@@ -65,6 +86,26 @@ def median_ms(fn, setup, reps=20):
     return statistics.median(times)
 
 
+def stored_pairs(torch, t_key, t_parent):
+    """The occupied slots' (keys, parents), sorted by key."""
+    occ = t_key != 0
+    keys = t_key[occ]
+    order = torch.argsort(keys)
+    return keys[order], t_parent[occ][order]
+
+
+def build_summary(torch, keys, summary_log2):
+    """A Bloom summary (int32 words) of `keys`, built on the card by the
+    port's own bit insert (store/summary.py `insert`, what eviction runs),
+    a few million keys at a time."""
+    from stateright_tpu_torch.store.summary import insert
+
+    words = torch.zeros(1 << (summary_log2 - 5), dtype=torch.int32, device=keys.device)
+    for part in keys.split(1 << 22):
+        insert(words, part, summary_log2)
+    return words
+
+
 class InsertCheck:
     """Runs the kernel and the plain version on identical table copies and
     accumulates the comparison (max_abs_err)."""
@@ -73,60 +114,97 @@ class InsertCheck:
         self.ph, self.torch = ph, torch
         self.max_abs_err = 0
 
+    def _err(self, a, b):
+        torch = self.torch
+        if a.shape != b.shape:
+            self.max_abs_err = max(self.max_abs_err, 1 << 62)
+            return
+        if a.numel():
+            diff = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+            self.max_abs_err = max(self.max_abs_err, int(diff))
+
     def compare(self, log2, key, parent, active, n_partitions=None, tables=None,
-                expect_overflow=False):
+                expect_overflow=False, summary=None, summary_cfg=None):
         torch, ph = self.torch, self.ph
         dev = key.device
         if tables is None:
             tables = (torch.zeros(1 << log2, dtype=torch.int64, device=dev),) * 2
         kt = [t.clone() for t in tables]
         pt = [t.clone() for t in tables]
-        _, _, new_k, ovf_k = ph.insert_kernel(*kt, key, parent, active, n_partitions)
-        _, _, new_p, ovf_p = ph.insert_plain(*pt, key, parent, active, n_partitions)
+        kw = dict(summary=summary, summary_cfg=summary_cfg)
+        out_k = ph.insert_kernel(*kt, key, parent, active, n_partitions, **kw)
+        out_p = ph.insert_plain(*pt, key, parent, active, n_partitions, **kw)
         torch.cuda.synchronize()
+        new_k, ovf_k, new_p, ovf_p = out_k[2], out_k[-1], out_p[2], out_p[-1]
         assert bool(ovf_k) == bool(ovf_p) == expect_overflow, (ovf_k, ovf_p)
         n_k, n_p = int(new_k.sum()), int(new_p.sum())
         self.max_abs_err = max(self.max_abs_err, abs(n_k - n_p))
-        if not expect_overflow:
-            # The same per-call SET of newly won keys, each won once.
-            won_k = torch.sort(key[new_k]).values
-            won_p = torch.sort(key[new_p]).values
-            assert torch.equal(won_k, won_p), "newly won key sets differ"
-            assert torch.unique(won_k).numel() == n_k, "a key was won twice"
-            dk = torch.sort(kt[0][kt[0] != 0]).values
-            dp = torch.sort(pt[0][pt[0] != 0]).values
-            assert dk.shape == dp.shape
-            self.max_abs_err = max(self.max_abs_err, int((dk - dp).abs().max()) if dk.numel() else 0)
-            assert torch.equal(dk, dp), "stored key sets differ"
-            # Every stored parent of a key won in this call was offered for
-            # it by an active lane of this call.
-            stored = ph.lookup(kt[0], kt[1], won_k, n_partitions)
-            offered = set(zip(key[active].tolist(), parent[active].tolist()))
-            assert all(p in offered for p in zip(won_k.tolist(), stored.tolist()))
-        return kt, new_k
+        if expect_overflow:
+            return kt, new_k, None
+        # The same new lane per key (the lowest active lane offering it).
+        self._err(new_k, new_p)
+        assert torch.equal(new_k, new_p), "is_new differs lane for lane"
+        assert torch.unique(key[new_k]).numel() == n_k, "a key was won twice"
+        # The same stored (key, parent) pairs, whatever their slots.
+        (dk, dpk), (dp, dpp) = stored_pairs(torch, *kt), stored_pairs(torch, *pt)
+        self._err(dk, dp)
+        self._err(dpk, dpp)
+        assert torch.equal(dk, dp) and torch.equal(dpk, dpp), "stored keys or parents differ"
+        suspect = None
+        if summary is not None:
+            suspect, sus_p = out_k[3], out_p[3]
+            self._err(suspect, sus_p)
+            assert torch.equal(suspect, sus_p), "suspect differs lane for lane"
+            from stateright_tpu_torch.store.summary import maybe_contains
+
+            lo, hi = key & 0xFFFFFFFF, (key >> 32) & 0xFFFFFFFF
+            want = new_k & maybe_contains(summary, lo, hi, *summary_cfg)
+            self._err(suspect, want)
+            assert torch.equal(suspect, want), "suspect != is_new & maybe_contains"
+        return kt, new_k, suspect
 
 
-def phase_kernel_vs_plain(ph, torch):
+def card_rng(torch):
+    """(generator, rand_keys) on the card, from a fixed seed."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
-    chk = InsertCheck(ph, torch)
 
     def rand_keys(n):
         k = torch.randint(-(2**63), 2**63 - 1, (n,), device=dev, generator=gen)
         return k | 1  # lo != 0: a real fingerprint
 
+    return gen, rand_keys
+
+
+def phase_kernel_vs_plain(ph, torch, chk, gen, rand_keys, fused=False):
+    """The kernel against its plain version on three cases; `fused` reruns
+    the first two with a populated Bloom summary (2^14 bits holding half
+    the pool, 2^22 bits holding an eighth of the fresh keys and 2^18
+    others), so that the fused form meets suspects."""
+    dev = torch.device("cuda")
+    tag = "[fused]" if fused else "[kernel]"
+
+    def summary_of(keys, log2):
+        if not fused:
+            return {}
+        return dict(summary=build_summary(torch, keys, log2), summary_cfg=(log2, 4))
+
     # (a) heavy duplication: small pools, several calls into one table.
     for pool_size in (40, 2000):
         pool = rand_keys(pool_size)
+        kw = summary_of(pool[: pool_size // 2], 14)
         tables = (torch.zeros(1 << 16, dtype=torch.int64, device=dev),) * 2
+        n_sus = 0
         for _ in range(4):
             n = 1 << 14
             key = pool[torch.randint(0, pool_size, (n,), device=dev, generator=gen)]
             parent = torch.randint(1, 2**31, (n,), device=dev, generator=gen)
             active = torch.rand(n, device=dev, generator=gen) < 0.9
-            tables, _ = chk.compare(16, key, parent, active, tables=tables)
-        log(f"[kernel] pool {pool_size}: 4 calls agree, {int((tables[0] != 0).sum())} keys")
+            tables, _, sus = chk.compare(16, key, parent, active, tables=tables, **kw)
+            n_sus += 0 if sus is None else int(sus.sum())
+        log(f"{tag} pool {pool_size}: 4 calls agree, {int((tables[0] != 0).sum())} keys"
+            + (f", {n_sus} suspects" if fused else ""))
 
     # (b) 2^20 lanes into 2^24 slots at half load (prefilled by the kernel).
     S = 1 << 24
@@ -139,6 +217,7 @@ def phase_kernel_vs_plain(ph, torch):
     n = 1 << 20
     pick = torch.rand(n, device=dev, generator=gen) < 0.5
     fresh = rand_keys(n // 4)
+    kw = summary_of(torch.cat([fresh[: n // 32], rand_keys(1 << 18)]), 22)
     key = torch.where(
         pick,
         present[torch.randint(0, S // 2, (n,), device=dev, generator=gen)],
@@ -146,17 +225,18 @@ def phase_kernel_vs_plain(ph, torch):
     )
     parent = torch.randint(1, 2**31, (n,), device=dev, generator=gen)
     active = torch.rand(n, device=dev, generator=gen) < 0.9
-    _, new = chk.compare(24, key, parent, active, tables=(t_key, t_par))
-    log(f"[kernel] 2^20 lanes into 2^24 slots at half load: agree, {int(new.sum())} new")
+    _, new, sus = chk.compare(24, key, parent, active, tables=(t_key, t_par), **kw)
+    log(f"{tag} 2^20 lanes into 2^24 slots at half load: agree, {int(new.sum())} new"
+        + (f", {int(sus.sum())} suspects" if fused else ""))
     del t_key, t_par, present
 
     # (c) overflow: 1500 distinct keys into 1024 slots (one partition).
-    key = torch.unique(rand_keys(1600))[:1500]
-    key = key[torch.randperm(1500, device=dev, generator=gen)]
-    chk.compare(10, key, key, torch.ones(1500, dtype=torch.bool, device=dev),
-                n_partitions=1, expect_overflow=True)
-    log("[kernel] overflow flagged by both")
-    return chk, gen, rand_keys
+    if not fused:
+        key = torch.unique(rand_keys(1600))[:1500]
+        key = key[torch.randperm(1500, device=dev, generator=gen)]
+        chk.compare(10, key, key, torch.ones(1500, dtype=torch.bool, device=dev),
+                    n_partitions=1, expect_overflow=True)
+        log("[kernel] overflow flagged by both")
 
 
 def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
@@ -183,7 +263,7 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     parent = torch.randint(1, 2**31, (B,), device=dev, generator=gen)
     del present
     sectors = scan_sectors(ph, torch, base_key, key[active])
-    _, new = chk.compare(TABLE_2PC10, key, parent, active, tables=(base_key, base_par))
+    _, new, _ = chk.compare(TABLE_2PC10, key, parent, active, tables=(base_key, base_par))
     n_active, n_new = int(active.sum()), int(new.sum())
     log(f"[kernel] 2pc-10 step shape: {B} lanes, {n_active} active, {n_new} new: agree")
 
@@ -210,6 +290,81 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
         f"{scan_bytes / H100_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes,
                 n_active=n_active, n_new=n_new, lanes=B)
+
+
+def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
+    """The fused form at the tiered 2pc-10 step: K*A = 32768*52 lanes, 26%
+    active; of the active lanes 8% fresh keys and 3% re-offered spilled
+    keys, the rest present; the table 2^25 at the 0.85 high-water fill; a
+    2^28-bit summary of SPILLED_AT_STEP spilled keys. Checked against the
+    plain version, then timed: fused kernel, plain-form kernel on the same
+    batch, and the plain version."""
+    import numpy as np
+
+    from stateright_tpu_torch.store.summary import host_insert
+
+    dev = torch.device("cuda")
+    S = 1 << TABLE_TIERED
+    fill = int(HIGH_WATER * S)
+    base_key = torch.zeros(S, dtype=torch.int64, device=dev)
+    base_par = torch.zeros(S, dtype=torch.int64, device=dev)
+    present = rand_keys(fill)
+    step = 1 << 22
+    for i in range(0, fill, step):
+        part = present[i:i + step]
+        ph.insert_kernel(base_key, base_par, part, part,
+                         torch.ones(part.shape[0], dtype=torch.bool, device=dev))
+    assert int((base_key != 0).sum()) == fill
+    spilled = rand_keys(SPILLED_AT_STEP)
+    # The bit insert on the card against the same function on the CPU.
+    probe = spilled[:100_000]
+    host = np.zeros(1 << (SUMMARY_LOG2 - 5), dtype=np.uint32)
+    pk = probe.cpu().numpy().view(np.uint64)
+    host_insert(host, (pk & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+                (pk >> np.uint64(32)).astype(np.uint32), SUMMARY_LOG2, 4)
+    assert np.array_equal(build_summary(torch, probe, SUMMARY_LOG2).cpu().numpy().view(np.uint32), host)
+    summary = build_summary(torch, spilled, SUMMARY_LOG2)
+    cfg = (SUMMARY_LOG2, 4)
+    B = BATCH_2PC10 * 52
+    active = torch.rand(B, device=dev, generator=gen) < 0.26
+    u = torch.rand(B, device=dev, generator=gen)
+    key = torch.where(
+        u < 0.08, rand_keys(B),
+        torch.where(u < 0.11,
+                    spilled[torch.randint(0, SPILLED_AT_STEP, (B,), device=dev, generator=gen)],
+                    present[torch.randint(0, fill, (B,), device=dev, generator=gen)]))
+    parent = torch.randint(1, 2**31, (B,), device=dev, generator=gen)
+    del present, spilled
+    _, new, sus = chk.compare(TABLE_TIERED, key, parent, active, tables=(base_key, base_par),
+                              summary=summary, summary_cfg=cfg)
+    n_active, n_new, n_sus = int(active.sum()), int(new.sum()), int(sus.sum())
+    log(f"[fused] 2pc-10 tiered step shape: {B} lanes, {n_active} active, {n_new} new, "
+        f"{n_sus} suspects, table 2^{TABLE_TIERED} at {HIGH_WATER} fill, summary "
+        f"2^{SUMMARY_LOG2} bits of {SPILLED_AT_STEP} keys: agree")
+
+    t_key, t_par = torch.empty_like(base_key), torch.empty_like(base_par)
+
+    def restore():
+        t_key.copy_(base_key)
+        t_par.copy_(base_par)
+
+    kw = dict(summary=summary, summary_cfg=cfg)
+    ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active, **kw), restore)
+    form_ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active), restore)
+    plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active, **kw), restore)
+    # Bytes the fused function must move: every lane's active flag read and
+    # is_new and suspect written; an active lane's key and one 32-byte
+    # sector of its home bucket read; a new key's parent read, its key and
+    # parent written, and its k = 4 summary words (4 bytes each) read.
+    nbytes = B * 3 + n_active * (8 + 32) + n_new * (8 + 16 + 4 * 4)
+    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
+    form_bytes = B * 2 + n_active * (8 + 32) + n_new * (8 + 16)
+    log(f"[fused] time at tiered step shape: fused kernel {ms:.4f} ms, plain-form kernel "
+        f"{form_ms:.4f} ms (bound {form_bytes / H100_BYTES_PER_S * 1e3:.4f} ms), plain "
+        f"version {plain_ms:.4f} ms, fused bound {bound_ms:.4f} ms ({nbytes} bytes at "
+        "3.35 TB/s); no single PyTorch call computes insert-if-absent, so library_ms is null")
+    return dict(ms=ms, form_ms=form_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                nbytes=nbytes, n_active=n_active, n_new=n_new, n_sus=n_sus, lanes=B)
 
 
 def scan_sectors(ph, torch, t_key, keys):
@@ -270,6 +425,9 @@ def phase_anchors(ph, torch):
         assert (cpu.state_count(), cpu.unique_state_count(), cpu.max_depth()) == (
             got[0], got[1], c.max_depth()
         )
+        # The kernel elects the lowest lane per new key, as the plain
+        # version does: the searches are the same, witnesses included.
+        assert cpu.result().discoveries == c.result().discoveries
         log(f"[anchors] {name}: generated={got[0]} unique={got[1]} depth={c.max_depth()} "
             f"launches={launches} sec={sec:.2f} (CPU plain run agrees)")
 
@@ -308,6 +466,80 @@ def phase_2pc10(ph, torch):
     torch.cuda.empty_cache()
     return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
                 rate=got[0] / sec, depth=r.max_depth)
+
+
+def phase_tiered_anchor(ph, torch):
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    kw = dict(batch_size=32, table_log2=11, store="tiered", high_water=0.6, summary_log2=14)
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    c = TensorTwoPhaseSys(4).checker().spawn_cuda(**kw).join()
+    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    r = c.result()
+    st = c.store_stats()
+    assert (r.state_count, r.unique_state_count) == (8_258, 1_568), r
+    assert st["spill_events"] >= 1 and st["suspects_checked"] > 0, st
+    # The seed insert is the plain form's one launch; every step, the
+    # no-op ones past a stop or a service exit included, is a fused one.
+    assert plain == 1 and fused >= r.steps, (plain, fused, r.steps)
+    paths = c.discoveries()
+    for name, path in paths.items():
+        c.assert_discovery(name, path.actions())
+    cpu = TensorTwoPhaseSys(4).checker().spawn_cuda(device="cpu", **kw).join()
+    cst = cpu.store_stats()
+    assert (cpu.state_count(), cpu.unique_state_count()) == (r.state_count, r.unique_state_count)
+    assert {k: cst[k] for k in STORE_COUNTERS} == {k: st[k] for k in STORE_COUNTERS}, (cst, st)
+    assert cpu.result().discoveries == r.discoveries
+    log(f"[tiered] 2pc-4, table 2^11, high water 0.6, summary 2^14: generated="
+        f"{r.state_count} unique={r.unique_state_count} steps={r.steps} "
+        + " ".join(f"{k}={st[k]}" for k in STORE_COUNTERS)
+        + f" plain_launches={plain} fused_launches={fused}; witnesses "
+        + ", ".join(f"{n} Path[{len(p) - 1}]" for n, p in sorted(paths.items()))
+        + " replay; the CPU run agrees in counts, store counters and discoveries")
+
+
+def phase_2pc10_tiered(ph, torch):
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    model = TensorTwoPhaseSys(10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    t0 = time.monotonic()
+    c = model.checker().spawn_cuda(
+        batch_size=BATCH_2PC10, table_log2=TABLE_TIERED, queue_log2=QUEUE_2PC10,
+        store="tiered", high_water=HIGH_WATER, summary_log2=SUMMARY_LOG2,
+    ).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_2PC10, got
+    st = c.store_stats()
+    assert st["spill_events"] >= 1 and st["suspects_checked"] > 0, st
+    assert plain == 1 and fused >= r.steps, (plain, fused, r.steps)
+    peak = torch.cuda.max_memory_allocated()
+    svc = r.detail["service_seconds"]
+    log(f"[tiered 2pc-10] generated={got[0]} unique={got[1]} depth={r.max_depth} "
+        f"steps={r.steps} sec={sec:.3f} generated_per_s={got[0] / sec:.0f} "
+        f"max_memory_allocated={peak} plain_launches={plain} fused_launches={fused}")
+    log("[tiered 2pc-10] store: " + " ".join(f"{k}={v}" for k, v in st.items()))
+    log(f"[tiered 2pc-10] service: {svc['calls']} calls, {svc['service']:.3f} s of "
+        f"{sec:.3f} s wall ({100 * svc['service'] / sec:.1f}%): compact "
+        f"{svc['compact']:.3f} s, suspect resolve {svc['resolve']:.3f} s, evict "
+        f"{svc['evict']:.3f} s")
+    assert set(r.discoveries) == {"abort agreement", "commit agreement"}, r.discoveries
+    paths = c.discoveries()
+    assert len(paths["abort agreement"]) - 1 == 10
+    assert len(paths["commit agreement"]) - 1 == 31
+    for name, path in paths.items():
+        c.assert_discovery(name, path.actions())
+    log("[tiered 2pc-10] discoveries replay: " + ", ".join(
+        f"{n} Path[{len(p) - 1}]" for n, p in sorted(paths.items())))
+    del c
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=fused, plain_launches=plain, steps=r.steps, peak=peak)
 
 
 def phase_profile(ph, torch):
@@ -392,11 +624,23 @@ def phase_profile(ph, torch):
 def main() -> int:
     import torch
 
+    only = None
+    if "--only" in sys.argv:
+        only = {int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
               file=sys.stderr)
         return 1
     from stateright_tpu_torch.tensor import pallas_hashtable as ph
+
+    def phase(n, name, fn, *args):
+        if only is not None and n not in only:
+            return None
+        t0 = time.monotonic()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log(f"[time] phase {n} ({name}): {time.monotonic() - t0:.1f} s")
+        return out
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -412,12 +656,29 @@ def main() -> int:
         for line in ph.build_log.strip().splitlines():
             log(f"[build]   {line.strip()}")
 
-    chk, gen, rand_keys = phase_kernel_vs_plain(ph, torch)
-    timing = phase_time_step_shape(ph, torch, chk, gen, rand_keys)
+    chk = InsertCheck(ph, torch)
+    gen, rand_keys = card_rng(torch)
+
+    def kernel_phase():
+        phase_kernel_vs_plain(ph, torch, chk, gen, rand_keys)
+        return phase_time_step_shape(ph, torch, chk, gen, rand_keys)
+
+    def fused_phase():
+        phase_kernel_vs_plain(ph, torch, chk, gen, rand_keys, fused=True)
+        return phase_fused_step_shape(ph, torch, chk, gen, rand_keys)
+
+    timing = phase(3, "kernel vs plain", kernel_phase)
     torch.cuda.empty_cache()
-    phase_anchors(ph, torch)
-    main_path = phase_2pc10(ph, torch)
-    phase_profile(ph, torch)
+    fused = phase(4, "fused kernel vs plain", fused_phase)
+    torch.cuda.empty_cache()
+    phase(5, "anchors", phase_anchors, ph, torch)
+    phase(6, "tiered anchor", phase_tiered_anchor, ph, torch)
+    device_path = phase(7, "2pc-10, device store", phase_2pc10, ph, torch)
+    tiered_path = phase(8, "2pc-10, tiered store", phase_2pc10_tiered, ph, torch)
+    phase(9, "profile", phase_profile, ph, torch)
+    if only is not None:
+        log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
+        return 0
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -425,11 +686,23 @@ def main() -> int:
         "route": "cuda",
         "source": "stateright_tpu_torch/csrc/visited_insert.cu",
         "replaces": "stateright_tpu/tensor/pallas_hashtable.py:127",
-        "launches": main_path["launches"],
+        "launches": device_path["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "visited_insert_bloom",
+        "route": "cuda",
+        "source": "stateright_tpu_torch/csrc/visited_insert.cu",
+        "replaces": "stateright_tpu/tensor/pallas_hashtable.py:246",
+        "launches": tiered_path["launches"],
+        "max_abs_err": float(chk.max_abs_err),
+        "ms": fused["ms"],
+        "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
     }]}))

@@ -41,10 +41,17 @@ class CheckerBuilder:
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device: str = "cuda",
+        store: str = "device",
+        high_water: float = 0.85,
+        low_water: Optional[float] = None,
+        summary_log2: int = 20,
     ):
         """Spawn the batched device checker (tensor/resident.py). It runs on
         the CUDA card unless `device="cpu"` is passed; with `device="cuda"`
-        and no CUDA device it raises instead of running elsewhere."""
+        and no CUDA device it raises instead of running elsewhere.
+        `store="tiered"` with `high_water`, `low_water` and `summary_log2`
+        lets the search outgrow the table (store/tiered.py); the handle's
+        `store_stats()` reports the tiers."""
         from .cuda import CudaChecker
 
         return CudaChecker(
@@ -53,4 +60,8 @@ class CheckerBuilder:
             table_log2=table_log2,
             queue_log2=queue_log2,
             device=device,
+            store=store,
+            high_water=high_water,
+            low_water=low_water,
+            summary_log2=summary_log2,
         )

@@ -26,6 +26,10 @@ class CudaChecker(Checker):
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device: str = "cuda",
+        store: str = "device",
+        high_water: float = 0.85,
+        low_water: Optional[float] = None,
+        summary_log2: int = 20,
     ):
         """The engine is built here, on the caller's thread, so a bad
         option or a missing CUDA device raises from spawn_cuda()."""
@@ -41,7 +45,8 @@ class CudaChecker(Checker):
         super().__init__(model)
         self._search = ResidentSearch(
             model, batch_size, table_log2, queue_log2=queue_log2,
-            device=device,
+            device=device, store=store, high_water=high_water,
+            low_water=low_water, summary_log2=summary_log2,
         )
         self._options = options
         self._result = None
@@ -83,6 +88,11 @@ class CudaChecker(Checker):
     def result(self):
         """The engine's SearchResult (None until the search finishes)."""
         return self._result
+
+    def store_stats(self):
+        """The tiered store's per-tier counters (None with the device
+        store); see ResidentSearch.store_stats."""
+        return self._search.store_stats()
 
     def discoveries(self) -> dict[str, Path]:
         if self._result is None:

@@ -8,6 +8,11 @@ from __future__ import annotations
 #: kernel in csrc/visited_insert.cu (plain torch version for CPU tensors).
 INSERT_VARIANTS = ("pallas",)
 
+#: Visited-state stores of the resident engine: "device" keeps every state
+#: in the device table; "tiered" spills cold table rows to the host
+#: (store/tiered.py) behind a Bloom summary of the spilled set.
+STORE_KINDS = ("device", "tiered")
+
 #: HasDiscoveries kinds (core/discovery.py), the early-finish policies the
 #: resident engine encodes as required/any bitmasks (tensor/resident.py).
 FINISH_KINDS = ("all", "any", "any_failures", "all_failures", "all_of", "any_of")

@@ -1,7 +1,8 @@
 """Step helpers of the batched device BFS (the JAX package's
 `tensor/frontier.py`), used by the resident engine (tensor/resident.py):
 seeding, the fused expand/fingerprint/insert core, queue pop and append,
-first-witness discovery recording, and path reconstruction.
+the tiered store's queue compaction and injection, first-witness discovery
+recording, and path reconstruction.
 
 The queue holds one row per unique state, in discovery order: states
 int64[Q, L], packed fingerprint keys, eventually bits and depths. Every
@@ -12,6 +13,8 @@ enqueue a chunk of steps and read its counters once.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -41,15 +44,21 @@ def seed_init(model: TensorModel):
     return init[keep], keys[keep], n_raw
 
 
-def expand_insert(model, insert, t_key, t_parent, states, keys, active):
+def expand_insert(model, insert, t_key, t_parent, states, keys, active,
+                  summary=None, summary_cfg=None):
     """The core of one step: expand, boundary-mask, fingerprint, and
     insert-if-absent into the visited table with parent keys (the insert
     also dedups within the batch).
 
     Returns (flat_states int64[K*A, L], succ_keys int64[K*A], is_new,
-    gen_rows int64[K], has_succ bool[K], overflow bool[]); flat row i came
-    from input row i // max_actions. `gen_rows` is the per-row post-boundary
-    pre-dedup successor count (ref: bfs.rs:288-291)."""
+    suspect, gen_rows int64[K], has_succ bool[K], overflow bool[]); flat row
+    i came from input row i // max_actions. `gen_rows` is the per-row
+    post-boundary pre-dedup successor count (ref: bfs.rs:288-291).
+
+    `summary` (int32 Bloom words, with `summary_cfg=(summary_log2, hashes)`)
+    is the tiered store's summary of the spilled set: the insert then runs
+    in its fused form and `suspect` marks the new keys that hit it (the
+    JAX package's verdict 3). Without a summary, `suspect` is all False."""
     K = states.shape[0]
     A = model.max_actions
     succs, valid = model.expand(states)
@@ -62,8 +71,15 @@ def expand_insert(model, insert, t_key, t_parent, states, keys, active):
     has_succ = validf.view(K, A).any(dim=1)
     succ_keys = state_fingerprint(model, flat)
     parents = keys.repeat_interleave(A)
-    _, _, is_new, overflow = insert(t_key, t_parent, succ_keys, parents, validf)
-    return flat, succ_keys, is_new, gen_rows, has_succ, overflow
+    if summary is None:
+        _, _, is_new, overflow = insert(t_key, t_parent, succ_keys, parents, validf)
+        suspect = torch.zeros_like(is_new)
+    else:
+        _, _, is_new, suspect, overflow = insert(
+            t_key, t_parent, succ_keys, parents, validf,
+            summary=summary, summary_cfg=summary_cfg,
+        )
+    return flat, succ_keys, is_new, suspect, gen_rows, has_succ, overflow
 
 
 def pop_batch(queue, head, tail, take_ok, arange_k):
@@ -105,6 +121,29 @@ def append_new(queue, tail, rows, is_new):
     for q, r in zip(queue, rows):
         q.index_copy_(0, qpos, r)
     return tail + n_new
+
+
+def compact_queue(queue, head: int, tail: int) -> int:
+    """Shift the live rows [head, tail) of every queue array to the front
+    (the JAX package's `resident.py::_compact_queue`, run at a tiered
+    service). Only the live rows are copied, through a clone of that slice,
+    because source and destination overlap. Returns the new tail."""
+    n = tail - head
+    if head and n:
+        for q in queue:
+            q[:n] = q[head:tail].clone()
+    return n
+
+
+def inject_rows(queue, tail: int, rows) -> int:
+    """Write a block of rows at the queue tail, one contiguous copy per
+    array (the JAX package's `resident.py::_inject_rows`: confirmed-new
+    suspects re-entering the frontier). The caller keeps the slack. Returns
+    the new tail."""
+    n = rows[0].shape[0]
+    for q, r in zip(queue, rows):
+        q[tail:tail + n] = r
+    return tail + n
 
 
 def record_discovery(discovered, disc_keys, i, hit, keys):
@@ -172,3 +211,4 @@ class SearchResult:
     complete: bool  # queue exhausted (vs early exit)
     duration: float
     steps: int = 0
+    detail: Optional[dict] = None  # tiered store counters; None otherwise

@@ -3,7 +3,10 @@ resolution point the engine and the table handle call (the JAX package's
 `tensor/inserts.py`). This slice has one variant, "pallas": the CUDA kernel
 for tensors on a CUDA device, its plain torch version for tensors on the
 CPU. There is no other rule and no fallback: a CUDA tensor always goes to
-the kernel, and a failed build or launch raises.
+the kernel, and a failed build or launch raises. Both forms of the insert go
+the same way: with a `summary` (the tiered store's Bloom words) the call is
+the fused Bloom-suspect form, on the card too — never the plain kernel
+followed by a separate `maybe_contains` pass.
 """
 
 from __future__ import annotations
@@ -12,11 +15,13 @@ from ..knobs import INSERT_VARIANTS
 from .pallas_hashtable import insert_kernel, insert_plain, partitions
 
 
-def _insert_pallas(t_key, t_parent, key, parent, active, n_partitions=None):
+def _insert_pallas(t_key, t_parent, key, parent, active, n_partitions=None,
+                   summary=None, summary_cfg=None):
+    args = (t_key, t_parent, key, parent, active, n_partitions, summary, summary_cfg)
     if t_key.device.type == "cuda":
-        return insert_kernel(t_key, t_parent, key, parent, active, n_partitions)
+        return insert_kernel(*args)
     if t_key.device.type == "cpu":
-        return insert_plain(t_key, t_parent, key, parent, active, n_partitions)
+        return insert_plain(*args)
     raise ValueError(f"no visited-set insert for device {t_key.device}")
 
 

@@ -8,33 +8,60 @@ retry loop) is not carried over — see the kernel's source note.
 
 Table: `t_key` int64[S] holds `hi << 32 | lo` (tensor/fingerprint.py
 pack_fp), 0 = empty slot; `t_parent` int64[S] holds the parent key of each
-stored key. The bucket function is the JAX kernel's: partition
-p = hi mod P (P = `partitions(S)`), home row (hi div P) mod (V/128) of 128
-slots, the chain wrapping within the partition (V = S/P). Keeping it means
-a JAX table converted with `from_jax_table` probes correctly here, and a
-partition overflows at the same occupancy.
+stored key, or 0 for none (a parent is 0 or a key, whose lo is never 0).
+The bucket function is the JAX kernel's: partition p = hi mod P
+(P = `partitions(S)`), home row (hi div P) mod (V/128) of 128 slots, the
+chain wrapping within the partition (V = S/P). Keeping it means a JAX table
+converted with `from_jax_table` probes correctly here, and a partition
+overflows at the same occupancy.
 
 Every insert shares one signature:
 
     insert(t_key, t_parent, key, parent, active)
         -> (t_key, t_parent, is_new bool[B], overflow bool[])
+    insert(..., summary=words, summary_cfg=(summary_log2, hashes))
+        -> (t_key, t_parent, is_new, suspect bool[B], overflow)
 
 and updates the two table tensors in place (PyTorch tensors are mutable;
-the JAX form returned new arrays).
+the JAX form returned new arrays). The second form is the fused
+Bloom-suspect form (the JAX kernel's verdict 3): `summary` is the tiered
+store's Bloom summary (int32[2^(summary_log2-5)] words, store/summary.py),
+and `suspect` marks the lanes that are new in this call AND whose k probe
+bits are all set — exactly `is_new & maybe_contains(summary, lo, hi)`. A
+suspect may be a revisit of a spilled state; the engine resolves it on the
+host instead of enqueueing it, while its claim stays in the table.
 
 Parity contract — the JAX module's (its lines 55-64) restated for the CAS
 design, and what the tests and chip_smoke.py hold the port to:
 
-- per call, the SET of newly won keys is the same as the JAX kernel's:
-  exactly one `is_new` lane per distinct key absent before the call;
-- every stored parent is one that was offered for that key by the call
-  that inserted it (the CUDA kernel lets any offering lane win the CAS; the
-  plain version `insert_plain` makes the lowest-index active lane win,
-  which is exactly the JAX kernel's attribution, so on the CPU `is_new` and
-  `dump()`, parents included, equal the JAX kernel's lane for lane);
+- per call, the new lane of each key absent before the call is the lowest
+  active lane offering it — the JAX kernel's serial attribution — and its
+  parent is the one stored. The CUDA kernel elects that lane after its CAS
+  claims (the kernel's note), and the plain version `insert_plain` computes
+  it directly; so `is_new`, `suspect` and `dump()`, parents included, equal
+  the JAX kernel's lane for lane on the CPU and the plain version's on the
+  card. Which slot a key lands in may differ where different keys race for
+  one slot;
 - overflow is never silent: a key whose partition has no empty slot sets
   `overflow`, and the engines abort with the table-full reason;
 - `dump()` is a {key: parent} dict and does not depend on slot order.
+
+Eviction and the chain scan. The CUDA kernel stops a chain scan at the
+first empty slot; the JAX kernel tests a whole row for the key before it
+looks for a free slot. Both are exact because every chain is "occupied
+prefix, then empty": a claim lands only on the first empty slot of its
+chain, entering each row at its first slot, so rows fill from the front.
+The tiered store (store/tiered.py) keeps that true. Its row sweep evicts
+only whole 128-slot rows that are not full — its eviction buckets are
+exactly the kernel's rows, since a partition is a whole number of rows. A
+chain passes a row only when the row is full at that moment; rows lose keys
+only to eviction, which never touches a full row; so every row on the way to
+a stored key stays full, an evicted row is all empty, and the prefix
+survives. Its partition pass empties a whole partition, and with it every
+chain that lives there, since chains wrap inside their partition. An
+evicted key re-offered later finds its chain's first empty slot before any
+copy of itself, is claimed fresh, and meets its own bits in the summary: a
+suspect, never a silent duplicate.
 """
 
 from __future__ import annotations
@@ -132,10 +159,8 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, so)
         build_log = proc.stderr
     lib = ctypes.CDLL(str(so))
-    lib.visited_insert.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-        ctypes.c_void_p,
-    ]
+    lib.visited_insert.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_longlong] * 5 + [ctypes.c_void_p]
     lib.visited_insert.restype = ctypes.c_int
     lib.visited_insert_error.argtypes = [ctypes.c_int]
     lib.visited_insert_error.restype = ctypes.c_char_p
@@ -143,7 +168,7 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(t_key, t_parent, key, parent, active) -> None:
+def _check_operands(t_key, t_parent, key, parent, active, summary, summary_cfg) -> None:
     for name, t, dtype in (
         ("t_key", t_key, torch.int64), ("t_parent", t_parent, torch.int64),
         ("key", key, torch.int64), ("parent", parent, torch.int64),
@@ -159,37 +184,74 @@ def _check_operands(t_key, t_parent, key, parent, active) -> None:
         raise ValueError("t_parent and t_key differ in size")
     if not (key.shape == parent.shape == active.shape):
         raise ValueError("key, parent and active differ in size")
+    if summary is None:
+        if summary_cfg is not None:
+            raise ValueError("summary_cfg given without a summary")
+        return
+    if summary_cfg is None:
+        raise ValueError("a summary needs summary_cfg=(summary_log2, hashes)")
+    slog2, hashes = summary_cfg
+    if not 5 <= slog2 <= 32 or hashes < 1:
+        raise ValueError(f"bad summary_cfg {summary_cfg!r}")
+    if summary.device != t_key.device or summary.dtype != torch.int32:
+        raise TypeError("summary must be int32 words on the table's device")
+    if summary.dim() != 1 or not summary.is_contiguous():
+        raise ValueError("summary must be a contiguous 1-D tensor")
+    if summary.shape[0] != 1 << (slog2 - 5):
+        raise ValueError(
+            f"summary has {summary.shape[0]} words; 2^{slog2} bits need "
+            f"{1 << (slog2 - 5)}"
+        )
 
 
-def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None):
+def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None,
+                  summary=None, summary_cfg=None):
     """Launch the CUDA kernel on the current stream (CUDA tensors only).
-    Returns (t_key, t_parent, is_new, overflow); the tables are updated in
-    place. Counts each launch in `insert_kernel.launches`."""
-    _check_operands(t_key, t_parent, key, parent, active)
+    Returns (t_key, t_parent, is_new, overflow), or with a summary
+    (t_key, t_parent, is_new, suspect, overflow); the tables are updated in
+    place. Counts each plain-form call in `insert_kernel.launches` and each
+    fused (summary) call in `insert_kernel.bloom_launches`."""
+    _check_operands(t_key, t_parent, key, parent, active, summary, summary_cfg)
     if t_key.device.type != "cuda":
         raise ValueError(f"insert_kernel needs CUDA tensors, got {t_key.device}")
     P, V = _geometry(t_key.shape[0], n_partitions)
-    lib = load_library()
     n = key.shape[0]
-    is_new = torch.empty(n, dtype=torch.bool, device=key.device)
-    overflow = torch.zeros(1, dtype=torch.int32, device=key.device)
+    if n >= 1 << 31:
+        raise ValueError("a call takes fewer than 2^31 lanes")
+    lib = load_library()
+    dev = key.device
+    is_new = torch.empty(n, dtype=torch.bool, device=dev)
+    suspect = None if summary is None else torch.empty(n, dtype=torch.bool, device=dev)
+    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    slog2, hashes = summary_cfg if summary is not None else (0, 0)
     if n:
-        stream = torch.cuda.current_stream(key.device).cuda_stream
+        slot_of = torch.empty(n, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.visited_insert(
             t_key.data_ptr(), t_parent.data_ptr(), key.data_ptr(),
-            parent.data_ptr(), active.data_ptr(), is_new.data_ptr(),
-            overflow.data_ptr(), n, P, V, stream,
+            parent.data_ptr(), active.data_ptr(), slot_of.data_ptr(),
+            is_new.data_ptr(), None if suspect is None else suspect.data_ptr(),
+            overflow.data_ptr(), None if summary is None else summary.data_ptr(),
+            slog2, hashes, n, P, V, stream,
         )
         if err:
             raise RuntimeError(
                 "visited_insert launch failed: "
                 + lib.visited_insert_error(err).decode()
             )
-        insert_kernel.launches += 1
-    return t_key, t_parent, is_new, overflow[0] != 0
+        if summary is None:
+            insert_kernel.launches += 1
+        else:
+            insert_kernel.bloom_launches += 1
+    elif suspect is not None:
+        suspect.zero_()
+    if summary is None:
+        return t_key, t_parent, is_new, overflow[0] != 0
+    return t_key, t_parent, is_new, suspect, overflow[0] != 0
 
 
 insert_kernel.launches = 0
+insert_kernel.bloom_launches = 0
 
 
 # -- the plain PyTorch version -----------------------------------------------
@@ -226,10 +288,13 @@ def _locate(t_key, key, n_partitions):
     return (hi % P) * V, ((hi // P) % (V // LANES)) * LANES, V
 
 
-def insert_plain(t_key, t_parent, key, parent, active, n_partitions=None):
+def insert_plain(t_key, t_parent, key, parent, active, n_partitions=None,
+                 summary=None, summary_cfg=None):
     """The kernel's function in vectorised torch ops (any device): the same
     table layout and result. For a key offered by several lanes, the
-    lowest-index active lane wins — the JAX kernel's attribution.
+    lowest-index active lane wins — the JAX kernel's attribution. With a
+    summary, `suspect = is_new & maybe_contains(summary, lo, hi)`, the
+    plain version of verdict 3.
 
     Three phases: probe each lane's chain to its key or first empty slot;
     among the absent keys keep the lowest lane of each; then claim in
@@ -237,13 +302,27 @@ def insert_plain(t_key, t_parent, key, parent, active, n_partitions=None):
     lowest lane per contested slot takes it, and the rest probe on. When a
     partition fills up, which of its new keys got in may differ from the
     JAX kernel's serial order; the overflow flag and the count agree."""
-    _check_operands(t_key, t_parent, key, parent, active)
+    _check_operands(t_key, t_parent, key, parent, active, summary, summary_cfg)
     dev = key.device
     is_new = torch.zeros(key.shape[0], dtype=torch.bool, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     lanes = torch.nonzero(active).squeeze(1)
-    if lanes.numel() == 0:
+    if lanes.numel():
+        _claim_plain(t_key, t_parent, key, parent, lanes, n_partitions,
+                     is_new, overflow)
+    if summary is None:
         return t_key, t_parent, is_new, overflow
+    from ..store.summary import maybe_contains
+
+    lo, hi = key & MASK32, (key >> 32) & MASK32
+    suspect = is_new & maybe_contains(summary, lo, hi, *summary_cfg)
+    return t_key, t_parent, is_new, suspect, overflow
+
+
+def _claim_plain(t_key, t_parent, key, parent, lanes, n_partitions, is_new, overflow):
+    """insert_plain's probe and claim rounds over the active `lanes`;
+    fills `is_new` and `overflow` in place."""
+    dev = key.device
     k = key[lanes]
     base, start, V = _locate(t_key, k, n_partitions)
     off = _first_key_or_empty(t_key, k, base, start, torch.zeros_like(k), V)
@@ -277,7 +356,6 @@ def insert_plain(t_key, t_parent, key, parent, active, n_partitions=None):
             out = w_off == V
             overflow |= out.any()
             w, w_off = w[~out], w_off[~out]
-    return t_key, t_parent, is_new, overflow
 
 
 def lookup(t_key, t_parent, key, n_partitions=None):
@@ -334,23 +412,33 @@ class InsertResult(NamedTuple):
 
 
 class PallasHashTable:
-    """Host handle over one CPU table, mirroring the JAX package's
+    """Host handle over one table, mirroring the JAX package's
     `PallasHashTable` (the tests hold the two side by side); `insert` goes
-    through the variant dispatch (tensor/inserts.py)."""
+    through the variant dispatch (tensor/inserts.py). The table lives on
+    the CUDA card unless `device="cpu"` is passed; with no CUDA device the
+    default raises."""
 
-    def __init__(self, log2_size: int, n_partitions: Optional[int] = None):
+    def __init__(self, log2_size: int, n_partitions: Optional[int] = None,
+                 device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is False; "
+                "pass device='cpu' to keep the table on the CPU"
+            )
         self.log2_size = log2_size
         self.size = 1 << log2_size
         self.n_partitions, _ = _geometry(self.size, n_partitions)
-        self.t_key = torch.zeros(self.size, dtype=torch.int64)
-        self.t_parent = torch.zeros(self.size, dtype=torch.int64)
+        self.t_key = torch.zeros(self.size, dtype=torch.int64, device=self.device)
+        self.t_parent = torch.zeros(self.size, dtype=torch.int64, device=self.device)
 
     def insert(self, key, parent, active) -> InsertResult:
         from .inserts import resolve_insert
 
         insert = resolve_insert("pallas")
         _, _, is_new, overflow = insert(
-            self.t_key, self.t_parent, key, parent, active,
+            self.t_key, self.t_parent, key.to(self.device),
+            parent.to(self.device), active.to(self.device),
             n_partitions=self.n_partitions,
         )
         return InsertResult(is_new, overflow)

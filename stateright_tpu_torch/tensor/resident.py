@@ -1,5 +1,5 @@
 """Device-resident breadth-first search (the JAX package's
-`tensor/resident.py::ResidentSearch`, device store only).
+`tensor/resident.py::ResidentSearch`, with its device and tiered stores).
 
 The frontier queue and the visited table live on the device. Each step pops
 a batch (one gather at `head`), evaluates the property masks, expands,
@@ -19,6 +19,17 @@ Capacity: every unique state is enqueued exactly once, so a queue of
 the search has that many unique states; crossing it sets ABORT_QUEUE, a
 full table partition sets ABORT_TABLE, and run() raises with the reason —
 never a silent drop.
+
+store="tiered" (store/tiered.py) lets the unique states outnumber the
+table. Each step inserts through the fused Bloom-suspect form of the
+kernel: a new key that hits the summary of the spilled set is a suspect
+and goes to a suspect buffer instead of the queue. A step sets the
+non-fatal EXIT_SERVICE bit when the claims reach the spill trigger, the
+suspect buffer nears full, the queue tail passes 2^queue_log2, or a table
+partition nears full (store/tiered.py says why the last one); like any
+overflow bit it turns the chunk's remaining steps into no-ops, and the
+host then runs `_service` (compact the queue, resolve the suspects and
+enqueue the confirmed-new ones, evict) and resumes the same carry.
 """
 
 from __future__ import annotations
@@ -26,16 +37,19 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
-from ..knobs import FINISH_KINDS
+from ..knobs import FINISH_KINDS, STORE_KINDS
 from .fingerprint import from_host_fp, to_host_fp
 from .frontier import (
     SearchResult,
     append_new,
+    compact_queue,
     expand_insert,
+    inject_rows,
     pop_batch,
     reconstruct_path,
     record_discovery,
@@ -48,6 +62,9 @@ from .pallas_hashtable import dump_table, lookup
 # Abort-code bits of the carry's `overflow` counter (nonzero stops the search).
 ABORT_TABLE = 1  # a visited-table partition is full
 ABORT_QUEUE = 2  # the frontier queue tail crossed its capacity
+# Non-fatal bit (store="tiered"): the host must service the tiered store,
+# then the search resumes.
+EXIT_SERVICE = 4
 
 # Steps enqueued between host reads of the counters: the granularity of the
 # timeout and of progress reports.
@@ -88,13 +105,21 @@ def _finish_masks(finish_when: HasDiscoveries, props) -> tuple[int, int]:
 
 
 class _TableParents:
-    """`.get(fp, 0)` over the device table, probing one key at a time —
-    path reconstruction walks a few dozen keys, never the whole table."""
+    """`.get(fp, 0)` over the visited set, one key at a time — path
+    reconstruction walks a few dozen keys, never the whole table. With a
+    tiered store the spill tier answers first: a suspect that was a
+    duplicate keeps a later claim in the table, and the spilled entry holds
+    the parent the BFS first wrote, which keeps paths acyclic (the JAX
+    engine's build_parent_map lets the spill tier win the same way)."""
 
-    def __init__(self, t_key, t_parent):
-        self.t_key, self.t_parent = t_key, t_parent
+    def __init__(self, t_key, t_parent, store=None):
+        self.t_key, self.t_parent, self.store = t_key, t_parent, store
 
     def get(self, fp: int, default: int = 0) -> int:
+        if self.store is not None:
+            found, parent = self.store.store.parents(np.array([fp], dtype=np.uint64))
+            if found[0]:
+                return int(parent[0]) or default
         key = torch.tensor([from_host_fp(fp)], dtype=torch.int64,
                            device=self.t_key.device)
         parent = int(to_host_fp(lookup(self.t_key, self.t_parent, key))[0])
@@ -111,11 +136,21 @@ class ResidentSearch:
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device="cuda",
+        store: str = "device",
+        high_water: float = 0.85,
+        low_water: Optional[float] = None,
+        summary_log2: int = 20,
     ):
         """`queue_log2` caps the frontier queue at 2^queue_log2 rows
-        (default: table_log2, the always-sufficient bound; 2pc-10 needs
-        2^26 for its 61.5 M unique states). `device` defaults to the CUDA card; with no
-        CUDA device it raises — pass device="cpu" to run on the CPU."""
+        (default: table_log2, the always-sufficient bound with the device
+        store; 2pc-10 needs 2^26 for its 61.5 M unique states). `device`
+        defaults to the CUDA card; with no CUDA device it raises — pass
+        device="cpu" to run on the CPU.
+
+        `store="tiered"` spills cold table rows to the host past
+        `high_water` fill, down to `low_water` (default high_water - 0.25),
+        behind a Bloom summary of 2^summary_log2 bits (~6 bits per spilled
+        state keeps suspects rare); see store/tiered.py."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -123,16 +158,68 @@ class ResidentSearch:
                 "pass device='cpu' to run the search on the CPU"
             )
         check_table_log2(table_log2)
+        if store not in STORE_KINDS:  # knob universe: knobs.py
+            raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
         self.queue_log2 = table_log2 if queue_log2 is None else queue_log2
         self.insert = resolve_insert("pallas")
         self.props = model.properties()
+        self.store = store
+        self._store = None
+        self._store_args = (high_water, low_water, summary_log2)
+        ka = batch_size * model.max_actions
+        S = 1 << table_log2
+        if store == "tiered":
+            self._fresh_store()
+            # One step can claim up to K*A slots, and eviction runs only
+            # between steps.
+            self._spill_trigger = min(self._store.high_slots, S - ka)
+            if self._spill_trigger <= self._store.low_slots:
+                raise ValueError(
+                    "table too small for tiered spilling at this batch: "
+                    f"table 2^{table_log2} minus one batch of claims ({ka}) "
+                    "leaves no room above the low-water mark "
+                    f"({self._store.low_slots} slots); raise table_log2 or "
+                    "lower batch_size/low_water"
+                )
+            # Suspect buffer: 2 steps of accumulation + 1 step of append
+            # slack before a service exit is forced.
+            self._SQ = 3 * ka
+        else:
+            self._spill_trigger = 0
+            self._SQ = 0
         # Rows of slack past the nominal queue capacity: one step appends at
         # most K*A rows (append_new writes a full K*A block at the tail).
-        self._Q = (1 << self.queue_log2) + batch_size * model.max_actions
+        # Tiered: the live frontier still fits 2^queue_log2 after a service's
+        # compaction, which then injects up to SQ confirmed suspects; one
+        # more K*A block keeps the scratch writes of the no-op steps after a
+        # service exit off live rows (the suspect buffer has the same block).
+        self._QL = 1 << self.queue_log2
+        self._Q = self._QL + ka + (self._SQ + ka if store == "tiered" else 0)
         self._c = None  # the carry: dict of device tensors (see _seed)
+        self._q_compacted = False
+        #: host seconds spent in each part of `_service` during the last run.
+        self.service_seconds = {}
+
+    def _fresh_store(self) -> None:
+        """(Re)build the tiered store: a fresh search owes nothing to an
+        earlier run's spill tier or summary."""
+        from ..store.tiered import TieredConfig, TieredStore
+
+        if self._store is not None:
+            self._store.close()  # stop the old spill tier's compactor
+        high_water, low_water, summary_log2 = self._store_args
+        # A partition at 7/8 full exits to a service that empties it (see
+        # TieredStore.evict): a step claims far fewer than 1/8 of a
+        # partition, and one that claims more aborts, never silently.
+        self._store = TieredStore(
+            1 << self.table_log2,
+            TieredConfig(high_water=high_water, low_water=low_water,
+                         summary_log2=summary_log2),
+            device=self.device,
+        )
 
     # -- the carry ---------------------------------------------------------
 
@@ -156,6 +243,7 @@ class ResidentSearch:
             q_depth=torch.zeros(Q, **i64),
         )
         keys = keys.to(dev)
+        # The seed insert meets an empty summary: always the plain form.
         _, _, is_new, ovf = self.insert(
             c["t_key"], c["t_parent"], keys, torch.zeros_like(keys),
             torch.ones(n0, dtype=torch.bool, device=dev),
@@ -180,7 +268,21 @@ class ResidentSearch:
             overflow=torch.where(ovf, ABORT_TABLE, 0).to(torch.int64),
             steps=zero.clone(),
         )
+        if self._store is not None:
+            self._fresh_store()
+            SB = self._SQ + K * model.max_actions
+            c.update(
+                hot=is_new.sum(),
+                s_states=torch.zeros((SB, L), **i64),
+                s_keys=torch.zeros(SB, **i64),
+                s_ebits=torch.zeros(SB, **i64),
+                s_depth=torch.zeros(SB, **i64),
+                s_tail=zero.clone(),
+                summary=self._store.summary,
+            )
         self._c = c
+        self._q_compacted = False
+        self.service_seconds = {}
         self._arange_k = torch.arange(K, device=dev)
         return n0, n_raw
 
@@ -201,6 +303,7 @@ class ResidentSearch:
         """One BFS step on the device (no host sync); a no-op unless `go`."""
         model, props = self.model, self.props
         K, A = self.batch_size, model.max_actions
+        tiered = self._store is not None
         queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
         states, keys, ebits, depth, active, c["head"] = pop_batch(
             queue, c["head"], c["tail"], go, self._arange_k
@@ -229,8 +332,10 @@ class ResidentSearch:
                 ebits = torch.where(mask, ebits & ~(1 << i), ebits)
 
         # -- expand + fingerprint + dedup + insert ---------------------------
-        flat, succ_keys, is_new, gen_rows, has_succ, ovf = expand_insert(
-            model, self.insert, c["t_key"], c["t_parent"], states, keys, active
+        flat, succ_keys, is_new, suspect, gen_rows, has_succ, ovf = expand_insert(
+            model, self.insert, c["t_key"], c["t_parent"], states, keys, active,
+            summary=c["summary"] if tiered else None,
+            summary_cfg=self._store.summary_cfg if tiered else None,
         )
         c["gen"] = c["gen"] + gen_rows.sum()
 
@@ -245,20 +350,32 @@ class ResidentSearch:
         c["discovered"] = discovered
 
         # -- append the new states at the queue tail -------------------------
-        tail = append_new(
-            queue, c["tail"],
-            (flat, succ_keys, ebits.repeat_interleave(A),
-             depth.repeat_interleave(A) + 1),
-            is_new,
-        )
+        # Tiered: a suspect is buffered for exact host resolution instead of
+        # enqueued (a summary miss proves novelty); its claim stays in the
+        # table either way, which dedups its further offers on the device.
+        rows = (flat, succ_keys, ebits.repeat_interleave(A),
+                depth.repeat_interleave(A) + 1)
+        tail = append_new(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
         c["unique"] = c["unique"] + (tail - c["tail"])
         c["tail"] = tail
-        q_full = tail > self._Q - K * A
-        c["overflow"] = (
-            c["overflow"]
-            | torch.where(ovf, ABORT_TABLE, 0)
-            | torch.where(q_full, ABORT_QUEUE, 0)
-        )
+        code = torch.where(ovf, ABORT_TABLE, 0)
+        if tiered:
+            c["hot"] = c["hot"] + is_new.sum()
+            sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
+            c["s_tail"] = append_new(sbuf, c["s_tail"], rows, suspect)
+            # The reference's three exits, and a fourth of the port's: a
+            # partition near full (chains wrap inside a partition, so it
+            # would abort whatever the rest of the table holds).
+            service = (
+                (c["hot"] >= self._spill_trigger)
+                | (c["s_tail"] > self._SQ - K * A)
+                | (tail > self._QL)
+                | (self._part_max(c) >= self._store.risk_slots)
+            )
+            code = code | torch.where(service, EXIT_SERVICE, 0)
+        else:
+            code = code | torch.where(tail > self._Q - K * A, ABORT_QUEUE, 0)
+        c["overflow"] = c["overflow"] | code
         c["steps"] = c["steps"] + go.to(torch.int64)
 
     # -- host entry ------------------------------------------------------------
@@ -294,6 +411,7 @@ class ResidentSearch:
         target = int(target_state_count or 0)
         tmd = int(target_max_depth or 0)
         c = self._c
+        zero = torch.zeros((), dtype=torch.int64, device=self.device)
         timed_out = False
         while True:
             for _ in range(CHUNK_STEPS):
@@ -301,19 +419,30 @@ class ResidentSearch:
                 self._step(c, go, tmd)
             go = self._should_continue(c, req, anym, target, max_steps)
             # ONE device->host read per chunk.
-            (gen, unique, max_depth, overflow, stop) = (
+            (gen, unique, max_depth, overflow, stop, n_suspects) = (
                 int(x) for x in torch.stack(
                     [c["gen"], c["unique"], c["max_depth"], c["overflow"],
-                     (~go).to(torch.int64)]
+                     (~go).to(torch.int64), c.get("s_tail", zero)]
                 ).cpu()
             )
+            if overflow & EXIT_SERVICE and not overflow & (ABORT_TABLE | ABORT_QUEUE):
+                # Non-fatal: service the tiered store, resume the same carry.
+                self._service()
+                continue
             if overflow:
                 raise RuntimeError(
                     f"hash table or queue full — {_abort_reason(overflow)}"
                 )
+
             if progress is not None:
                 progress(gen, unique, max_depth)
             if stop:
+                if n_suspects:
+                    # The queue drained with suspects still buffered: the
+                    # confirmed-new ones reopen the frontier; the next chunk
+                    # re-evaluates the stop with an empty buffer.
+                    self._service()
+                    continue
                 break
             if timeout is not None and time.monotonic() - start > timeout:
                 timed_out = True
@@ -326,6 +455,9 @@ class ResidentSearch:
             for i, p in enumerate(self.props)
             if discovered & (1 << i)
         }
+        detail = None
+        if self._store is not None:
+            detail = dict(self.store_stats(), service_seconds=dict(self.service_seconds))
         return SearchResult(
             state_count=gen,
             unique_state_count=unique,
@@ -334,7 +466,84 @@ class ResidentSearch:
             complete=int(c["head"]) >= int(c["tail"]) and not timed_out,
             duration=time.monotonic() - start,
             steps=int(c["steps"]),
+            detail=detail,
         )
+
+    def _part_max(self, c) -> torch.Tensor:
+        """Occupied slots of the fullest partition: one pass over the
+        table's keys (tiered, once a step)."""
+        return self._store.partition_fill(c["t_key"]).max()
+
+    def _service(self) -> None:
+        """Host half of the tiered store, run between chunks on an
+        EXIT_SERVICE (or a drained queue with buffered suspects) — the JAX
+        engine's `_service`:
+
+        1. compact the frontier queue (live rows shift to the front: with
+           spilling, the unique states outnumber the table, so the
+           append-only tail would otherwise grow without bound);
+        2. drain the suspect buffer: exact membership against the spill
+           tier; duplicates are dropped, Bloom false positives are injected
+           at the queue tail and counted unique;
+        3. at or past the spill trigger, or with a partition near full,
+           evict: non-full rows, and every partition near full whole, move
+           to the spill tier and the summary absorbs their keys. If nothing
+           can be freed (every row full), raise.
+
+        Then the service bit is cleared and the caller resumes the carry."""
+        t0 = time.monotonic()
+        c, store, dev = self._c, self._store, self.device
+        head, tail, s_tail, hot, unique = (
+            int(x) for x in torch.stack(
+                [c["head"], c["tail"], c["s_tail"], c["hot"], c["unique"]]
+            ).cpu()
+        )
+        queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
+        if head > 0:
+            tail = compact_queue(queue, head, tail)
+            head = 0
+            self._q_compacted = True
+        t1 = time.monotonic()
+        if tail > self._QL:
+            raise RuntimeError(
+                f"frontier queue full — {_abort_reason(ABORT_QUEUE)}; the live "
+                "frontier exceeds the compacted queue"
+            )
+        if s_tail > 0:
+            dup = store.resolve_suspects(c["s_keys"][:s_tail])
+            keep = torch.from_numpy(~dup).to(dev)
+            n_conf = int((~dup).sum())
+            if n_conf:
+                sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
+                tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
+                unique += n_conf
+        t2 = time.monotonic()
+        at_risk = int(self._part_max(c)) >= store.risk_slots
+        if hot >= self._spill_trigger or at_risk:
+            freed = store.evict(c["t_key"], c["t_parent"], hot)
+            if freed == 0:
+                raise RuntimeError(
+                    "tiered store could not free any bucket (every bucket "
+                    "is full and pinned); raise table_log2 or lower "
+                    "high_water"
+                )
+            hot -= freed
+        i64 = dict(dtype=torch.int64, device=dev)
+        c.update(
+            head=torch.tensor(head, **i64),
+            tail=torch.tensor(tail, **i64),
+            unique=torch.tensor(unique, **i64),
+            hot=torch.tensor(hot, **i64),
+            s_tail=torch.zeros((), **i64),
+            overflow=torch.zeros((), **i64),
+        )
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t3 = time.monotonic()
+        for part, sec in (("compact", t1 - t0), ("resolve", t2 - t1),
+                          ("evict", t3 - t2), ("service", t3 - t0)):
+            self.service_seconds[part] = self.service_seconds.get(part, 0.0) + sec
+        self.service_seconds["calls"] = self.service_seconds.get("calls", 0) + 1
 
     # -- after the search --------------------------------------------------------
 
@@ -343,25 +552,47 @@ class ResidentSearch:
             raise RuntimeError("no search to read: run() has not been called")
         return self._c
 
+    def store_stats(self) -> Optional[dict]:
+        """Per-tier counters of the tiered store (None with the device
+        store): hot_fill, spilled_states, spill_events, suspects_checked,
+        suspects_dup and the eviction byte counts."""
+        if self._store is None:
+            return None
+        hot = int(self._c["hot"]) if self._c is not None else 0
+        return self._store.stats(hot)
+
     def build_parent_map(self) -> dict:
         """{fingerprint: parent fingerprint (0 = init)} over the whole visited
-        table, as host uint64 ints (one transfer; test-scale searches)."""
+        set, as host uint64 ints (one transfer; test-scale searches). Spill
+        entries win on keys present in both tiers (see _TableParents)."""
         c = self._carry()
-        return dump_table(c["t_key"], c["t_parent"])
+        out = dump_table(c["t_key"], c["t_parent"])
+        if self._store is not None:
+            out.update(self._store.parent_map())
+        return out
 
     def reconstruct_path(self, fp: int):
-        """TLC-style reconstruction: walk parent pointers in the device table
-        (one probe per step), then re-execute the model."""
+        """TLC-style reconstruction: walk parent pointers (spill tier first,
+        then one table probe per step), then re-execute the model."""
         c = self._carry()
         return reconstruct_path(
-            self.model, _TableParents(c["t_key"], c["t_parent"]), fp, self.device
+            self.model, _TableParents(c["t_key"], c["t_parent"], self._store),
+            fp, self.device,
         )
 
     def dump_states(self, decode: bool = True, evaluated_only: bool = False):
         """Every unique state the search reached, from the queue in one
         transfer (rows [0, tail) are exactly the unique states ever
-        enqueued; `evaluated_only` stops at the rows the search popped)."""
+        enqueued; `evaluated_only` stops at the rows the search popped).
+        Refused once a tiered service has compacted the queue."""
         c = self._carry()
+        if self._q_compacted:
+            raise RuntimeError(
+                "dump_states is unavailable once the tiered store has "
+                "compacted the frontier queue (rows [0, tail) no longer "
+                "cover every unique state; spilled states live on the host) "
+                "— use store='device' for exact state-set dumps"
+            )
         end = int(c["head"] if evaluated_only else c["tail"])
         rows = c["q_states"][:end].cpu().numpy()
         if not decode:

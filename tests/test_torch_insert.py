@@ -1,7 +1,9 @@
 """The port's plain visited-set insert (stateright_tpu_torch/tensor/
 pallas_hashtable.py insert_plain, the CPU form of the CUDA kernel) against
 the JAX package's Pallas kernel in interpret mode: per call `is_new` lane
-for lane, `dump()` keys and parents, overflow, and table conversion."""
+for lane, `dump()` keys and parents, overflow, and table conversion; and
+the fused Bloom-suspect form (verdict 3) against the JAX engine insert
+built with `summary_cfg`."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +37,7 @@ def _port_args(lo, hi, plo, phi, active):
 def test_plain_insert_equals_jax_kernel_lane_for_lane(pool_size):
     rng = np.random.default_rng(7)
     jt = JaxTable(13, n_partitions=8, interpret=True)
-    pt = ph.PallasHashTable(13, n_partitions=8)
+    pt = ph.PallasHashTable(13, n_partitions=8, device="cpu")
     for lo, hi, plo, phi, active in _batches(rng, 4, 256, pool_size):
         rj = jt.insert(*(jnp.asarray(a) for a in (lo, hi, plo, phi, active)))
         rp = pt.insert(*_port_args(lo, hi, plo, phi, active))
@@ -47,7 +49,7 @@ def test_plain_insert_equals_jax_kernel_lane_for_lane(pool_size):
 
 def test_repeated_batch_gives_no_new_keys():
     rng = np.random.default_rng(1)
-    pt = ph.PallasHashTable(12)
+    pt = ph.PallasHashTable(12, device="cpu")
     batch = next(_batches(rng, 1, 512, 300))
     args = _port_args(*batch)
     first = pt.insert(*args)
@@ -66,7 +68,7 @@ def test_overflow_reported_in_both():
     par = np.ones(1500, np.uint32)
     act = np.ones(1500, bool)
     jt = JaxTable(10, n_partitions=1, interpret=True)
-    pt = ph.PallasHashTable(10, n_partitions=1)
+    pt = ph.PallasHashTable(10, n_partitions=1, device="cpu")
     rj = jt.insert(*(jnp.asarray(a) for a in (lo, hi, par, par, act)))
     rp = pt.insert(*_port_args(lo, hi, par, par, act))
     assert bool(rj.overflow) and bool(rp.overflow)
@@ -128,9 +130,92 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     class FakeTable:
         device = FakeDevice()
 
-    monkeypatch.setattr(inserts, "insert_kernel", lambda *a: seen.append("kernel"))
-    monkeypatch.setattr(inserts, "insert_plain", lambda *a: seen.append("plain"))
-    resolve_insert("pallas")(FakeTable(), None, None, None, None)
-    assert seen == ["kernel"]
+    monkeypatch.setattr(inserts, "insert_kernel", lambda *a: seen.append(("kernel", a[6])))
+    monkeypatch.setattr(inserts, "insert_plain", lambda *a: seen.append(("plain", a[6])))
+    insert = resolve_insert("pallas")
+    insert(FakeTable(), None, None, None, None)
+    # The fused form goes to the same kernel, summary and all: never to the
+    # plain kernel followed by a separate probe.
+    insert(FakeTable(), None, None, None, None, summary="words", summary_cfg=(14, 4))
+    assert seen == [("kernel", None), ("kernel", "words")]
     with pytest.raises(ValueError):
         resolve_insert("sort")
+
+
+def test_pallas_hash_table_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ph.PallasHashTable(12)
+    assert ph.PallasHashTable(12, device="cpu").t_key.device.type == "cpu"
+
+
+def _fused_inputs():
+    """The inputs of tests/test_pallas_hashtable.py::
+    test_fused_bloom_probe_matches_maybe_contains: 256 keys, the first half
+    "previously spilled" (their bits set in a 2^14-bit summary)."""
+    from stateright_tpu.store.summary import host_insert, summary_words
+
+    slog2, khash = 14, 4
+    rng = np.random.default_rng(3)
+    B = 256
+    lo = rng.integers(1, 2**32, B, dtype=np.uint32)
+    hi = rng.integers(0, 2**32, B, dtype=np.uint32)
+    words = np.zeros(summary_words(slog2), dtype=np.uint32)
+    host_insert(words, lo[: B // 2], hi[: B // 2], slog2, khash)
+    par = rng.integers(1, 2**31, B, dtype=np.uint32)
+    return (slog2, khash), lo, hi, par, words
+
+
+def test_fused_plain_insert_equals_jax_engine_insert():
+    from stateright_tpu.store.summary import maybe_contains
+    from stateright_tpu.tensor.pallas_hashtable import make_engine_insert
+
+    cfg, lo, hi, par, words = _fused_inputs()
+    B = lo.shape[0]
+    # Repeat the batch with shuffled duplicates so that lowest-lane
+    # attribution is exercised too.
+    rng = np.random.default_rng(4)
+    ix = np.concatenate([np.arange(B), rng.integers(0, B, B)])
+    lo, hi, par = lo[ix], hi[ix], par[ix]
+    active = rng.random(ix.size) < 0.95
+    insert = make_engine_insert(summary_cfg=cfg, n_partitions=4, interpret=True)
+    z = jnp.zeros(1 << 12, dtype=jnp.uint32)
+    tl, th, pl_, ph_, is_new_j, suspect_j, ovf_j = insert(
+        z, z, z, z, jnp.asarray(lo), jnp.asarray(hi), jnp.asarray(par),
+        jnp.asarray(par), jnp.asarray(active), jnp.asarray(words),
+    )
+    t_key = torch.zeros(1 << 12, dtype=torch.int64)
+    t_par = torch.zeros_like(t_key)
+    key, parent, act = _port_args(lo, hi, par, par, active)
+    summary = torch.from_numpy(words.view(np.int32))
+    _, _, is_new, suspect, ovf = ph.insert_plain(
+        t_key, t_par, key, parent, act, n_partitions=4,
+        summary=summary, summary_cfg=cfg,
+    )
+    assert not bool(ovf) and not bool(ovf_j)
+    np.testing.assert_array_equal(is_new.numpy(), np.asarray(is_new_j))
+    np.testing.assert_array_equal(suspect.numpy(), np.asarray(suspect_j))
+    assert 0 < int(suspect.sum()) < int(is_new.sum())
+    # suspect == is_new & maybe_contains, bit for bit.
+    want = np.asarray(is_new_j) & maybe_contains(words, lo, hi, *cfg)
+    np.testing.assert_array_equal(suspect.numpy(), want)
+    # The same table, slot for slot.
+    for got, ref in zip(ph.to_jax_table(t_key, t_par), (tl, th, pl_, ph_)):
+        np.testing.assert_array_equal(got, np.asarray(ref))
+
+
+def test_fused_form_without_a_summary_bit_set_flags_nothing():
+    cfg, lo, hi, par, _ = _fused_inputs()
+    key, parent, act = _port_args(lo, hi, par, par, np.ones(lo.size, bool))
+    empty = torch.zeros(1 << (cfg[0] - 5), dtype=torch.int32)
+    t_key = torch.zeros(1 << 12, dtype=torch.int64)
+    t_par = torch.zeros_like(t_key)
+    out = resolve_insert("pallas")(
+        t_key, t_par, key, parent, act, summary=empty, summary_cfg=cfg
+    )
+    assert len(out) == 5 and int(out[2].sum()) == lo.size and not bool(out[3].any())
+    with pytest.raises(ValueError, match="summary_cfg"):
+        ph.insert_plain(t_key, t_par, key, parent, act, summary=empty)
+    with pytest.raises(ValueError, match="words"):
+        ph.insert_plain(t_key, t_par, key, parent, act, summary=empty[:-1],
+                        summary_cfg=cfg)

@@ -41,6 +41,10 @@ def test_running_the_port_loads_neither_jax_nor_the_jax_package():
         "c = TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12, device='cpu').join()\n"
         "assert (c.state_count(), c.unique_state_count()) == (1146, 288)\n"
         "c.discoveries()\n"
+        "t = TensorTwoPhaseSys(3).checker().spawn_cuda(batch_size=16, table_log2=9,\n"
+        "    store='tiered', high_water=0.5, summary_log2=12, device='cpu').join()\n"
+        "assert t.unique_state_count() == 288 and t.store_stats()['spill_events'] >= 1\n"
+        "t.discoveries()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
         "assert not bad, bad\n"
