@@ -12,12 +12,19 @@ seconds on a line of its own:
    plain and fused Bloom-suspect forms);
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
    card — a heavy-duplicate pool, a 2^20-lane batch into a 2^24-slot table
-   at half load, an overflow case, and a batch shaped like one 2pc-10 step
-   (1,703,936 lanes into 2^27 slots at half load), which is also timed;
+   at half load, an overflow case, the stress cases of
+   stateright_tpu_torch/tensor/insert_cases.py (a chain crossing a row, one
+   wrapping past its partition, one empty slot for two new keys, 0.97 fill,
+   one key on 64 lanes among racing keys, no active lane), and a batch
+   shaped like one 2pc-10 step (1,703,936 lanes into 2^27 slots at half
+   load), which is also timed, with the CUDA launches one call makes;
 4. fused kernel vs plain: the same cases again with a populated Bloom
    summary, and the 2pc-10 step shape against a 2^25-slot table at the
    high-water fill with a 2^28-bit summary of ~38 M spilled keys, timed
-   (fused kernel, plain-form kernel, plain version);
+   (fused kernel, plain-form kernel, plain version) beside its bound and
+   the bucket layout's scan floor, with the CUDA launches of one fused call
+   and the keys that repeated kernel calls place in other slots than the
+   plain version does;
 5. anchors through `spawn_cuda()`: LinearEquation(2, 4, 7), 2pc-3, 2pc-4
    and 2pc-5 at their golden counts, each going through the kernel, and
    each equal to the CPU run in counts, depth and discoveries;
@@ -35,15 +42,23 @@ The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only 2,4,6` runs a subset (no result lines).
 
+Kernel times are medians of 20 CUDA-event runs, the table restored before
+each: `ms` is the time a caller that waits sees, from an idle card, the
+host's work to issue the call included; `device_ms` is the device's time
+alone (the host's work hidden behind a spin kernel).
+
 `max_abs_err` of the insert compares what the kernel and the plain version
 return and store, not floats: the largest absolute difference, over every
 comparison above, between their per-lane `is_new` (and `suspect`) flags,
 the sorted stored keys and parents of the two tables, and their new-key
-counts (0 = identical).
+counts (0 = identical). Every kernel call in phases 3 and 4, checked or
+timed, runs under `torch.cuda.set_sync_debug_mode("error")`: a host sync in
+the wrapper would raise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -59,15 +74,28 @@ GOLDEN_2PC10 = (817_760_258, 61_515_776)
 TABLE_TIERED, HIGH_WATER, SUMMARY_LOG2 = 25, 0.85, 28
 SPILLED_AT_STEP = 38_000_000  # summary load of the fused step-shape case
 STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspects_dup")
+# Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
+# csrc/visited_insert.cu), one 32-byte sector each.
+PROBE_SECTORS = 8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def median_ms(fn, setup, reps=20):
+# A spin kernel's length: ~10 ms at the H100's boost clock, far longer than
+# the host takes to issue one insert call, hiccups of a shared host included.
+SPIN_CYCLES = 20_000_000
+
+
+def median_ms(fn, setup, reps=20, hide_host=False):
     """Median CUDA-event time of fn() over `reps` runs, `setup()` untimed
-    before each; one warm-up run first."""
+    before each; one warm-up run first. The card is idle when the start
+    event is recorded, so the time takes in the host's work to issue fn
+    (Python, the wrapper's checks and allocations, the launches), as a
+    caller that waits on the call sees it. With `hide_host`, a spin kernel
+    keeps the card busy while the host enqueues the start event, fn's work
+    and the end event: the events then bracket only the device's time."""
     import torch
 
     setup()
@@ -78,12 +106,30 @@ def median_ms(fn, setup, reps=20):
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hide_host:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def no_host_sync(torch):
+    """Any synchronising torch call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def kernel_call(ph, torch, *args, **kw):
+    """ph.insert_kernel under no_host_sync."""
+    with no_host_sync(torch):
+        return ph.insert_kernel(*args, **kw)
 
 
 def stored_pairs(torch, t_key, t_parent):
@@ -132,7 +178,7 @@ class InsertCheck:
         kt = [t.clone() for t in tables]
         pt = [t.clone() for t in tables]
         kw = dict(summary=summary, summary_cfg=summary_cfg)
-        out_k = ph.insert_kernel(*kt, key, parent, active, n_partitions, **kw)
+        out_k = kernel_call(ph, torch, *kt, key, parent, active, n_partitions, **kw)
         out_p = ph.insert_plain(*pt, key, parent, active, n_partitions, **kw)
         torch.cuda.synchronize()
         new_k, ovf_k, new_p, ovf_p = out_k[2], out_k[-1], out_p[2], out_p[-1]
@@ -230,7 +276,32 @@ def phase_kernel_vs_plain(ph, torch, chk, gen, rand_keys, fused=False):
         + (f", {int(sus.sum())} suspects" if fused else ""))
     del t_key, t_par, present
 
-    # (c) overflow: 1500 distinct keys into 1024 slots (one partition).
+    # (c) the stress cases, 2^16 lanes into 2^16 slots (64 partitions of
+    # 1024, or one partition at 0.97 fill).
+    from stateright_tpu_torch.tensor.insert_cases import CASES, make_case
+
+    for name in CASES:
+        case = make_case(name, 16, 1 << 16, seed=20261016, device=dev)
+        kw = summary_of(case.spilled, 14)
+        kt, new, sus = chk.compare(16, case.key, case.parent, case.active,
+                                   n_partitions=case.n_partitions,
+                                   tables=(case.t_key, case.t_parent),
+                                   expect_overflow=case.overflow, **kw)
+        n_new = int(new.sum())
+        if name == "one_slot_left":
+            assert n_new == 1, n_new
+        if name == "no_active_lane":
+            assert n_new == 0 and torch.equal(kt[0], case.t_key)
+            assert torch.equal(kt[1], case.t_parent)
+            assert sus is None or not bool(sus.any())
+        else:
+            assert n_new > 0, name
+        log(f"{tag} case {name}: {int(case.active.sum())} active lanes, {n_new} new"
+            + (", overflow flagged by both" if case.overflow else "")
+            + (f", {int(sus.sum())} suspects" if sus is not None else "")
+            + ": agree")
+
+    # (d) overflow: 1500 distinct keys into 1024 slots (one partition).
     if not fused:
         key = torch.unique(rand_keys(1600))[:1500]
         key = key[torch.randperm(1500, device=dev, generator=gen)]
@@ -262,7 +333,7 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     )
     parent = torch.randint(1, 2**31, (B,), device=dev, generator=gen)
     del present
-    sectors = scan_sectors(ph, torch, base_key, key[active])
+    sectors, windows = scan_sectors(ph, torch, base_key, key[active])
     _, new, _ = chk.compare(TABLE_2PC10, key, parent, active, tables=(base_key, base_par))
     n_active, n_new = int(active.sum()), int(new.sum())
     log(f"[kernel] 2pc-10 step shape: {B} lanes, {n_active} active, {n_new} new: agree")
@@ -273,8 +344,22 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
         t_key.copy_(base_key)
         t_par.copy_(base_par)
 
-    ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active), restore)
+    timed = time_insert(ph, torch, restore, (t_key, t_par, key, parent, active), {})
+    ms = timed["ms"]
     plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active), restore)
+    per_call = launches_per_call(ph, torch, restore,
+                                 lambda: kernel_call(ph, torch, t_key, t_par, key, parent, active))
+    wait = host_wait_ms(torch, restore,
+                        lambda: kernel_call(ph, torch, t_key, t_par, key, parent, active))
+    log(f"[kernel] a call issued behind ~20 ms of queued device work held the host {wait:.3f} ms")
+    assert wait < 5, f"the insert call waited {wait:.3f} ms for the card"
+    # A step past a stop or a service exit: the same batch, no lane active.
+    idle = torch.zeros_like(active)
+    noop = (median_ms(lambda: kernel_call(ph, torch, t_key, t_par, key, parent, idle), restore,
+                      hide_host=True),
+            median_ms(lambda: kernel_call(ph, torch, t_key, t_par, key, parent, idle), restore))
+    log(f"[kernel] a call with no active lane at step shape: device {noop[0]:.4f} ms, "
+        f"call {noop[1]:.4f} ms")
     # Bytes the function must move: every lane's active flag read and is_new
     # written; an active lane's key and one 32-byte sector of its home
     # bucket read; a new key's parent read and its key + parent written.
@@ -282,14 +367,96 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
     # What this bucket layout makes a lane read: its whole chain prefix.
     scan_bytes = B * (1 + 1) + n_active * 8 + sectors * 32 + n_new * (8 + 16)
-    log(f"[kernel] time at step shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"[kernel] time at step shape: kernel {ms:.4f} ms (device {timed['device_ms']:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({nbytes} bytes at 3.35 TB/s); no single PyTorch "
         "call computes insert-if-absent, so library_ms is null")
+    scan_floor_ms = scan_bytes / H100_BYTES_PER_S * 1e3
     log(f"[kernel] chain scan at step shape: {sectors / n_active:.3f} 32-byte sectors "
         f"per active lane; with those sectors the bytes are {scan_bytes}, "
-        f"{scan_bytes / H100_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes,
-                n_active=n_active, n_new=n_new, lanes=B)
+        f"{scan_floor_ms:.4f} ms at 3.35 TB/s (the bucket layout's scan floor)")
+    log(f"[kernel] the probe's windows of {PROBE_SECTORS} sectors: {windows / n_active:.3f} "
+        f"sectors per active lane, {windows * 32} bytes, "
+        f"{windows * 32 / H100_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    return dict(timed, plain_ms=plain_ms, bound_ms=bound_ms, nbytes=nbytes,
+                n_active=n_active, n_new=n_new, lanes=B, scan_floor_ms=scan_floor_ms,
+                noop_ms=noop[1], noop_device_ms=noop[0], **per_call)
+
+
+def time_insert(ph, torch, restore, args, kw, tag="[kernel]", what="kernel"):
+    """The kernel at one shape by both clocks: `ms`, the call time (host
+    included), and `device_ms`, the device's time (host hidden)."""
+    def this():
+        return kernel_call(ph, torch, *args, **kw)
+
+    out = dict(ms=median_ms(this, restore), device_ms=median_ms(this, restore, hide_host=True))
+    log(f"{tag} {what}: call time (host included) {out['ms']:.4f} ms, device time "
+        f"{out['device_ms']:.4f} ms")
+    return out
+
+
+def launches_per_call(ph, torch, setup, call, tag="[kernel]"):
+    """What one insert call puts on the card: the library's own count of
+    CUDA launches, and the device operations (kernels, memsets, copies) a
+    CUDA-only profiler sees during the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = ph.load_library()
+    setup()
+    torch.cuda.synchronize()
+    before = lib.visited_insert_launch_count()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    launches = lib.visited_insert_launch_count() - before
+    ops = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    n_ops = sum(e.count for e in ops)
+    log(f"{tag} one call: {launches} CUDA launches by the library's count; "
+        f"{n_ops} device operations under the profiler: "
+        + ", ".join(f"{e.key.split('(')[0][-40:]} x{e.count} "
+                    f"{e.self_device_time_total / e.count:.1f} us" for e in ops))
+    assert launches == 3, launches
+    return dict(launches_per_call=launches, device_ops_per_call=n_ops)
+
+
+def host_wait_ms(torch, setup, call, spin_cycles=2 * SPIN_CYCLES):
+    """Host milliseconds that `call()` takes when issued behind ~20 ms of
+    device work already queued: near 0 unless the call waits for the card,
+    which would break the engine's 16 steps queued per sync (a wait on the
+    C side is invisible to torch's sync debug mode)."""
+    setup()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.perf_counter()
+    call()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def slot_placement(ph, torch, base, key, parent, active, kw, reps=3):
+    """Where `reps` kernel calls on the same inputs (the table restored)
+    put the keys they claim, against the plain version: per call, the keys
+    at another slot than in the plain version's table, and than in the
+    first call's. Every row's fill must be the plain version's: which of two
+    different keys racing for a slot gets it may differ, but as in any
+    linear probing the set of occupied slots does not depend on the order
+    of the claims. The tiered store evicts rows by their fill, so a
+    different placement spills the same rows with other keys in them."""
+    pk, pp = base[0].clone(), base[1].clone()
+    ph.insert_plain(pk, pp, key, parent, active, **kw)
+    fill = (pk != 0).view(-1, ph.LANES).sum(1)
+    first, vs_plain, vs_first = None, [], []
+    for _ in range(reps):
+        kk, kp = base[0].clone(), base[1].clone()
+        kernel_call(ph, torch, kk, kp, key, parent, active, **kw)
+        assert torch.equal((kk != 0).view(-1, ph.LANES).sum(1), fill), "a row's fill differs"
+        vs_plain.append(int(((kk != pk) & (kk != 0)).sum()))
+        if first is None:
+            first = kk
+        else:
+            vs_first.append(int(((kk != first) & (kk != 0)).sum()))
+    return vs_plain, vs_first
 
 
 def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
@@ -298,7 +465,8 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
     keys, the rest present; the table 2^25 at the 0.85 high-water fill; a
     2^28-bit summary of SPILLED_AT_STEP spilled keys. Checked against the
     plain version, then timed: fused kernel, plain-form kernel on the same
-    batch, and the plain version."""
+    batch, and the plain version. Also: the launches of one fused call, and
+    the slots its claims land in (`slot_placement`)."""
     import numpy as np
 
     from stateright_tpu_torch.store.summary import host_insert
@@ -335,6 +503,7 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
                     present[torch.randint(0, fill, (B,), device=dev, generator=gen)]))
     parent = torch.randint(1, 2**31, (B,), device=dev, generator=gen)
     del present, spilled
+    sectors, windows = scan_sectors(ph, torch, base_key, key[active])
     _, new, sus = chk.compare(TABLE_TIERED, key, parent, active, tables=(base_key, base_par),
                               summary=summary, summary_cfg=cfg)
     n_active, n_new, n_sus = int(active.sum()), int(new.sum()), int(sus.sum())
@@ -349,8 +518,18 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
         t_par.copy_(base_par)
 
     kw = dict(summary=summary, summary_cfg=cfg)
-    ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active, **kw), restore)
-    form_ms = median_ms(lambda: ph.insert_kernel(t_key, t_par, key, parent, active), restore)
+    vs_plain, vs_first = slot_placement(ph, torch, (base_key, base_par), key, parent, active, kw)
+    log(f"[fused] slot placement at tiered step shape, {len(vs_plain)} kernel calls: keys "
+        f"at another slot than the plain version's {vs_plain} of {n_new} claimed; than the "
+        f"first kernel call's {vs_first}; every row's fill equal to the plain version's")
+    args = (t_key, t_par, key, parent, active)
+    timed = time_insert(ph, torch, restore, args, kw, "[fused]", "fused kernel")
+    ms = timed["ms"]
+    form = time_insert(ph, torch, restore, args, {}, "[fused]",
+                       "plain-form kernel on the same batch")
+    form_ms = form["ms"]
+    per_call = launches_per_call(ph, torch, restore,
+                                 lambda: kernel_call(ph, torch, *args, **kw), "[fused]")
     plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active, **kw), restore)
     # Bytes the fused function must move: every lane's active flag read and
     # is_new and suspect written; an active lane's key and one 32-byte
@@ -359,22 +538,39 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
     nbytes = B * 3 + n_active * (8 + 32) + n_new * (8 + 16 + 4 * 4)
     bound_ms = nbytes / H100_BYTES_PER_S * 1e3
     form_bytes = B * 2 + n_active * (8 + 32) + n_new * (8 + 16)
-    log(f"[fused] time at tiered step shape: fused kernel {ms:.4f} ms, plain-form kernel "
-        f"{form_ms:.4f} ms (bound {form_bytes / H100_BYTES_PER_S * 1e3:.4f} ms), plain "
+    # What the bucket layout makes a lane read: its whole chain prefix.
+    scan_bytes = B * 3 + n_active * 8 + sectors * 32 + n_new * (8 + 16 + 4 * 4)
+    scan_floor_ms = scan_bytes / H100_BYTES_PER_S * 1e3
+    log(f"[fused] chain scan at tiered step shape: {sectors / n_active:.3f} 32-byte "
+        f"sectors per active lane; with those sectors the bytes are {scan_bytes}, "
+        f"{scan_floor_ms:.4f} ms at 3.35 TB/s (the bucket layout's scan floor)")
+    log(f"[fused] the probe's windows of {PROBE_SECTORS} sectors: {windows / n_active:.3f} "
+        f"sectors per active lane, {windows * 32} bytes, "
+        f"{windows * 32 / H100_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s")
+    log(f"[fused] time at tiered step shape: fused kernel {ms:.4f} ms (device "
+        f"{timed['device_ms']:.4f} ms), plain-form kernel {form_ms:.4f} ms (device "
+        f"{form['device_ms']:.4f} ms, bound {form_bytes / H100_BYTES_PER_S * 1e3:.4f} ms), plain "
         f"version {plain_ms:.4f} ms, fused bound {bound_ms:.4f} ms ({nbytes} bytes at "
         "3.35 TB/s); no single PyTorch call computes insert-if-absent, so library_ms is null")
-    return dict(ms=ms, form_ms=form_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                nbytes=nbytes, n_active=n_active, n_new=n_new, n_sus=n_sus, lanes=B)
+    return dict(timed, form_ms=form_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                nbytes=nbytes, n_active=n_active, n_new=n_new, n_sus=n_sus, lanes=B,
+                scan_floor_ms=scan_floor_ms, slots_vs_plain=vs_plain, slots_vs_first=vs_first,
+                **per_call)
 
 
 def scan_sectors(ph, torch, t_key, keys):
-    """32-byte sectors of the key array that the kernel's chain scan reads
-    for `keys` against table `t_key` (one partition split, the default): up
-    to and including the key's slot, or the chain's first empty slot. Home
-    rows start on a sector, four slots to a sector."""
+    """(sectors, window sectors): the 32-byte sectors of the key array that
+    a chain scan must read for `keys` against table `t_key` (one partition
+    split, the default), up to and including the key's slot or the chain's
+    first empty slot (home rows start on a sector, four slots to a sector);
+    and those that the kernel's probe reads in whole windows of
+    PROBE_SECTORS sectors, one window a round (a CAS lost to another key, which re-reads
+    a window, is not counted)."""
     base, start, V = ph._locate(t_key, keys, None)
     off = ph._first_key_or_empty(t_key, keys, base, start, torch.zeros_like(keys), V)
-    return int((off.clamp(max=V - 1) // 4 + 1).sum())
+    off = off.clamp(max=V - 1)
+    return (int((off // 4 + 1).sum()),
+            int((off // (4 * PROBE_SECTORS) + 1).sum()) * PROBE_SECTORS)
 
 
 def check_fingerprint_on_card(torch):
@@ -693,6 +889,9 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "scan_floor_ms": timing["scan_floor_ms"],
+        "device_ms": timing["device_ms"],
+        "launches_per_call": timing["launches_per_call"],
     }, {
         "name": "visited_insert_bloom",
         "route": "cuda",
@@ -705,6 +904,9 @@ def main() -> int:
         "bound_ms": fused["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "scan_floor_ms": fused["scan_floor_ms"],
+        "device_ms": fused["device_ms"],
+        "launches_per_call": fused["launches_per_call"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -89,11 +89,18 @@ class TieredConfig:
 
 class TieredStore:
     def __init__(self, table_size: int, config: TieredConfig = TieredConfig(),
-                 background: bool = True, device="cpu"):
+                 background: bool = True, device="cuda"):
         """The table is split into the insert kernel's default partitions;
         one holding `risk_slots` keys (7/8 of it) is emptied whole at the
         next eviction (see `evict`). The Bloom summary lives on `device`,
-        the table's."""
+        the table's: the CUDA card unless `device="cpu"` is passed; with no
+        CUDA device the default raises."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' but torch.cuda.is_available() is False; "
+                "pass device='cpu' to keep the summary on the CPU"
+            )
         config.validate()
         if table_size % LANES:
             raise ValueError(f"table size {table_size} is not whole {LANES}-slot rows")

@@ -31,6 +31,22 @@ bits are all set — exactly `is_new & maybe_contains(summary, lo, hi)`. A
 suspect may be a revisit of a spilled state; the engine resolves it on the
 host instead of enqueueing it, while its claim stays in the table.
 
+The CUDA kernel on the H100. What bounds it is reading chains, not
+arithmetic: a key sits on average half way into its row's occupied prefix
+(~33 slots in at half load, ~9.3 sectors of 32 bytes per active lane), and
+each read is a random sector of a table far larger than L2. So its time is
+set by the latency of dependent sector reads and by the bytes of the prefix
+(the bucket layout's scan floor, several times the must-move bound). A call
+is three launches, and nothing is read back to the host. Launch 1 compacts
+each block's active lanes into scratch (inactive lanes cost a flag byte) and
+probes them with a tile of 8 threads per key. The tile reads 8 sectors at
+once, so a present key takes one or two rounds instead of ~9 dependent
+reads, and tiles take keys from the block's list as they finish. Launch 2
+elects the lowest lane of each key claimed in the call. Launch 3 lets the
+elected lane write its parent and, fused, test its summary bits; it reads
+the table only for the election's candidates. The source note has the
+details.
+
 Parity contract — the JAX module's (its lines 55-64) restated for the CAS
 design, and what the tests and chip_smoke.py hold the port to:
 
@@ -94,6 +110,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+#: ctypes types of `visited_insert`'s C parameters, in order: ten device
+#: pointers, five 64-bit integers (summary_log2, hashes, n, n_partitions,
+#: part_slots) and the stream. A pointer must never pass as a C int.
+ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 5 + [ctypes.c_void_p]
 
 
 def partitions(size: int) -> int:
@@ -159,9 +179,10 @@ def load_library() -> ctypes.CDLL:
         os.replace(tmp, so)
         build_log = proc.stderr
     lib = ctypes.CDLL(str(so))
-    lib.visited_insert.argtypes = [ctypes.c_void_p] * 10 + [
-        ctypes.c_longlong] * 5 + [ctypes.c_void_p]
+    lib.visited_insert.argtypes = ARGTYPES
     lib.visited_insert.restype = ctypes.c_int
+    lib.visited_insert_launch_count.argtypes = []
+    lib.visited_insert_launch_count.restype = ctypes.c_longlong
     lib.visited_insert_error.argtypes = [ctypes.c_int]
     lib.visited_insert_error.restype = ctypes.c_char_p
     _lib = lib
@@ -220,16 +241,19 @@ def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None,
         raise ValueError("a call takes fewer than 2^31 lanes")
     lib = load_library()
     dev = key.device
-    is_new = torch.empty(n, dtype=torch.bool, device=dev)
-    suspect = None if summary is None else torch.empty(n, dtype=torch.bool, device=dev)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    empty = dict(dtype=torch.bool, device=dev)
+    is_new = torch.empty(n, **empty)
+    suspect = None if summary is None else torch.empty(n, **empty)
     slog2, hashes = summary_cfg if summary is not None else (0, 0)
     if n:
-        slot_of = torch.empty(n, dtype=torch.int64, device=dev)
+        # Scratch and outputs are left uninitialised: the kernel zeroes
+        # `overflow` and writes every lane's flags itself.
+        overflow = torch.empty(1, **empty)
+        scratch = torch.empty(20 * n + 4 * -(-n // 128), dtype=torch.uint8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.visited_insert(
             t_key.data_ptr(), t_parent.data_ptr(), key.data_ptr(),
-            parent.data_ptr(), active.data_ptr(), slot_of.data_ptr(),
+            parent.data_ptr(), active.data_ptr(), scratch.data_ptr(),
             is_new.data_ptr(), None if suspect is None else suspect.data_ptr(),
             overflow.data_ptr(), None if summary is None else summary.data_ptr(),
             slog2, hashes, n, P, V, stream,
@@ -243,11 +267,11 @@ def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None,
             insert_kernel.launches += 1
         else:
             insert_kernel.bloom_launches += 1
-    elif suspect is not None:
-        suspect.zero_()
+    else:
+        overflow = torch.zeros(1, **empty)
     if summary is None:
-        return t_key, t_parent, is_new, overflow[0] != 0
-    return t_key, t_parent, is_new, suspect, overflow[0] != 0
+        return t_key, t_parent, is_new, overflow[0]
+    return t_key, t_parent, is_new, suspect, overflow[0]
 
 
 insert_kernel.launches = 0

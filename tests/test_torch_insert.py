@@ -14,6 +14,7 @@ from stateright_tpu.tensor.pallas_hashtable import PallasHashTable as JaxTable
 from stateright_tpu_torch.tensor import pallas_hashtable as ph
 from stateright_tpu_torch.tensor.fingerprint import pack_fp
 from stateright_tpu_torch.tensor.inserts import resolve_insert
+from stateright_tpu_torch.tensor.insert_cases import CASES, make_case
 
 
 def _batches(rng, n_batches, size, pool_size):
@@ -219,3 +220,84 @@ def test_fused_form_without_a_summary_bit_set_flags_nothing():
     with pytest.raises(ValueError, match="words"):
         ph.insert_plain(t_key, t_par, key, parent, act, summary=empty[:-1],
                         summary_cfg=cfg)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+@pytest.mark.parametrize("name", CASES)
+def test_stress_case_equals_jax_engine_insert(name, fused):
+    # The inputs that stress the CUDA kernel's chain walk (tensor/
+    # insert_cases.py), through the plain version (the kernel's yardstick on
+    # the card) and the JAX engine insert in interpret mode, from the same
+    # table: is_new and suspect lane for lane, overflow, and the stored
+    # (key, parent) pairs. Integers and bits: tolerance 0.
+    from stateright_tpu.store.summary import maybe_contains
+    from stateright_tpu.tensor.pallas_hashtable import make_engine_insert
+    from stateright_tpu_torch.store.summary import insert as summary_insert
+
+    case = make_case(name, log2=12, lanes=256, seed=11)
+    P, _ = ph._geometry(case.t_key.shape[0], case.n_partitions)
+    cfg = (12, 4) if fused else None
+    kw = {}
+    if fused:
+        words = torch.zeros(1 << (cfg[0] - 5), dtype=torch.int32)
+        summary_insert(words, case.spilled, cfg[0])
+        kw = dict(summary=words, summary_cfg=cfg)
+    t_key, t_par = case.t_key.clone(), case.t_parent.clone()
+    out = ph.insert_plain(t_key, t_par, case.key, case.parent, case.active, P, **kw)
+
+    k = case.key.numpy().view(np.uint64)
+    p = case.parent.numpy().view(np.uint64)
+    lo32 = lambda a: (a & np.uint64(0xFFFFFFFF)).astype(np.uint32)  # noqa: E731
+    hi32 = lambda a: (a >> np.uint64(32)).astype(np.uint32)  # noqa: E731
+    args = [jnp.asarray(a) for a in ph.to_jax_table(case.t_key, case.t_parent)]
+    args += [jnp.asarray(a) for a in (lo32(k), hi32(k), lo32(p), hi32(p), case.active.numpy())]
+    if fused:
+        args.append(jnp.asarray(words.numpy().view(np.uint32)))
+    ref = make_engine_insert(summary_cfg=cfg, n_partitions=P, interpret=True)(*args)
+
+    assert bool(out[-1]) == bool(ref[-1]) == case.overflow
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[4]))
+    if name == "no_active_lane":
+        assert not out[2].any()
+        assert torch.equal(t_key, case.t_key) and torch.equal(t_par, case.t_parent)
+    else:
+        assert out[2].any()
+    if fused:
+        np.testing.assert_array_equal(out[3].numpy(), np.asarray(ref[5]))
+        want = np.asarray(ref[4]) & maybe_contains(words.numpy().view(np.uint32),
+                                                   lo32(k), hi32(k), *cfg)
+        np.testing.assert_array_equal(out[3].numpy(), want)
+    # The same (key, parent) pairs through to_jax_table; different keys
+    # racing down one long chain may take their slots in another order.
+    assert _pairs(ph.to_jax_table(t_key, t_par)) == _pairs(ref[:4])
+
+
+def _pairs(table):
+    """{key: parent} of a JAX-layout (t_lo, t_hi, p_lo, p_hi) table."""
+    t_lo, t_hi, p_lo, p_hi = (np.asarray(a).astype(np.uint64) for a in table)
+    k = (t_hi << np.uint64(32)) | t_lo
+    p = (p_hi << np.uint64(32)) | p_lo
+    return dict(zip(k[k != 0].tolist(), p[k != 0].tolist()))
+
+
+def test_ctypes_binding_matches_the_c_signature():
+    # load_library binds `visited_insert` with ph.ARGTYPES: every pointer and
+    # the stream as c_void_p, every integer as c_longlong, in the order of
+    # the C parameter list (read from the source; nothing is built). A
+    # pointer passed as a 32-bit int would be cut.
+    import ctypes
+    import re
+
+    src = ph.SOURCE.read_text()
+    params = re.search(r'extern "C" int visited_insert\((.*?)\)\s*\{', src, re.S).group(1)
+    want = []
+    for p in params.split(","):
+        p = " ".join(p.split())
+        if "*" in p:
+            want.append(ctypes.c_void_p)
+        elif p.startswith("long long "):
+            want.append(ctypes.c_longlong)
+        else:
+            raise AssertionError(f"parameter {p!r} has no ctypes rule")
+    assert len(want) == 16
+    assert ph.ARGTYPES == want

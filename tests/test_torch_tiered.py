@@ -164,8 +164,8 @@ def test_eviction_equals_jax_slot_for_slot():
     hot = int((arrays[0] != 0).sum())
     t_key, t_par = ph.from_jax_table(*arrays)
     ref = JaxStore(4096, JaxConfig(**_cfg()), background=False)
-    ours = TieredStore(4096, TieredConfig(**_cfg()), background=False)
-    host = TieredStore(4096, TieredConfig(**_cfg()), background=False)
+    ours = TieredStore(4096, TieredConfig(**_cfg()), background=False, device="cpu")
+    host = TieredStore(4096, TieredConfig(**_cfg()), background=False, device="cpu")
     k_np, p_np = t_key.numpy().copy(), t_par.numpy().copy()
 
     want = ref.evict_host(*arrays, hot_claims=hot)
@@ -190,6 +190,17 @@ def test_eviction_equals_jax_slot_for_slot():
     assert st["evict_bytes_pcie"] < st["evict_bytes_unfiltered"]
 
 
+def test_tiered_store_defaults_to_the_card(monkeypatch):
+    # As PallasHashTable: the summary lives on the CUDA card unless the
+    # caller asks for the CPU, and the bare constructor raises without one.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TieredStore(4096, TieredConfig(**_cfg()), background=False)
+    ts = TieredStore(4096, TieredConfig(**_cfg()), background=False, device="cpu")
+    assert ts.summary.device.type == "cpu"
+    ts.close()
+
+
 def test_eviction_buckets_are_the_kernels_rows():
     # Every home slot is a row start, a partition is a whole number of rows,
     # and no eviction bucket straddles two partitions.
@@ -197,7 +208,7 @@ def test_eviction_buckets_are_the_kernels_rows():
     keys = torch.from_numpy(rng.integers(-(2**63), 2**63 - 1, 5000, dtype=np.int64) | 1)
     for log2 in (10, 11, 12, 16, 20):
         S = 1 << log2
-        ts = TieredStore(S, TieredConfig(summary_log2=10), background=False)
+        ts = TieredStore(S, TieredConfig(summary_log2=10), background=False, device="cpu")
         assert ts.bucket == ph.LANES and ts.n_buckets * ts.bucket == S
         base, start, V = ph._locate(torch.zeros(S, dtype=torch.int64), keys, None)
         assert V % ts.bucket == 0
@@ -216,7 +227,7 @@ def test_verdicts_after_eviction_equal_jax_kernel():
     hot = int((arrays[0] != 0).sum())
     t_key, t_par = ph.from_jax_table(*arrays)
     ref = JaxStore(4096, JaxConfig(**_cfg()), background=False)
-    ours = TieredStore(4096, TieredConfig(**_cfg()), background=False)
+    ours = TieredStore(4096, TieredConfig(**_cfg()), background=False, device="cpu")
     assert ref.evict_host(*arrays, hot_claims=hot) == ours.evict(t_key, t_par, hot) > 0
 
     rng = np.random.default_rng(11)
@@ -284,7 +295,7 @@ def test_partition_near_full_is_emptied_whole():
     _, _, is_new, ovf = ph.insert_plain(t_key, t_par, key, parent,
                                         torch.ones(hi.size, dtype=torch.bool), n_partitions=P)
     assert not bool(ovf) and bool(is_new.all())
-    ts = TieredStore(S, TieredConfig(**_cfg()), background=False)
+    ts = TieredStore(S, TieredConfig(**_cfg()), background=False, device="cpu")
     fill = ts.partition_fill(t_key)
     assert int(fill[1]) == 920 and ts.risk_slots == 896
     assert int(fill[[0, 2, 3]].max()) < ts.risk_slots
