@@ -36,7 +36,23 @@ seconds on a line of its own:
 8. this slice's main path at full width: 2pc-10 through a 2^25 hot tier
    (store="tiered", high water 0.85, summary 2^28 bits) to the same golden,
    both witnesses replayed;
-9. a short profiled window of 2pc-10 steps: where the device time goes.
+9. a short profiled window of 2pc-10 steps: where the device time goes,
+   and the kernel against its plain version on the real step at the queue
+   head after it;
+10. model breadth through `spawn_cuda()`: paxos-1 and paxos-2, 2pc-5 and
+    2pc-7 with symmetry, increment-2 and increment-lock-6 with and without
+    symmetry, and raft-3 — each at its golden, through the kernel, equal to
+    its CPU run in counts, depth and discoveries, every witness replayed;
+    then `expand`, `representative` and every property of these models on a
+    card batch of their reachable states, and a chunk of 16 engine steps,
+    under `torch.cuda.set_sync_debug_mode("error")` (a model table copied to
+    the card per call would raise there);
+11. paxos-3 at full width (batch 8192, table 2^22: the JAX package's own
+    paxos-3 test) to its golden (2,420,477 generated, 1,194,428 unique,
+    "value chosen" only, the witness replayed), a chunk of its engine steps
+    with no host sync, then a profiled window of its first 64 steps and
+    each layer of one step alone; that step's insert (114,688 lanes into
+    2^22 slots) is first held against the plain version, as in phase 9.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -68,6 +84,10 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10 = 32768, 27, 26
 GOLDEN_2PC10 = (817_760_258, 61_515_776)
+# The north-star workload: paxos-3 at the JAX package's own test settings
+# (tests/test_tensor_paxos.py: batch 8192, table 2^22; golden bench.py:42).
+BATCH_PAXOS3, TABLE_PAXOS3 = 8192, 22
+GOLDEN_PAXOS3 = (2_420_477, 1_194_428)
 # The tiered main path: a 2^25 hot tier (2^26 still spills: 61.5 M unique
 # states > 0.85 x 2^26), spilling past 0.85 fill down to 0.60, behind a
 # 2^28-bit summary — ~6 bits for each of the ~35-41 M states it spills.
@@ -738,23 +758,20 @@ def phase_2pc10_tiered(ph, torch):
     return dict(sec=sec, launches=fused, plain_launches=plain, steps=r.steps, peak=peak)
 
 
-def phase_profile(ph, torch):
-    """Where a 2pc-10 step's time goes. (a) The device's busy share: the
-    first 640 steps of a fresh search, timed on the host clock, then the
-    same 640 steps again under a CUDA-only profiler, whose kernel times are
+def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, n_steps):
+    """Where a step's time goes. (a) The device's busy share: the first
+    `n_steps` steps of a fresh search, timed on the host clock, then the
+    same steps again under a CUDA-only profiler, whose kernel times are
     summed. (b) Each layer of one step timed alone with CUDA events (median
-    of 10) on the batch at the queue head after those 640 steps."""
+    of 10) on the batch at the queue head after those steps, whose insert
+    is first held against the plain version (chk) at this path's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     from stateright_tpu_torch.tensor.frontier import append_new, state_fingerprint
-    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
     from stateright_tpu_torch.tensor.resident import ResidentSearch
 
-    model = TensorTwoPhaseSys(10)
-    n_steps = 640
-
     def fresh():
-        return ResidentSearch(model, BATCH_2PC10, TABLE_2PC10, queue_log2=QUEUE_2PC10)
+        return ResidentSearch(model, K, table_log2, queue_log2=queue_log2)
 
     rs = fresh()
     rs.run(max_steps=16)  # warm the allocator
@@ -768,16 +785,17 @@ def phase_profile(ph, torch):
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / r.steps
-    log(f"[profile] 2pc-10, first {r.steps} steps: {step_ms:.3f} ms per step on the host "
+    launches = sum(e.count for e in kernels) / r.steps
+    log(f"{tag} {name}, first {r.steps} steps: {step_ms:.3f} ms per step on the host "
         f"clock, {busy_ms:.3f} ms of kernels per step under the profiler: device busy "
         f"{100 * busy_ms / step_ms:.1f}%, idle {100 - 100 * busy_ms / step_ms:.1f}%; "
-        f"{sum(e.count for e in kernels) / r.steps:.0f} kernel launches per step")
+        f"{launches:.0f} kernel launches per step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[profile]   {e.self_device_time_total / 1e3 / r.steps:7.3f} ms/step "
+        log(f"{tag}   {e.self_device_time_total / 1e3 / r.steps:7.3f} ms/step "
             f"x{e.count / r.steps:5.1f}/step  {e.key[:80]}")
 
     c = rs._c
-    K, A = BATCH_2PC10, model.max_actions
+    A = model.max_actions
     head = int(c["head"])
     states = c["q_states"][head:head + K].clone()
     keys = c["q_keys"][head:head + K].clone()
@@ -788,7 +806,11 @@ def phase_profile(ph, torch):
     succ_keys = state_fingerprint(model, flat)
     parents = keys.repeat_interleave(A)
     base = (c["t_key"].clone(), c["t_parent"].clone())
-    _, _, is_new, _ = ph.insert_kernel(*[t.clone() for t in base], succ_keys, parents, validf)
+    _, is_new, _ = chk.compare(table_log2, succ_keys, parents, validf, tables=base)
+    log(f"{tag} insert kernel vs plain at the queue head: {succ_keys.numel()} lanes "
+        f"({int(validf.sum())} valid) into 2^{table_log2} slots holding "
+        f"{int((base[0] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts and "
+        "the stored pairs agree")
     queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
     rows = (flat, succ_keys, keys.repeat_interleave(A), keys.repeat_interleave(A))
     tail = c["tail"].clone()  # appends land past the tail: scratch rows
@@ -807,14 +829,157 @@ def phase_profile(ph, torch):
         "append": lambda: append_new(queue, tail, rows, is_new),
     }
     total = 0.0
-    for name, fn in layers.items():
-        ms = median_ms(fn, restore if name == "insert kernel" else none, reps=10)
+    layer_ms = {}
+    for lname, fn in layers.items():
+        ms = median_ms(fn, restore if lname == "insert kernel" else none, reps=10)
         total += ms
-        log(f"[profile] layer {name}: {ms:.4f} ms")
-    log(f"[profile] layers sum {total:.3f} ms of a {step_ms:.3f} ms step "
+        layer_ms[lname] = ms
+        log(f"{tag} layer {lname}: {ms:.4f} ms")
+    log(f"{tag} layers sum {total:.3f} ms of a {step_ms:.3f} ms step "
         f"({int(validf.sum())} valid successors, {int(is_new.sum())} new at head {head})")
     del rs, c, base
     torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, busy_ms=busy_ms, launches_per_step=launches, layers=layer_ms)
+
+
+def phase_profile(ph, torch, chk):
+    """Where a 2pc-10 step's time goes: the first 640 steps, and each layer
+    at the queue head after them (profile_window)."""
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    profile_window(ph, torch, chk, "[profile]", "2pc-10", TensorTwoPhaseSys(10),
+                   BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10, 640)
+
+
+def breadth_anchors():
+    """(name, model, spawn kwargs, (generated or None, unique), discoveries)
+    of phase 10: the goldens of the JAX package's tests
+    (tests/test_tensor_paxos.py, test_tensor_symmetry.py,
+    test_device_simulation.py)."""
+    from stateright_tpu_torch.tensor.models import (
+        TensorIncrement, TensorIncrementLock, TensorRaft, TensorTwoPhaseSys,
+    )
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    tpc = {"abort agreement", "commit agreement"}
+    return [
+        ("paxos-1", TensorPaxos(1), dict(batch_size=1024, table_log2=12), (482, 265), {"value chosen"}),
+        ("paxos-2", TensorPaxos(2), dict(batch_size=2048, table_log2=16), (32_971, 16_668), {"value chosen"}),
+        ("2pc-5 symmetric", TensorTwoPhaseSys(5, symmetry=True), dict(batch_size=1024, table_log2=16), (None, 314), tpc),
+        ("2pc-7 symmetric", TensorTwoPhaseSys(7, symmetry=True), dict(batch_size=2048, table_log2=16), (None, 920), tpc),
+        ("increment-2", TensorIncrement(2, full_enumeration=True), dict(batch_size=64, table_log2=10), (15, 13), {"fin"}),
+        ("increment-2 symmetric", TensorIncrement(2, symmetry=True, full_enumeration=True), dict(batch_size=64, table_log2=10), (10, 8), {"fin"}),
+        ("increment-lock-6", TensorIncrementLock(6), dict(batch_size=2048, table_log2=14), (7_825, 7_825), set()),
+        ("increment-lock-6 symmetric", TensorIncrementLock(6, symmetry=True), dict(batch_size=1024, table_log2=12), (40, 25), set()),
+        ("raft-3", TensorRaft(3, max_term=3), dict(batch_size=1024, table_log2=14), (2_050, 601), {"leader elected", "can elect"}),
+    ]
+
+
+def model_ops_without_sync(torch, model, rows):
+    """`expand`, `representative` (where the model has one) and every
+    property on `rows` (on the card) under no_host_sync: each must queue its
+    work without waiting for the card — a table copied to the card inside
+    one of them raises here."""
+    with no_host_sync(torch):
+        out = [model.expand(rows)]
+        if model.representative is not None:
+            out.append(model.representative(rows))
+        out += [p.condition(model, rows) for p in model.properties()]
+    torch.cuda.synchronize()
+    return out
+
+
+def chunk_without_sync(torch, model, batch_size, table_log2):
+    """One chunk of engine steps (pop, properties, expand, fingerprint,
+    insert, append) from the seed under no_host_sync: the resident engine
+    queues CHUNK_STEPS steps and reads the card once, so no step may wait
+    for it."""
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS, ResidentSearch
+
+    rs = ResidentSearch(model, batch_size, table_log2)
+    rs._seed()
+    c = rs._c
+    with no_host_sync(torch):
+        for _ in range(CHUNK_STEPS):
+            rs._step(c, rs._should_continue(c, 0, 0, 0, 1 << 62), 0)
+    torch.cuda.synchronize()
+    return int(c["steps"])
+
+
+def phase_breadth(ph, torch):
+    for name, model, kw, (gen_want, uniq_want), disc_want in breadth_anchors():
+        ph.insert_kernel.launches = 0
+        t0 = time.monotonic()
+        c = model.checker().spawn_cuda(**kw).join()
+        sec = time.monotonic() - t0
+        launches = ph.insert_kernel.launches
+        r = c.result()
+        got = (r.state_count, r.unique_state_count)
+        assert got[1] == uniq_want and gen_want in (None, got[0]), (name, got)
+        assert r.complete, name
+        assert launches > 0, f"{name} never launched the insert kernel"
+        assert set(r.discoveries) == disc_want, (name, set(r.discoveries))
+        paths = c.discoveries()
+        for pname, path in paths.items():
+            c.assert_discovery(pname, path.actions())
+        for p in model.properties():
+            if p.name not in disc_want and p.expectation.value != "sometimes":
+                c.assert_no_discovery(p.name)
+        cpu = model.checker().spawn_cuda(device="cpu", **kw).join()
+        assert (cpu.state_count(), cpu.unique_state_count(), cpu.max_depth()) == (
+            got[0], got[1], r.max_depth
+        ), name
+        assert cpu.result().discoveries == r.discoveries, name
+        # The model's device ops on a batch of its reachable states.
+        rows = torch.tensor(c._search.dump_states(decode=False), dtype=torch.int64,
+                            device="cuda")
+        model_ops_without_sync(torch, model, rows)
+        chunk_without_sync(torch, model, kw["batch_size"], kw["table_log2"])
+        log(f"[breadth] {name}: generated={got[0]} unique={got[1]} depth={r.max_depth} "
+            f"steps={r.steps} launches={launches} sec={sec:.2f}; "
+            + (", ".join(f"{n} Path[{len(p) - 1}]" for n, p in sorted(paths.items()))
+               + " replayed" if paths else "no discovery")
+            + "; the CPU run agrees; expand"
+            + (", representative" if model.representative is not None else "")
+            + f" and {len(model.properties())} properties on {rows.shape[0]} reachable "
+            "rows, and a chunk of engine steps, queue without a host sync")
+
+
+def phase_paxos3(ph, torch, chk):
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    model = TensorPaxos(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    c = model.checker().spawn_cuda(batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_PAXOS3, got
+    assert r.complete
+    assert launches > 0, "paxos-3 never launched the insert kernel"
+    assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[paxos-3] generated={got[0]} unique={got[1]} depth={r.max_depth} steps={r.steps} "
+        f"sec={sec:.3f} generated_per_s={got[0] / sec:.0f} "
+        f"max_memory_allocated={peak} insert_launches={launches}")
+    path = c.discoveries()["value chosen"]
+    c.assert_discovery("value chosen", path.actions())
+    c.assert_no_discovery("linearizable")
+    c.assert_no_discovery("pool capacity")
+    log(f"[paxos-3] discoveries replay: value chosen Path[{len(path) - 1}]")
+    n = chunk_without_sync(torch, model, BATCH_PAXOS3, TABLE_PAXOS3)
+    log(f"[paxos-3] {n} engine steps from the seed queue without a host sync")
+    del c
+    torch.cuda.empty_cache()
+    prof = profile_window(ph, torch, chk, "[paxos-3 profile]", "paxos-3", model,
+                          BATCH_PAXOS3, TABLE_PAXOS3, None, 64)
+    return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
+                rate=got[0] / sec, depth=r.max_depth, **prof)
 
 
 def main() -> int:
@@ -871,7 +1036,9 @@ def main() -> int:
     phase(6, "tiered anchor", phase_tiered_anchor, ph, torch)
     device_path = phase(7, "2pc-10, device store", phase_2pc10, ph, torch)
     tiered_path = phase(8, "2pc-10, tiered store", phase_2pc10_tiered, ph, torch)
-    phase(9, "profile", phase_profile, ph, torch)
+    phase(9, "profile", phase_profile, ph, torch, chk)
+    phase(10, "model breadth", phase_breadth, ph, torch)
+    paxos3 = phase(11, "paxos-3", phase_paxos3, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -883,6 +1050,7 @@ def main() -> int:
         "source": "stateright_tpu_torch/csrc/visited_insert.cu",
         "replaces": "stateright_tpu/tensor/pallas_hashtable.py:127",
         "launches": device_path["launches"],
+        "launches_paxos3": paxos3["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

@@ -4,7 +4,10 @@ checker, for NVIDIA Hopper cards.
 The port runs the default breadth-first device search: a `TensorModel`'s
 `checker().spawn_cuda()` starts it on the CUDA card (or on the CPU with
 `device="cpu"`), with the visited-set insert as a hand-written CUDA kernel
-(csrc/visited_insert.cu). It imports torch, never jax, and nothing of the
+(csrc/visited_insert.cu). Its models are those of tensor/models.py
+(linear equation, two-phase commit, increment, increment-lock, Raft) and
+tensor/paxos.py, with symmetry reduction through a model's
+`representative`. It imports torch, never jax, and nothing of the
 stateright_tpu package.
 """
 

@@ -24,8 +24,11 @@ from .model import TensorModel
 
 
 def state_fingerprint(model: TensorModel, states: torch.Tensor) -> torch.Tensor:
-    """Packed int64 fingerprint key of each state row (symmetry reduction
-    is not ported yet, so a state's identity is the state itself)."""
+    """Packed int64 fingerprint key of each state row, for identity: the
+    canonical (symmetry representative) form when the model defines one,
+    else the state itself. Callers keep the original rows."""
+    if model.representative is not None:
+        states = model.representative(states)
     return pack_fp(*device_fingerprint(states))
 
 
@@ -151,8 +154,10 @@ def record_discovery(discovered, disc_keys, i, hit, keys):
     only): keeps the first hit lane's key, once."""
     bit = 1 << i
     record = ((discovered & bit) == 0) & hit.any()
-    first = torch.argmax(hit.to(torch.int32))
-    disc_keys[i] = torch.where(record, keys[first], disc_keys[i])
+    # A one-element index: indexing with the 0-d argmax would read it back
+    # to the host (`.item()`), a sync in every step.
+    first = torch.argmax(hit.to(torch.int32)).view(1)
+    disc_keys[i] = torch.where(record, keys.index_select(0, first)[0], disc_keys[i])
     return torch.where(record, discovered | bit, discovered)
 
 

@@ -41,12 +41,17 @@ class TensorModel:
     """A transition system over fixed-width uint32-valued state rows.
 
     Required: `lanes`, `max_actions`, `init_states()`, `expand(states)`.
-    Optional: `properties()`, `within_boundary(states)`, `decode(row)` and
-    `action_label(row, action_index)` for human-readable paths.
+    Optional: `properties()`, `within_boundary(states)`, `decode(row)`,
+    `action_label(row, action_index)` for human-readable paths, and
+    `representative(states) -> states` for symmetry reduction (a batched
+    canonicalization built from tensor/symmetry.py's helpers). When it is
+    defined, the engines fingerprint the canonical form but keep searching
+    with the original states (ref: src/checker/dfs.rs:309-334).
     """
 
     lanes: int
     max_actions: int
+    representative = None  # overridden as a method by symmetric models
 
     def init_states(self) -> torch.Tensor:
         """Initial states as int64[N0, lanes] (on the CPU)."""
@@ -63,6 +68,21 @@ class TensorModel:
 
     def properties(self) -> list[TensorProperty]:
         return []
+
+    def constants(self, device) -> dict:
+        """The model's constant tensors on `device` (`_constants(device)`),
+        built once per device and cached on the model. `expand` and the
+        properties read their tables from here: a table built inside them
+        would be a host-to-device copy, which stalls the host, on every
+        step."""
+        cache = self.__dict__.setdefault("_constants_by_device", {})
+        device = torch.device(device)
+        if device not in cache:
+            cache[device] = self._constants(device)
+        return cache[device]
+
+    def _constants(self, device) -> dict:
+        return {}
 
     def within_boundary(self, states: torch.Tensor) -> torch.Tensor:
         """bool[B]; states outside are not expanded (ref: src/lib.rs:245)."""

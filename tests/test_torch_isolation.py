@@ -45,6 +45,13 @@ def test_running_the_port_loads_neither_jax_nor_the_jax_package():
         "    store='tiered', high_water=0.5, summary_log2=12, device='cpu').join()\n"
         "assert t.unique_state_count() == 288 and t.store_stats()['spill_events'] >= 1\n"
         "t.discoveries()\n"
+        "s = TensorTwoPhaseSys(3, symmetry=True).checker().spawn_cuda(table_log2=12,\n"
+        "    device='cpu').join()\n"
+        "assert s.unique_state_count() < 288 and set(s.discoveries()) == set(c.discoveries())\n"
+        "from stateright_tpu_torch.tensor import TensorPaxos\n"
+        "p = TensorPaxos(1).checker().spawn_cuda(table_log2=12, device='cpu').join()\n"
+        "assert (p.state_count(), p.unique_state_count()) == (482, 265)\n"
+        "p.discoveries()\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
         "assert not bad, bad\n"
