@@ -52,7 +52,15 @@ seconds on a line of its own:
     "value chosen" only, the witness replayed), a chunk of its engine steps
     with no host sync, then a profiled window of its first 64 steps and
     each layer of one step alone; that step's insert (114,688 lanes into
-    2^22 slots) is first held against the plain version, as in phase 9.
+    2^22 slots) is first held against the plain version, as in phase 9;
+12. checkpoint and regrow at full width: 2pc-10 (table 2^27, a 2^24-row
+    queue) aborts on its queue with its carry back at the last chunk
+    boundary, is checkpointed, regrown to a 2^28 table through the kernel
+    (one regrow batch held against the plain version) and resumed to the
+    golden; then phase 8's tiered search, stopped at half its steps after a
+    spill, checkpointed and resumed in a fresh engine to the same golden.
+    It prints the file sizes, the free disk space, the write, read, regrow
+    and resumed seconds, and the regrow's kernel calls.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -93,6 +101,10 @@ GOLDEN_PAXOS3 = (2_420_477, 1_194_428)
 # 2^28-bit summary — ~6 bits for each of the ~35-41 M states it spills.
 TABLE_TIERED, HIGH_WATER, SUMMARY_LOG2 = 25, 0.85, 28
 SPILLED_AT_STEP = 38_000_000  # summary load of the fused step-shape case
+# Phase 12: a 2^24-row queue aborts 2pc-10 at a quarter of its unique
+# states; the checkpoint resumes with the table regrown to 2^28 and the
+# queue at phase 7's 2^26.
+CKPT_QUEUE, CKPT_TABLE = 24, 28
 STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspects_dup")
 # Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
 # csrc/visited_insert.cu), one 32-byte sector each.
@@ -681,7 +693,7 @@ def phase_2pc10(ph, torch):
     del c
     torch.cuda.empty_cache()
     return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
-                rate=got[0] / sec, depth=r.max_depth)
+                rate=got[0] / sec, depth=r.max_depth, discoveries=r.discoveries)
 
 
 def phase_tiered_anchor(ph, torch):
@@ -755,7 +767,38 @@ def phase_2pc10_tiered(ph, torch):
         f"{n} Path[{len(p) - 1}]" for n, p in sorted(paths.items())))
     del c
     torch.cuda.empty_cache()
-    return dict(sec=sec, launches=fused, plain_launches=plain, steps=r.steps, peak=peak)
+    return dict(sec=sec, launches=fused, plain_launches=plain, steps=r.steps, peak=peak,
+                discoveries=r.discoveries)
+
+
+def queue_head_vs_plain(torch, chk, tag, rs, tables=None):
+    """The insert of rs's next step, held against the plain version (chk)
+    at its real shape: the batch at the queue head (rows past the tail
+    inactive, as pop_batch makes them) expanded, boundary-masked and
+    fingerprinted, into copies of `tables` (default: the engine's own
+    table, which is left as it is). Returns that step's tensors."""
+    from stateright_tpu_torch.tensor.frontier import state_fingerprint
+
+    model, K, c = rs.model, rs.batch_size, rs._c
+    A = model.max_actions
+    head, tail = int(c["head"]), int(c["tail"])
+    states = c["q_states"][head:head + K].clone()
+    keys = c["q_keys"][head:head + K].clone()
+    active = torch.arange(states.shape[0], device=states.device) < tail - head
+    succs, valid = model.expand(states)
+    flat = succs.reshape(-1, model.lanes)
+    validf = (valid & active[:, None]).reshape(-1) & model.within_boundary(flat)
+    succ_keys = state_fingerprint(model, flat)
+    parents = keys.repeat_interleave(A)
+    if tables is None:
+        tables = (c["t_key"], c["t_parent"])
+    _, is_new, _ = chk.compare(rs.table_log2, succ_keys, parents, validf, tables=tables)
+    log(f"{tag} insert kernel vs plain at the queue head: {succ_keys.numel()} lanes "
+        f"({int(validf.sum())} valid) into 2^{rs.table_log2} slots holding "
+        f"{int((tables[0] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts and "
+        "the stored pairs agree")
+    return dict(head=head, states=states, keys=keys, flat=flat, succ_keys=succ_keys,
+                parents=parents, validf=validf, is_new=is_new)
 
 
 def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, n_steps):
@@ -775,6 +818,7 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
 
     rs = fresh()
     rs.run(max_steps=16)  # warm the allocator
+    rs.reset()  # a run continues the carry; the timed one starts afresh
     torch.cuda.synchronize()
     t0 = time.monotonic()
     r = rs.run(max_steps=n_steps)
@@ -796,21 +840,10 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
 
     c = rs._c
     A = model.max_actions
-    head = int(c["head"])
-    states = c["q_states"][head:head + K].clone()
-    keys = c["q_keys"][head:head + K].clone()
-    active = torch.ones(K, dtype=torch.bool, device=states.device)
-    succs, valid = model.expand(states)
-    flat = succs.reshape(K * A, model.lanes)
-    validf = valid.reshape(-1) & model.within_boundary(flat)
-    succ_keys = state_fingerprint(model, flat)
-    parents = keys.repeat_interleave(A)
     base = (c["t_key"].clone(), c["t_parent"].clone())
-    _, is_new, _ = chk.compare(table_log2, succ_keys, parents, validf, tables=base)
-    log(f"{tag} insert kernel vs plain at the queue head: {succ_keys.numel()} lanes "
-        f"({int(validf.sum())} valid) into 2^{table_log2} slots holding "
-        f"{int((base[0] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts and "
-        "the stored pairs agree")
+    h = queue_head_vs_plain(torch, chk, tag, rs, tables=base)
+    head, states, keys, flat = h["head"], h["states"], h["keys"], h["flat"]
+    succ_keys, parents, validf, is_new = h["succ_keys"], h["parents"], h["validf"], h["is_new"]
     queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
     rows = (flat, succ_keys, keys.repeat_interleave(A), keys.repeat_interleave(A))
     tail = c["tail"].clone()  # appends land past the tail: scratch rows
@@ -890,18 +923,18 @@ def model_ops_without_sync(torch, model, rows):
 
 
 def chunk_without_sync(torch, model, batch_size, table_log2):
-    """One chunk of engine steps (pop, properties, expand, fingerprint,
-    insert, append) from the seed under no_host_sync: the resident engine
-    queues CHUNK_STEPS steps and reads the card once, so no step may wait
-    for it."""
+    """One chunk of engine steps from the seed under no_host_sync: the
+    chunk boundary's snapshot of the counters (the undo point after an
+    abort), then each step's pop, properties, expand, fingerprint, insert
+    and append. The resident engine queues CHUNK_STEPS steps and reads the
+    card once, so nothing in a chunk may wait for it."""
     from stateright_tpu_torch.tensor.resident import CHUNK_STEPS, ResidentSearch
 
     rs = ResidentSearch(model, batch_size, table_log2)
     rs._seed()
     c = rs._c
     with no_host_sync(torch):
-        for _ in range(CHUNK_STEPS):
-            rs._step(c, rs._should_continue(c, 0, 0, 0, 1 << 62), 0)
+        rs._chunk(c, 0, 0, 0, 0, 1 << 62, CHUNK_STEPS)
     torch.cuda.synchronize()
     return int(c["steps"])
 
@@ -982,6 +1015,194 @@ def phase_paxos3(ph, torch, chk):
                 rate=got[0] / sec, depth=r.max_depth, **prof)
 
 
+def checkpoint_timed(rs, path):
+    """rs.checkpoint(path), timed; also the file's size and the free space
+    of its file system before the write."""
+    import os
+    import shutil
+
+    free = shutil.disk_usage(os.path.dirname(path)).free
+    t0 = time.monotonic()
+    rs.checkpoint(path)
+    return dict(write_s=time.monotonic() - t0, bytes=os.path.getsize(path), free=free)
+
+
+def regrow_batch_vs_plain(ph, torch, chk, path, rs):
+    """The last batch of the regrow into rs's table (the keys of the
+    checkpoint's table in slot order, K at a time, as the engine re-inserts
+    them), held against insert_plain at its shape: K keys into the grown
+    table as it stood before that batch — the grown table with the batch's
+    slots cleared, the same argument as the engine's undo of a chunk."""
+    from stateright_tpu_torch.faults.ckptio import read_verified
+    from stateright_tpu_torch.tensor.pallas_hashtable import find_slots, from_jax_table
+
+    data = read_verified(path)
+    t_key, t_par = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"], data["p_hi"],
+                                  device="cuda")
+    occ = t_key != 0
+    keys, parents = t_key[occ], t_par[occ]
+    del t_key, t_par, occ, data
+    K = rs.batch_size
+    first = (keys.shape[0] - 1) // K * K
+    keys, parents = keys[first:], parents[first:]
+    slots = find_slots(rs._c["t_key"], keys)
+    assert bool((slots >= 0).all()), "a key of the last regrow batch is not in the grown table"
+    before = (rs._c["t_key"].clone(), rs._c["t_parent"].clone())
+    for t in before:
+        t.index_fill_(0, slots, 0)
+    held = int((before[0] != 0).sum())
+    active = torch.ones(keys.shape[0], dtype=torch.bool, device=keys.device)
+    _, new, _ = chk.compare(rs.table_log2, keys, parents, active, tables=before)
+    assert int(new.sum()) == keys.shape[0], "a regrow batch key was not new"
+    log(f"[checkpoint] the regrow's last batch, {keys.shape[0]} keys into 2^{rs.table_log2} "
+        f"slots holding {held}: the kernel and the plain version agree")
+    del before
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint(ph, torch, chk, device_path, tiered_path):
+    """Checkpoint and regrow at full width. (a) 2pc-10 with the device
+    store and a 2^24-row queue aborts on its queue; the carry is back at
+    the last chunk boundary that progress reported; its checkpoint, loaded
+    into a fresh engine with table 2^28 (regrown from 2^27 through the
+    kernel) and queue 2^26, finishes at the golden, with phase 7's
+    discoveries and replayed witnesses; one regrow batch of the kernel is
+    held against the plain version. (b) Phase 8's tiered configuration,
+    stopped at half its steps after a spill, checkpointed, loaded into a
+    fresh engine at the same size, finishes at the same golden, with phase
+    8's discoveries. The file goes to a fresh temporary directory, removed
+    at the end."""
+    import os
+    import shutil
+    import tempfile
+
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS, ResidentSearch
+
+    model = TensorTwoPhaseSys(10)
+    # BFS gives shortest witnesses: n aborts; n prepares + n receipts +
+    # commit + n commit receipts.
+    n = model.rm_count
+    witness_lengths = {"abort agreement": n, "commit agreement": 3 * n + 1}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        # (a) the device store: queue abort, checkpoint, regrow, resume.
+        t0 = time.monotonic()
+        rs = ResidentSearch(model, BATCH_2PC10, TABLE_2PC10, queue_log2=CKPT_QUEUE)
+        seen = []
+        try:
+            rs.run(progress=lambda *x: seen.append(x))
+            raise AssertionError(f"a 2^{CKPT_QUEUE}-row queue did not abort")
+        except RuntimeError as e:
+            assert "frontier queue full" in str(e), e
+        c = rs._c
+        at = tuple(int(c[k]) for k in ("gen", "unique", "max_depth"))
+        steps, tail = int(c["steps"]), int(c["tail"])
+        assert seen and at == seen[-1], (at, seen[-1:])
+        assert steps % CHUNK_STEPS == 0 and tail == at[1] <= 1 << CKPT_QUEUE, (steps, tail)
+        run_s = time.monotonic() - t0
+        log(f"[checkpoint] 2pc-10, table 2^{TABLE_2PC10}, queue 2^{CKPT_QUEUE}: 'frontier queue full' "
+            f"after {run_s:.3f} s; the carry is back at the last reported chunk boundary: "
+            f"step {steps}, generated={at[0]} unique={at[1]} tail={tail} depth={at[2]}")
+        path = f"{tmp}/2pc10.npz"
+        w = checkpoint_timed(rs, path)
+        # Again to the same path, as a periodic checkpoint does: the first
+        # generation is read and verified, then rotated to .prev.
+        w2 = checkpoint_timed(rs, path)
+        assert os.path.getsize(path + ".prev") == w["bytes"] == w2["bytes"]
+        log(f"[checkpoint] written again to the same path in {w2['write_s']:.3f} s "
+            f"(the first generation verified and rotated to .prev); first write "
+            f"{w['write_s']:.3f} s")
+        os.unlink(path + ".prev")
+        del rs, c
+        torch.cuda.empty_cache()
+        ph.insert_kernel.launches = 0
+        t0 = time.monotonic()
+        rs = ResidentSearch.load_checkpoint(model, path, table_log2=CKPT_TABLE,
+                                            queue_log2=QUEUE_2PC10)
+        load_s = time.monotonic() - t0
+        regrow_launches = ph.insert_kernel.launches
+        ls = rs.load_seconds
+        assert regrow_launches == -(-at[1] // BATCH_2PC10), regrow_launches
+        log(f"[checkpoint] file {w['bytes']} bytes, written in {w['write_s']:.3f} s "
+            f"({w['free']} bytes free before); load {load_s:.3f} s: read and verify "
+            f"{ls['read']:.3f} s, regrow 2^{TABLE_2PC10} -> 2^{CKPT_TABLE} {ls['regrow']:.3f} s in "
+            f"{regrow_launches} kernel calls")
+        regrow_batch_vs_plain(ph, torch, chk, path, rs)
+        queue_head_vs_plain(torch, chk, "[checkpoint] resumed step:", rs)
+        ph.insert_kernel.launches = 0
+        t0 = time.monotonic()
+        r = rs.run()
+        torch.cuda.synchronize()
+        resume_s = time.monotonic() - t0
+        resume_launches = ph.insert_kernel.launches
+        assert (r.state_count, r.unique_state_count) == GOLDEN_2PC10 and r.complete, r
+        assert resume_launches > 0
+        if device_path is not None:
+            assert r.discoveries == device_path["discoveries"], r.discoveries
+        lengths = {n: len(rs.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
+        assert lengths == witness_lengths, lengths
+        log(f"[checkpoint] resumed 2pc-10 at table 2^{CKPT_TABLE}: generated={r.state_count} "
+            f"unique={r.unique_state_count} steps={r.steps} in {resume_s:.3f} s, "
+            f"{resume_launches} insert launches; witnesses replay "
+            + ", ".join(f"{n} Path[{k}]" for n, k in sorted(lengths.items()))
+            + (", discoveries equal to phase 7's" if device_path is not None else ""))
+        out.update(bytes=w["bytes"], write_s=w["write_s"], rewrite_s=w2["write_s"],
+                   free=w["free"], load_s=load_s,
+                   read_s=ls["read"], regrow_s=ls["regrow"], regrow_launches=regrow_launches,
+                   resume_s=resume_s, resume_launches=resume_launches)
+        del rs
+        torch.cuda.empty_cache()
+        os.unlink(path)
+
+        # (b) the tiered store: stop after a spill, checkpoint, resume fresh.
+        half = tiered_path["steps"] // 2 if tiered_path is not None else 960
+        kw = dict(queue_log2=QUEUE_2PC10, store="tiered", high_water=HIGH_WATER,
+                  summary_log2=SUMMARY_LOG2)
+        t0 = time.monotonic()
+        rs = ResidentSearch(model, BATCH_2PC10, TABLE_TIERED, **kw)
+        r1 = rs.run(max_steps=half)
+        run_s = time.monotonic() - t0
+        assert not r1.complete and r1.steps == half, r1
+        assert r1.detail["spill_events"] >= 1, r1.detail
+        log(f"[checkpoint] tiered 2pc-10 stopped at step {half} after {run_s:.3f} s: "
+            f"generated={r1.state_count} unique={r1.unique_state_count}, "
+            f"spill_events={r1.detail['spill_events']} spilled={r1.detail['spilled_states']}")
+        path = f"{tmp}/2pc10_tiered.npz"
+        wt = checkpoint_timed(rs, path)
+        del rs
+        torch.cuda.empty_cache()
+        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        t0 = time.monotonic()
+        rs = ResidentSearch.load_checkpoint(model, path)
+        load_t = time.monotonic() - t0
+        r = rs.run()
+        torch.cuda.synchronize()
+        resume_t = time.monotonic() - t0 - load_t
+        fused = ph.insert_kernel.bloom_launches
+        assert (r.state_count, r.unique_state_count) == GOLDEN_2PC10 and r.complete, r
+        assert fused > 0 and ph.insert_kernel.launches == 0, (fused, ph.insert_kernel.launches)
+        if tiered_path is not None:
+            assert r.discoveries == tiered_path["discoveries"], r.discoveries
+        lengths = {n: len(rs.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
+        assert lengths == witness_lengths, lengths
+        log(f"[checkpoint] tiered file {wt['bytes']} bytes, written in {wt['write_s']:.3f} s "
+            f"({wt['free']} bytes free before); load {load_t:.3f} s (read and verify "
+            f"{rs.load_seconds['read']:.3f} s, the summary rebuilt from "
+            f"{r1.detail['spilled_states']} spilled keys); resumed to generated="
+            f"{r.state_count} unique={r.unique_state_count} steps={r.steps} in "
+            f"{resume_t:.3f} s, {fused} fused launches; witnesses replay"
+            + (", discoveries equal to phase 8's" if tiered_path is not None else ""))
+        out.update(tiered_bytes=wt["bytes"], tiered_write_s=wt["write_s"], tiered_load_s=load_t,
+                   tiered_resume_s=resume_t, tiered_launches=fused)
+        del rs
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1039,6 +1260,8 @@ def main() -> int:
     phase(9, "profile", phase_profile, ph, torch, chk)
     phase(10, "model breadth", phase_breadth, ph, torch)
     paxos3 = phase(11, "paxos-3", phase_paxos3, ph, torch, chk)
+    ckpt = phase(12, "checkpoint and regrow", phase_checkpoint, ph, torch, chk,
+                 device_path, tiered_path)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -1051,6 +1274,8 @@ def main() -> int:
         "replaces": "stateright_tpu/tensor/pallas_hashtable.py:127",
         "launches": device_path["launches"],
         "launches_paxos3": paxos3["launches"],
+        "launches_regrow": ckpt["regrow_launches"],
+        "launches_resumed": ckpt["resume_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1066,6 +1291,7 @@ def main() -> int:
         "source": "stateright_tpu_torch/csrc/visited_insert.cu",
         "replaces": "stateright_tpu/tensor/pallas_hashtable.py:246",
         "launches": tiered_path["launches"],
+        "launches_resumed": ckpt["tiered_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

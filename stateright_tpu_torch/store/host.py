@@ -194,3 +194,12 @@ class HostSpillStore:
         """(fps, parents) snapshot, compacted and sorted by fingerprint."""
         fps, parents = self._compacted()
         return fps.copy(), parents.copy()
+
+    @classmethod
+    def from_arrays(cls, fps: np.ndarray, parents: np.ndarray) -> "HostSpillStore":
+        """A store holding `to_arrays`' snapshot (either package's: sorted,
+        deduplicated fingerprints) as its sorted zone."""
+        s = cls()
+        s._sorted_fps = np.asarray(fps, dtype=np.uint64)
+        s._sorted_parents = np.asarray(parents, dtype=np.uint64)
+        return s

@@ -254,3 +254,51 @@ class TieredStore:
 
     def parent_map(self) -> dict:
         return self.store.parent_map()
+
+    # -- checkpoint ------------------------------------------------------------
+
+    def to_checkpoint(self) -> dict:
+        """The spill tier's arrays for an engine checkpoint, uint64 and
+        sorted by fingerprint (the JAX package's keys). The summary is not
+        among them: it is a function of the spilled keys, rebuilt on load."""
+        fps, parents = self.store.to_arrays()
+        return {"spill_fps": fps, "spill_parents": parents}
+
+    def meta(self) -> dict:
+        """The store's part of a checkpoint's meta: the JAX package's keys,
+        and the port's count of partition passes (which the JAX package
+        ignores). The sweep hand is not kept, in either package: a resumed
+        sweep starts at row 0."""
+        c = self.config
+        return {
+            "high_water": c.high_water,
+            "low_water": c.resolved_low_water(),
+            "summary_log2": c.summary_log2,
+            "summary_hashes": DEFAULT_HASHES,
+            "spill_events": self.spill_events,
+            "partition_spills": self.partition_spills,
+        }
+
+    @classmethod
+    def from_checkpoint(cls, table_size: int, meta: dict, spill_fps, spill_parents,
+                        device="cuda") -> "TieredStore":
+        """The store of a checkpoint (either package's), for a table of
+        `table_size` slots on `device`: the spill tier from its arrays, and
+        the Bloom summary rebuilt from the spilled keys on that device, in
+        the JAX package's bit layout, with DEFAULT_HASHES probes whatever
+        the file's `summary_hashes`."""
+        cfg = TieredConfig(
+            high_water=meta["high_water"],
+            low_water=meta["low_water"],
+            summary_log2=meta["summary_log2"],
+        )
+        ts = cls(table_size, cfg, device=device)
+        ts.store.close()  # replaced wholesale below
+        fps = np.asarray(spill_fps, dtype=np.uint64)
+        ts.store = HostSpillStore.from_arrays(fps, spill_parents)
+        ts.spill_events = int(meta.get("spill_events", 0))
+        ts.partition_spills = int(meta.get("partition_spills", 0))
+        keys = torch.from_numpy(fps.view(np.int64))
+        for part in keys.split(1 << 22):  # bounds the probe temporaries
+            insert(ts.summary, part.to(ts.summary.device), *ts.summary_cfg)
+        return ts

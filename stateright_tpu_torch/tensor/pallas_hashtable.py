@@ -382,43 +382,53 @@ def _claim_plain(t_key, t_parent, key, parent, lanes, n_partitions, is_new, over
             w, w_off = w[~out], w_off[~out]
 
 
-def lookup(t_key, t_parent, key, n_partitions=None):
-    """Parent keys of `key` (int64[n]) in the table; 0 where absent. Plain
-    torch ops on the table's device (path reconstruction walks a handful of
-    keys, so this needs no kernel)."""
+def find_slots(t_key, key, n_partitions=None):
+    """Table slot of each `key` (int64[n]), -1 where absent: the chain walk
+    to the key or the chain's first empty slot. Plain torch ops on the
+    table's device (path reconstruction walks a handful of keys, and the
+    engine's undo of an aborted chunk runs once; neither needs a kernel)."""
     base, start, V = _locate(t_key, key, n_partitions)
     off = _first_key_or_empty(t_key, key, base, start, torch.zeros_like(key), V)
-    found = off < V
     slot = _chain_slots(base, start, off.clamp(max=V - 1), V)
-    found &= t_key[slot] == key
-    return torch.where(found, t_parent[slot], torch.zeros_like(key))
+    found = (off < V) & (t_key[slot] == key)
+    return torch.where(found, slot, -1)
+
+
+def lookup(t_key, t_parent, key, n_partitions=None):
+    """Parent keys of `key` (int64[n]) in the table; 0 where absent."""
+    slot = find_slots(t_key, key, n_partitions)
+    return torch.where(slot >= 0, t_parent[slot.clamp(min=0)], torch.zeros_like(key))
 
 
 # -- carrying tables across the two packages ---------------------------------
 
 
-def from_jax_table(t_lo, t_hi, p_lo, p_hi) -> tuple[torch.Tensor, torch.Tensor]:
+def from_u32(a, device="cpu") -> torch.Tensor:
+    """A numpy uint32 array -> int64 lanes on `device`: the uint32 bits
+    cross to the device (half the bytes of int64) and widen there."""
+    a = np.require(a, np.uint32, ["C", "W"])
+    return torch.from_numpy(a.view(np.int32)).to(device).to(torch.int64) & MASK32
+
+
+def to_u32(x: torch.Tensor) -> np.ndarray:
+    """int64 lanes holding uint32 values -> numpy uint32, narrowed on the
+    tensor's device (half the bytes cross the bus)."""
+    x = x & MASK32
+    x = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    return x.cpu().numpy().view(np.uint32)
+
+
+def from_jax_table(t_lo, t_hi, p_lo, p_hi, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
     """The JAX package's four uint32 table arrays -> (t_key, t_parent) int64
-    CPU tensors, slot for slot."""
-
-    def pack(lo, hi):
-        lo = np.asarray(lo, dtype=np.uint64)
-        hi = np.asarray(hi, dtype=np.uint64)
-        return torch.from_numpy(((hi << np.uint64(32)) | lo).view(np.int64).copy())
-
-    return pack(t_lo, t_hi), pack(p_lo, p_hi)
+    tensors on `device`, slot for slot."""
+    return ((from_u32(t_hi, device) << 32) | from_u32(t_lo, device),
+            (from_u32(p_hi, device) << 32) | from_u32(p_lo, device))
 
 
 def to_jax_table(t_key, t_parent):
     """(t_key, t_parent) -> the JAX package's (t_lo, t_hi, p_lo, p_hi) uint32
     numpy arrays, slot for slot."""
-    k = to_host_fp(t_key)
-    p = to_host_fp(t_parent)
-    lo = np.uint64(MASK32)
-    return (
-        (k & lo).astype(np.uint32), (k >> np.uint64(32)).astype(np.uint32),
-        (p & lo).astype(np.uint32), (p >> np.uint64(32)).astype(np.uint32),
-    )
+    return (to_u32(t_key), to_u32(t_key >> 32), to_u32(t_parent), to_u32(t_parent >> 32))
 
 
 def dump_table(t_key, t_parent) -> dict:

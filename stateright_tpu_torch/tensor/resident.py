@@ -20,6 +20,17 @@ the search has that many unique states; crossing it sets ABORT_QUEUE, a
 full table partition sets ABORT_TABLE, and run() raises with the reason —
 never a silent drop.
 
+The carry outlives a run(): a later run() continues it (after a
+`max_steps`, `timeout` or finish-policy stop, or an abort), `reset()` drops
+it, and `checkpoint()` / `load_checkpoint()` write and read it in the JAX
+package's checkpoint format, both ways. An abort leaves the carry at the
+last chunk boundary, as the JAX engine's revert to its pre-chunk carry does,
+but without a copy of the carry: the steps change the table and the queue in
+place, so each chunk starts with a snapshot of the counters only (one stack
+and one clone, no host sync), and `_undo_chunk` clears the slots that the
+chunk claimed (see there). `load_checkpoint` with a larger `table_log2`
+regrows the table by re-inserting its keys through the insert kernel.
+
 store="tiered" (store/tiered.py) lets the unique states outnumber the
 table. Each step inserts through the fused Bloom-suspect form of the
 kernel: a new key that hits the summary of the spilled set is a suspect
@@ -34,6 +45,7 @@ enqueue the confirmed-new ones, evict) and resumes the same carry.
 
 from __future__ import annotations
 
+import json
 import time
 from typing import Optional
 
@@ -42,8 +54,9 @@ import torch
 
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
+from ..faults.ckptio import atomic_savez, load_latest
 from ..knobs import FINISH_KINDS, STORE_KINDS
-from .fingerprint import from_host_fp, to_host_fp
+from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
     SearchResult,
     append_new,
@@ -57,7 +70,15 @@ from .frontier import (
 )
 from .inserts import check_table_log2, resolve_insert
 from .model import TensorModel
-from .pallas_hashtable import dump_table, lookup
+from .pallas_hashtable import (
+    dump_table,
+    find_slots,
+    from_jax_table,
+    from_u32,
+    lookup,
+    to_jax_table,
+    to_u32,
+)
 
 # Abort-code bits of the carry's `overflow` counter (nonzero stops the search).
 ABORT_TABLE = 1  # a visited-table partition is full
@@ -67,8 +88,11 @@ ABORT_QUEUE = 2  # the frontier queue tail crossed its capacity
 EXIT_SERVICE = 4
 
 # Steps enqueued between host reads of the counters: the granularity of the
-# timeout and of progress reports.
+# timeout, of progress reports and of the undo after an abort.
 CHUNK_STEPS = 16
+# Columns of the JAX package's telemetry ring (obs/ring.py STEP_COLS): a
+# checkpoint carries an empty ring, which the JAX loader starts afresh.
+TM_COLS = 8
 
 
 def _abort_reason(code: int) -> str:
@@ -102,6 +126,30 @@ def _finish_masks(finish_when: HasDiscoveries, props) -> tuple[int, int]:
         "all_of": lambda: (sum(name_bit[n] for n in finish_when.names), 0),
         "any_of": lambda: (0, sum(name_bit[n] for n in finish_when.names)),
     }[k]()
+
+
+def _validate_ckpt_meta(model, meta: dict) -> None:
+    """Layout and property guards of a checkpoint (the JAX package's): lane
+    widths and property positions index into its arrays, so a mismatch
+    would silently misalign them."""
+    if (meta["lanes"], meta["max_actions"]) != (model.lanes, model.max_actions):
+        raise ValueError(
+            "checkpoint was taken with a different model layout "
+            f"(lanes/max_actions {meta['lanes']}/{meta['max_actions']} "
+            f"!= {model.lanes}/{model.max_actions})"
+        )
+    prop_names = [p.name for p in model.properties()]
+    if meta["properties"] != prop_names:
+        raise ValueError(
+            "checkpoint was taken with a different property list "
+            f"({meta['properties']} != {prop_names})"
+        )
+
+
+def _i32(value: int, name: str) -> np.int32:
+    if not 0 <= value < 1 << 31:
+        raise ValueError(f"{name}={value} does not fit the checkpoint's int32 field")
+    return np.int32(value)
 
 
 class _TableParents:
@@ -192,16 +240,31 @@ class ResidentSearch:
             self._SQ = 0
         # Rows of slack past the nominal queue capacity: one step appends at
         # most K*A rows (append_new writes a full K*A block at the tail).
-        # Tiered: the live frontier still fits 2^queue_log2 after a service's
-        # compaction, which then injects up to SQ confirmed suspects; one
-        # more K*A block keeps the scratch writes of the no-op steps after a
-        # service exit off live rows (the suspect buffer has the same block).
+        # Device store: one more row, so that the clamped scratch writes of
+        # the no-op steps after a queue abort land past the tail even when
+        # the aborting step filled its whole block (the undo reads the
+        # claimed keys there). Tiered: the live frontier still fits
+        # 2^queue_log2 after a service's compaction, which then injects up
+        # to SQ confirmed suspects; one more K*A block keeps the scratch
+        # writes of the no-op steps after a service exit off live rows (the
+        # suspect buffer has the same block). A checkpoint's tail never
+        # reaches that block (see checkpoint), so the JAX loader, whose
+        # queue lacks it, takes the port's files.
         self._QL = 1 << self.queue_log2
-        self._Q = self._QL + ka + (self._SQ + ka if store == "tiered" else 0)
-        self._c = None  # the carry: dict of device tensors (see _seed)
+        self._Q = self._QL + ka + (self._SQ + ka if store == "tiered" else 1)
+        self._c = None  # the carry: dict of device tensors (see _alloc)
+        self._snap = None  # the chunk boundary's counters (see _chunk)
         self._q_compacted = False
-        #: host seconds spent in each part of `_service` during the last run.
+        # The abort bits of the last overflow; a checkpoint keeps them, so
+        # that load_checkpoint can refuse a resume that does not grow the
+        # resource that ran out.
+        self._last_abort = 0
+        #: host seconds spent in each part of `_service` since the search
+        #: started.
         self.service_seconds = {}
+        #: host seconds of `load_checkpoint`: reading and verifying the file
+        #: ("read"), the regrow, when there is one, and the whole load.
+        self.load_seconds = {}
 
     def _fresh_store(self) -> None:
         """(Re)build the tiered store: a fresh search owes nothing to an
@@ -223,15 +286,20 @@ class ResidentSearch:
 
     # -- the carry ---------------------------------------------------------
 
-    def _seed(self) -> tuple[int, int]:
-        """Allocate the table and queue, insert and enqueue the init states.
-        Returns (n0, n_raw)."""
+    # Carry entries snapshotted at each chunk boundary: the 0-d counters.
+    _SCALARS = ("head", "tail", "gen", "unique", "max_depth", "discovered",
+                "steps", "overflow")
+    _TIERED_SCALARS = ("hot", "s_tail")
+
+    def _scalars(self) -> tuple:
+        return self._SCALARS + (self._TIERED_SCALARS if self._store is not None else ())
+
+    def _alloc(self) -> dict:
+        """A zero carry at this engine's sizes: the table, the queue, the
+        counters and, tiered, the suspect buffer (the summary is the
+        store's own words)."""
         model, dev = self.model, self.device
         K, L, Q = self.batch_size, model.lanes, self._Q
-        init, keys, n_raw = seed_init(model)
-        n0 = init.shape[0]
-        if n0 > K:
-            raise ValueError("more init states than batch_size; raise batch_size")
         S = 1 << self.table_log2
         i64 = dict(dtype=torch.int64, device=dev)
         c = dict(
@@ -241,7 +309,30 @@ class ResidentSearch:
             q_keys=torch.zeros(Q, **i64),
             q_ebits=torch.zeros(Q, **i64),
             q_depth=torch.zeros(Q, **i64),
+            disc_keys=torch.zeros(max(len(self.props), 1), **i64),
         )
+        c.update({k: torch.zeros((), **i64) for k in self._scalars()})
+        if self._store is not None:
+            SB = self._SQ + K * model.max_actions
+            c.update(
+                s_states=torch.zeros((SB, L), **i64),
+                s_keys=torch.zeros(SB, **i64),
+                s_ebits=torch.zeros(SB, **i64),
+                s_depth=torch.zeros(SB, **i64),
+                summary=self._store.summary,
+            )
+        self._arange_k = torch.arange(K, device=dev)
+        return c
+
+    def _seed(self) -> tuple[int, int]:
+        """A fresh carry with the init states inserted and enqueued.
+        Returns (n0, n_raw)."""
+        model, dev = self.model, self.device
+        init, keys, n_raw = seed_init(model)
+        n0 = init.shape[0]
+        if n0 > self.batch_size:
+            raise ValueError("more init states than batch_size; raise batch_size")
+        c = self._alloc()
         keys = keys.to(dev)
         # The seed insert meets an empty summary: always the plain form.
         _, _, is_new, ovf = self.insert(
@@ -256,34 +347,18 @@ class ResidentSearch:
         c["q_keys"][:n0] = keys
         c["q_ebits"][:n0] = ebits0
         c["q_depth"][:n0] = 1
-        zero = torch.zeros((), **i64)
+        i64 = dict(dtype=torch.int64, device=dev)
         c.update(
-            head=zero.clone(),
             tail=torch.full((), n0, **i64),
             gen=torch.full((), n_raw, **i64),
             unique=is_new.sum(),
-            max_depth=zero.clone(),
-            discovered=zero.clone(),
-            disc_keys=torch.zeros(max(len(self.props), 1), **i64),
             overflow=torch.where(ovf, ABORT_TABLE, 0).to(torch.int64),
-            steps=zero.clone(),
         )
         if self._store is not None:
-            self._fresh_store()
-            SB = self._SQ + K * model.max_actions
-            c.update(
-                hot=is_new.sum(),
-                s_states=torch.zeros((SB, L), **i64),
-                s_keys=torch.zeros(SB, **i64),
-                s_ebits=torch.zeros(SB, **i64),
-                s_depth=torch.zeros(SB, **i64),
-                s_tail=zero.clone(),
-                summary=self._store.summary,
-            )
+            c["hot"] = is_new.sum()
         self._c = c
         self._q_compacted = False
         self.service_seconds = {}
-        self._arange_k = torch.arange(K, device=dev)
         return n0, n_raw
 
     def _should_continue(self, c, req, anym, target, max_steps):
@@ -374,7 +449,7 @@ class ResidentSearch:
             )
             code = code | torch.where(service, EXIT_SERVICE, 0)
         else:
-            code = code | torch.where(tail > self._Q - K * A, ABORT_QUEUE, 0)
+            code = code | torch.where(tail > self._QL, ABORT_QUEUE, 0)
         c["overflow"] = c["overflow"] | code
         c["steps"] = c["steps"] + go.to(torch.int64)
 
@@ -387,18 +462,29 @@ class ResidentSearch:
         target_max_depth: Optional[int] = None,
         timeout: Optional[float] = None,
         max_steps: int = 1 << 62,
+        budget: Optional[int] = None,
         progress=None,
     ) -> SearchResult:
-        """Run the search from the init states to its finish policy (a fresh
-        search on every call). `progress(state_count, unique_count,
+        """Run the search from the init states to its finish policy, or
+        continue the retained carry of an earlier run (`reset()` starts
+        afresh). The steps go in chunks of `budget` steps (default
+        CHUNK_STEPS) with one read of the counters each; `max_steps` caps
+        the steps of the whole search. `progress(state_count, unique_count,
         max_depth)` is called between chunks; `timeout` is polled there too,
-        so it overshoots by at most one chunk."""
+        so it overshoots by at most one chunk, and suspends: a later run()
+        continues. A full table or queue raises with the carry at the last
+        chunk boundary: `checkpoint()` it and `load_checkpoint()` with the
+        named size raised to continue."""
+        if budget is not None and budget <= 0:
+            raise ValueError("budget must be a positive step count")
+        n_chunk = CHUNK_STEPS if budget is None else budget
         start = time.monotonic()
-        n0, n_raw = self._seed()
         if finish_when.matches(self.props, set()) or not self.props:
             # Vacuously-true finish policies stop before exploring anything,
             # matching the host checkers' immediate early-out
             # (ref: bfs.rs:278-280).
+            self.reset()
+            n0, n_raw = self._seed()
             return SearchResult(
                 state_count=n_raw,
                 unique_state_count=n0,
@@ -407,6 +493,8 @@ class ResidentSearch:
                 complete=False,
                 duration=time.monotonic() - start,
             )
+        if self._c is None:
+            self._seed()
         req, anym = _finish_masks(finish_when, self.props)
         target = int(target_state_count or 0)
         tmd = int(target_max_depth or 0)
@@ -414,9 +502,7 @@ class ResidentSearch:
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         timed_out = False
         while True:
-            for _ in range(CHUNK_STEPS):
-                go = self._should_continue(c, req, anym, target, max_steps)
-                self._step(c, go, tmd)
+            self._chunk(c, req, anym, target, tmd, max_steps, n_chunk)
             go = self._should_continue(c, req, anym, target, max_steps)
             # ONE device->host read per chunk.
             (gen, unique, max_depth, overflow, stop, n_suspects) = (
@@ -430,8 +516,15 @@ class ResidentSearch:
                 self._service()
                 continue
             if overflow:
+                self._last_abort = overflow & (ABORT_TABLE | ABORT_QUEUE)
+                self._undo_chunk()
                 raise RuntimeError(
-                    f"hash table or queue full — {_abort_reason(overflow)}"
+                    f"hash table or queue full — {_abort_reason(overflow)}; the "
+                    "search carry was kept at the last chunk boundary — "
+                    "checkpoint(path) then ResidentSearch.load_checkpoint(model, "
+                    "path, ...) with the named size raised continues the run "
+                    "(the checkpoint keeps the abort reason, and "
+                    "load_checkpoint refuses a resume that does not grow it)"
                 )
 
             if progress is not None:
@@ -469,6 +562,59 @@ class ResidentSearch:
             detail=detail,
         )
 
+    def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:
+        """`n_steps` steps queued on the device with no host sync, after a
+        snapshot of the carry's counters and discovery keys: the undo point
+        of the chunk (one stack and one clone)."""
+        self._snap = (torch.stack([c[k] for k in self._scalars()]),
+                      c["disc_keys"].clone())
+        for _ in range(n_steps):
+            go = self._should_continue(c, req, anym, target, max_steps)
+            self._step(c, go, tmd)
+
+    def _undo_chunk(self) -> None:
+        """Put the carry back at the chunk boundary after an abort, slot for
+        slot, without a copy of the table or queue.
+
+        A step writes the table only where it claims a key, and only slots
+        that were empty at the boundary (no eviction runs inside a chunk).
+        Every key the chunk claimed was appended to the queue at
+        [tail0, tail) — or, tiered, buffered as a suspect at
+        [s_tail0, s_tail), the suspects keeping their claims — where tail0
+        and s_tail0 are the boundary's. Clearing exactly their slots, found
+        by the chain walk before any of them is cleared (a cleared slot
+        would end a later key's walk early), gives back the boundary's
+        table, and every chain is again "occupied prefix, then empty"
+        (tensor/pallas_hashtable.py). Queue and buffer rows below the
+        boundary's tails are never written inside a chunk, so restoring the
+        counters and discovery keys restores the rest."""
+        c = self._c
+        snap, disc = self._snap
+        names = self._scalars()
+        at = dict(zip(names, snap.tolist()))
+        claimed = [c["q_keys"][at["tail"]:int(c["tail"])]]
+        if self._store is not None:
+            claimed.append(c["s_keys"][at["s_tail"]:int(c["s_tail"])])
+        keys = torch.cat(claimed)
+        slots = torch.cat([find_slots(c["t_key"], part) for part in keys.split(1 << 22)])
+        if bool((slots < 0).any()):
+            raise RuntimeError("undo of an aborted chunk: a claimed key is not in the table")
+        c["t_key"].index_fill_(0, slots, 0)
+        c["t_parent"].index_fill_(0, slots, 0)
+        c.update(zip(names, snap.clone().unbind()))
+        c["disc_keys"].copy_(disc)
+
+    def reset(self) -> None:
+        """Drop the carry, so that the next run() starts afresh (the spill
+        tier and summary too)."""
+        self._c = None
+        self._snap = None
+        self._last_abort = 0
+        self._q_compacted = False
+        self.service_seconds = {}
+        if self._store is not None:
+            self._fresh_store()
+
     def _part_max(self, c) -> torch.Tensor:
         """Occupied slots of the fullest partition: one pass over the
         table's keys (tiered, once a step)."""
@@ -505,9 +651,16 @@ class ResidentSearch:
             self._q_compacted = True
         t1 = time.monotonic()
         if tail > self._QL:
+            # A real capacity wall, recoverable like the device store's queue
+            # abort: the compacted carry is sound (checkpoint, then regrow).
+            i64 = dict(dtype=torch.int64, device=dev)
+            c.update(head=torch.zeros((), **i64), tail=torch.tensor(tail, **i64),
+                     overflow=torch.zeros((), **i64))
+            self._last_abort = ABORT_QUEUE
             raise RuntimeError(
                 f"frontier queue full — {_abort_reason(ABORT_QUEUE)}; the live "
-                "frontier exceeds the compacted queue"
+                "frontier exceeds the compacted queue — checkpoint(path) then "
+                "load_checkpoint with a larger queue_log2 to continue"
             )
         if s_tail > 0:
             dup = store.resolve_suspects(c["s_keys"][:s_tail])
@@ -544,6 +697,236 @@ class ResidentSearch:
                           ("evict", t3 - t2), ("service", t3 - t0)):
             self.service_seconds[part] = self.service_seconds.get(part, 0.0) + sec
         self.service_seconds["calls"] = self.service_seconds.get("calls", 0) + 1
+
+    # -- checkpoint and resume ------------------------------------------------------
+
+    def checkpoint(self, path: str) -> str:
+        """Write the carry to `path` (.npz, crash-atomic, faults/ckptio.py)
+        in the JAX package's format: its `_Carry` fields, names and dtypes
+        (the u32 lanes narrowed here, at this boundary only), the tiered
+        store's spill tier, and its meta, with `insert_variant: "pallas"`
+        (this table's slot layout). Valid after a run() that stopped or
+        raised on an overflow (the carry is then at the last chunk
+        boundary); `load_checkpoint` in either package continues it.
+
+        Queue rows are written for [0, tail) and suspect rows for
+        [0, s_tail) only; both loaders pad them. The tail never reaches the
+        port's extra block of tiered queue slack (see __init__): a run()
+        returns, and an abort undoes to, a chunk boundary where a service
+        has left the tail at most 2^queue_log2 plus the injected suspects,
+        the JAX queue's slack; the one exception, a queue abort in the
+        service, needs a larger queue_log2 to load in either package."""
+        if self._c is None:
+            raise RuntimeError("nothing to checkpoint: run() has not been called")
+        c, model = self._c, self.model
+        tiered = self._store is not None
+        names = self._scalars()
+        at = dict(zip(names, torch.stack([c[k] for k in names]).tolist()))
+        head, tail = at["head"], at["tail"]
+        s_tail = at["s_tail"] if tiered else 0
+        arrays = dict(zip(("t_lo", "t_hi", "p_lo", "p_hi"),
+                          to_jax_table(c["t_key"], c["t_parent"])))
+        q_keys = c["q_keys"][:tail]
+        arrays.update(
+            q_states=to_u32(c["q_states"][:tail]), q_lo=to_u32(q_keys),
+            q_hi=to_u32(q_keys >> 32), q_ebits=to_u32(c["q_ebits"][:tail]),
+            q_depth=to_u32(c["q_depth"][:tail]),
+        )
+        gen = at["gen"]
+        arrays.update(
+            head=_i32(head, "head"), tail=_i32(tail, "tail"),
+            gen_lo=np.uint32(gen & MASK32), gen_hi=np.uint32(gen >> 32),
+            unique_count=_i32(at["unique"], "unique_count"),
+            max_depth=np.uint32(at["max_depth"]),
+            discovered=np.uint32(at["discovered"]),
+            disc_lo=to_u32(c["disc_keys"]), disc_hi=to_u32(c["disc_keys"] >> 32),
+            overflow=np.uint32(at["overflow"]), steps=_i32(at["steps"], "steps"),
+            hot_claims=_i32(at["hot"] if tiered else int((c["t_key"] != 0).sum()),
+                            "hot_claims"),
+            s_tail=_i32(s_tail, "s_tail"),
+            tm_rows=np.zeros((0, TM_COLS), np.uint32),
+        )
+        if tiered:
+            s_keys = c["s_keys"][:s_tail]
+            arrays.update(
+                s_states=to_u32(c["s_states"][:s_tail]), s_lo=to_u32(s_keys),
+                s_hi=to_u32(s_keys >> 32), s_ebits=to_u32(c["s_ebits"][:s_tail]),
+                s_depth=to_u32(c["s_depth"][:s_tail]),
+                summary=c["summary"].cpu().numpy().view(np.uint32),
+                **self._store.to_checkpoint(),
+            )
+        else:
+            empty = np.zeros(0, np.uint32)
+            arrays.update(s_states=np.zeros((0, model.lanes), np.uint32), s_lo=empty,
+                          s_hi=empty, s_ebits=empty, s_depth=empty,
+                          summary=np.zeros(1, np.uint32))
+        arrays["meta"] = np.frombuffer(json.dumps({
+            "lanes": model.lanes,
+            "max_actions": model.max_actions,
+            "properties": [p.name for p in self.props],
+            "table_log2": self.table_log2,
+            "queue_log2": self.queue_log2,
+            "batch_size": self.batch_size,
+            "table_layout": "split",
+            "insert_variant": "pallas",
+            "store": self._store.meta() if tiered else None,
+            "q_compacted": self._q_compacted,
+            # Why the run aborted (0: a clean stop), so that the loader can
+            # refuse a resume that would hit the same wall.
+            "abort_reason": self._last_abort,
+        }).encode(), dtype=np.uint8)
+        return atomic_savez(path, arrays)
+
+    @classmethod
+    def load_checkpoint(
+        cls,
+        model: TensorModel,
+        path: str,
+        batch_size: Optional[int] = None,
+        table_log2: Optional[int] = None,
+        queue_log2: Optional[int] = None,
+        device="cuda",
+    ) -> "ResidentSearch":
+        """An engine holding the carry of a `checkpoint` file, written by
+        this package or the JAX one; the next run() continues it. The CRC
+        footer is verified, and a corrupt current generation falls back to
+        ``path + ".prev"``.
+
+        A larger `table_log2` regrows the table: its keys are re-inserted,
+        K at a time, through the insert (the CUDA kernel on the card). A
+        file whose table has another slot layout (a JAX run with another
+        insert variant than "pallas") is re-inserted at the same size; a
+        pallas table of the same size is taken slot for slot. The table
+        cannot shrink. A default-sized queue (queue_log2 == table_log2)
+        follows the table; a right-sized one is kept. The resource that
+        aborted the checkpointed run must grow, or the load is refused, as
+        is a queue or batch size too small for the checkpoint's live rows."""
+        t0 = time.monotonic()
+        data, _src = load_latest(path)
+        t_read = time.monotonic() - t0
+        meta = json.loads(bytes(data["meta"]).decode())
+        _validate_ckpt_meta(model, meta)
+        if meta.get("table_layout", "split") != "split":
+            raise NotImplementedError(
+                "checkpoint resume takes the split table layout only; rerun "
+                "the search with table_layout='split' (the default)"
+            )
+        old_log2 = meta["table_log2"]
+        log2 = old_log2 if table_log2 is None else table_log2
+        if log2 < old_log2:
+            raise ValueError("cannot shrink the table on resume")
+        meta_q = meta.get("queue_log2", old_log2)
+        if queue_log2 is None:
+            queue_log2 = log2 if meta_q == old_log2 else meta_q
+        abort = int(meta.get("abort_reason", 0))
+        if abort & ABORT_TABLE and log2 <= old_log2:
+            raise ValueError(
+                "this checkpoint was taken after a hash-table overflow "
+                f"(table_log2={old_log2}); pass a larger table_log2 to "
+                "load_checkpoint to regrow the table"
+            )
+        if abort & ABORT_QUEUE and queue_log2 <= meta_q:
+            raise ValueError(
+                "this checkpoint was taken after a frontier-queue overflow "
+                f"(queue_log2={meta_q}); pass a larger queue_log2 to "
+                "load_checkpoint to regrow the queue"
+            )
+        store_meta = meta.get("store")
+        store_kw = {}
+        if store_meta:
+            store_kw = dict(store="tiered", high_water=store_meta["high_water"],
+                            low_water=store_meta["low_water"],
+                            summary_log2=store_meta["summary_log2"])
+        rs = cls(model, batch_size or meta["batch_size"], log2, queue_log2=queue_log2,
+                 device=device, **store_kw)
+        if store_meta:
+            from ..store.tiered import TieredStore
+
+            rs._store.close()  # replaced by the checkpointed tier
+            rs._store = TieredStore.from_checkpoint(
+                1 << log2, store_meta, data["spill_fps"], data["spill_parents"],
+                device=rs.device,
+            )
+            rs._q_compacted = bool(meta.get("q_compacted", False))
+        rehash = log2 != old_log2 or meta.get("insert_variant", "sort") != "pallas"
+        rs._load_carry(data, rehash)
+        if rs.device.type == "cuda":
+            torch.cuda.synchronize(rs.device)
+        rs.load_seconds.update(read=t_read, load=time.monotonic() - t0)
+        return rs
+
+    def _load_carry(self, data, rehash: bool) -> None:
+        """Fill a fresh carry from a checkpoint's arrays (`load_checkpoint`
+        has checked the meta): the table slot for slot or re-inserted, the
+        live queue and suspect rows, and the counters; `overflow` cleared."""
+        model, dev = self.model, self.device
+        KA = self.batch_size * model.max_actions
+        tail, s_tail = int(data["tail"]), int(data["s_tail"]) if "s_tail" in data else 0
+        limit = self._QL + self._SQ  # what the JAX engine's queue takes too
+        if tail > limit:
+            raise ValueError(
+                f"queue_log2={self.queue_log2} gives {self._Q} rows but the "
+                f"checkpointed frontier tail is {tail}; the queue cannot "
+                "shrink below the live frontier"
+            )
+        if self._store is not None and s_tail > self._SQ - KA:
+            raise ValueError(
+                "batch_size too small for the checkpointed suspect buffer "
+                f"({s_tail} live suspects); resume with the original batch_size"
+            )
+        c = self._alloc()
+        t_key, t_parent = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"],
+                                         data["p_hi"], device=dev)
+        if rehash:
+            t0 = time.monotonic()
+            self._regrow(c, t_key, t_parent)  # ends in a sync (its overflow flag)
+            self.load_seconds["regrow"] = time.monotonic() - t0
+        else:
+            c["t_key"].copy_(t_key)
+            c["t_parent"].copy_(t_parent)
+        del t_key, t_parent
+        c["q_states"][:tail] = from_u32(data["q_states"][:tail], dev)
+        c["q_keys"][:tail] = (from_u32(data["q_hi"][:tail], dev) << 32) | from_u32(
+            data["q_lo"][:tail], dev)
+        c["q_ebits"][:tail] = from_u32(data["q_ebits"][:tail], dev)
+        c["q_depth"][:tail] = from_u32(data["q_depth"][:tail], dev)
+        c["disc_keys"].copy_((from_u32(data["disc_hi"], dev) << 32) | from_u32(data["disc_lo"], dev))
+        gen = int(data["gen_lo"]) | int(data["gen_hi"]) << 32
+        i64 = dict(dtype=torch.int64, device=dev)
+        c.update(
+            head=torch.tensor(int(data["head"]), **i64),
+            tail=torch.tensor(tail, **i64),
+            gen=torch.tensor(gen, **i64),
+            unique=torch.tensor(int(data["unique_count"]), **i64),
+            max_depth=torch.tensor(int(data["max_depth"]), **i64),
+            discovered=torch.tensor(int(data["discovered"]), **i64),
+            steps=torch.tensor(int(data["steps"]), **i64),
+        )
+        if self._store is not None:
+            for name in ("states", "ebits", "depth"):
+                c[f"s_{name}"][:s_tail] = from_u32(data[f"s_{name}"][:s_tail], dev)
+            c["s_keys"][:s_tail] = (from_u32(data["s_hi"][:s_tail], dev) << 32) | from_u32(
+                data["s_lo"][:s_tail], dev)
+            hot = (int((c["t_key"] != 0).sum()) if rehash or "hot_claims" not in data
+                   else int(data["hot_claims"]))
+            c.update(hot=torch.tensor(hot, **i64), s_tail=torch.tensor(s_tail, **i64))
+        self._c = c
+
+    def _regrow(self, c, t_key, t_parent) -> None:
+        """Re-insert every occupied slot of (t_key, t_parent) into the
+        carry's empty table, K keys a call, through the engine's insert:
+        the CUDA kernel on the card. Overflow raises."""
+        occupied = t_key != 0
+        keys, parents = t_key[occupied], t_parent[occupied]
+        K = self.batch_size
+        active = torch.ones(K, dtype=torch.bool, device=self.device)
+        ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        for i in range(0, keys.shape[0], K):
+            k = keys[i:i + K]
+            ovf |= self.insert(c["t_key"], c["t_parent"], k, parents[i:i + K],
+                               active[:k.shape[0]])[-1]
+        if bool(ovf):
+            raise RuntimeError("table overflow while re-growing; raise table_log2 further")
 
     # -- after the search --------------------------------------------------------
 

@@ -52,6 +52,16 @@ def test_running_the_port_loads_neither_jax_nor_the_jax_package():
         "p = TensorPaxos(1).checker().spawn_cuda(table_log2=12, device='cpu').join()\n"
         "assert (p.state_count(), p.unique_state_count()) == (482, 265)\n"
         "p.discoveries()\n"
+        "import os, tempfile\n"
+        "from stateright_tpu_torch.tensor.resident import ResidentSearch\n"
+        "rs = ResidentSearch(TensorTwoPhaseSys(3), 64, 12, device='cpu')\n"
+        "assert not rs.run(max_steps=3).complete\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    ckpt = os.path.join(d, 'c.npz')\n"
+        "    rs.checkpoint(ckpt)\n"
+        "    r = ResidentSearch.load_checkpoint(TensorTwoPhaseSys(3), ckpt, table_log2=13,\n"
+        "        device='cpu').run()\n"
+        "assert (r.state_count, r.unique_state_count) == (1146, 288) and r.complete\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
         "assert not bad, bad\n"
