@@ -60,7 +60,29 @@ seconds on a line of its own:
     golden; then phase 8's tiered search, stopped at half its steps after a
     spill, checkpointed and resumed in a fresh engine to the same golden.
     It prints the file sizes, the free disk space, the write, read, regrow
-    and resumed seconds, and the regrow's kernel calls.
+    and resumed seconds, and the regrow's kernel calls;
+13. the actor lowering (stateright_tpu_torch/tensor/lowering.py) through
+    `lower_actor_model(...).checker().spawn_cuda()` and `refine_check`:
+    (a) 2-client Paxos as an actor system, exact closure, with the
+    "linearizable" (the lowered LinearizabilityTester) and "value chosen"
+    properties, batch 2048, table 2^18, to 32,971 / 16,668 and the same
+    counts as TensorPaxos(2) on the card, the witness replayed, the insert
+    of a fresh search's 13th step held against the plain version at this
+    path's shapes, then its expand and properties on its reachable rows and a chunk of engine steps
+    under `set_sync_debug_mode("error")`; (b) `refine_check` on 1-client
+    Paxos in restart and warm mode, to 482 / 265, each mode's final
+    lowered model's insert held against the plain version at batch 256,
+    table 2^12, as in (a); (c) the ABD register,
+    2 clients / 3 servers on an ordered network, exact closure to depth 16
+    (BASELINE.json #3; bench.py's settings: batch 2048, table 2^16); (d)
+    Paxos 5 servers / 4 clients, exact closure to depth 10, with the two
+    properties of (a) (BASELINE.json #5; batch 4096, table 2^19). (c) and
+    (d) reach the counts of the closure's own host traversal and of the
+    JAX package's ResidentSearch on the same lowered model (pinned below),
+    and print the closure and search seconds, generated states per second,
+    peak device memory, lanes per row, a chunk without a host sync, and a
+    profiled window (launches per step, device busy share, each layer at
+    the queue head, whose insert is held against the plain version).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -105,6 +127,14 @@ SPILLED_AT_STEP = 38_000_000  # summary load of the fused step-shape case
 # states; the checkpoint resumes with the table regrown to 2^28 and the
 # queue at phase 7's 2^26.
 CKPT_QUEUE, CKPT_TABLE = 24, 28
+# Phase 13: bench.py's deep lowered configurations (BASELINE.json #3, #5).
+# Their counts, from the JAX package's ResidentSearch on its own lowering
+# of the same configuration (same batch, table and depth), on the CPU:
+# equal to the exact closure's host traversal (closure_stats).
+ABD_DEPTH, BATCH_ABD, TABLE_ABD, GOLDEN_ABD16 = 16, 2048, 16, (42_445, 16_649)
+PAXOS5_DEPTH, BATCH_PAXOS5, TABLE_PAXOS5 = 10, 4096, 19
+GOLDEN_PAXOS5S4C10 = (661_580, 242_819)
+GOLDEN_PAXOS2, GOLDEN_PAXOS1 = (32_971, 16_668), (482, 265)
 STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspects_dup")
 # Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
 # csrc/visited_insert.cu), one 32-byte sector each.
@@ -801,13 +831,15 @@ def queue_head_vs_plain(torch, chk, tag, rs, tables=None):
                 parents=parents, validf=validf, is_new=is_new)
 
 
-def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, n_steps):
+def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, n_steps,
+                   run_kw=None):
     """Where a step's time goes. (a) The device's busy share: the first
-    `n_steps` steps of a fresh search, timed on the host clock, then the
-    same steps again under a CUDA-only profiler, whose kernel times are
-    summed. (b) Each layer of one step timed alone with CUDA events (median
-    of 10) on the batch at the queue head after those steps, whose insert
-    is first held against the plain version (chk) at this path's shapes."""
+    `n_steps` steps of a fresh search (run with `run_kw`), timed on the host
+    clock, then the same steps again under a CUDA-only profiler, whose
+    kernel times are summed. (b) Each layer of one step timed alone with
+    CUDA events (median of 10) on the batch at the queue head after those
+    steps, whose insert is first held against the plain version (chk) at
+    this path's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     from stateright_tpu_torch.tensor.frontier import append_new, state_fingerprint
@@ -816,21 +848,24 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
     def fresh():
         return ResidentSearch(model, K, table_log2, queue_log2=queue_log2)
 
+    run_kw = run_kw or {}
     rs = fresh()
-    rs.run(max_steps=16)  # warm the allocator
+    rs.run(max_steps=16, **run_kw)  # warm the allocator
     rs.reset()  # a run continues the carry; the timed one starts afresh
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    r = rs.run(max_steps=n_steps)
+    r = rs.run(max_steps=n_steps, **run_kw)
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) * 1e3 / r.steps
+    profiled = fresh()  # built outside the profile: a lowered model's tables go to the card here
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fresh().run(max_steps=n_steps)
+        profiled.run(max_steps=n_steps, **run_kw)
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / r.steps
     launches = sum(e.count for e in kernels) / r.steps
-    log(f"{tag} {name}, first {r.steps} steps: {step_ms:.3f} ms per step on the host "
+    log(f"{tag} {name} ({model.lanes} lanes per row, {model.max_actions} actions), "
+        f"first {r.steps} steps: {step_ms:.3f} ms per step on the host "
         f"clock, {busy_ms:.3f} ms of kernels per step under the profiler: device busy "
         f"{100 * busy_ms / step_ms:.1f}%, idle {100 - 100 * busy_ms / step_ms:.1f}%; "
         f"{launches:.0f} kernel launches per step")
@@ -1013,6 +1048,165 @@ def phase_paxos3(ph, torch, chk):
                           BATCH_PAXOS3, TABLE_PAXOS3, None, 64)
     return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
                 rate=got[0] / sec, depth=r.max_depth, **prof)
+
+
+def register_properties(view):
+    """The two properties of the lowered register models (JAX
+    tests/test_lowering.py:640-651): "linearizable" through the lowered
+    LinearizabilityTester, "value chosen" when a GetOk with a value is in
+    flight."""
+    from stateright_tpu_torch.actor.register import GetOk
+    from stateright_tpu_torch.examples.paxos import NULL_VALUE
+    from stateright_tpu_torch.tensor import TensorProperty
+
+    lin = view.history_pred(lambda h: h.is_consistent())
+    chosen = view.any_env(lambda e: isinstance(e.msg, GetOk) and e.msg.value != NULL_VALUE)
+    return [
+        TensorProperty.always("linearizable", lambda m, s: lin(s)),
+        TensorProperty.sometimes("value chosen", lambda m, s: chosen(s)),
+    ]
+
+
+def lowered_deep(ph, torch, chk, tag, build, K, table_log2, depth, golden):
+    """One of bench.py's deep lowered configurations: the exact closure
+    (host), the search through spawn_cuda() to `depth` at the golden counts
+    (closure_stats and the JAX package's), a chunk with no host sync, and a
+    profiled window over the whole chunks in the first half of its steps."""
+    t0 = time.monotonic()
+    model = build()
+    closure_sec = time.monotonic() - t0
+    s = model.closure_stats
+    assert (s["generated"], s["unique"]) == golden, (tag, s)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    c = model.checker().target_max_depth(depth).spawn_cuda(
+        batch_size=K, table_log2=table_log2).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == golden, (tag, got)
+    assert r.max_depth == depth, (tag, r.max_depth)
+    assert not r.discoveries, (tag, r.discoveries)
+    assert launches > 0, f"{tag} never launched the insert kernel"
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} closure_sec={closure_sec:.3f} (host; {s}) generated={got[0]} "
+        f"unique={got[1]} depth={r.max_depth} steps={r.steps} search_sec={sec:.3f} "
+        f"generated_per_s={got[0] / sec:.0f} max_memory_allocated={peak} "
+        f"insert_launches={launches} lanes={model.lanes} actions={model.max_actions}; "
+        "the counts equal the closure's and the JAX package's")
+    del c
+    n = chunk_without_sync(torch, model, K, table_log2)
+    log(f"{tag} {n} engine steps from the seed queue without a host sync")
+    torch.cuda.empty_cache()
+    # Whole chunks: a run enqueues CHUNK_STEPS steps at a time, so a window
+    # that ends inside a chunk would count the no-op steps' launches too.
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS
+
+    window = CHUNK_STEPS * max(1, r.steps // 2 // CHUNK_STEPS)
+    prof = profile_window(ph, torch, chk, f"{tag} profile", tag.strip("[]"), model, K,
+                          table_log2, None, window, run_kw={"target_max_depth": depth})
+    return dict(closure_sec=closure_sec, sec=sec, launches=launches, steps=r.steps,
+                peak=peak, rate=got[0] / sec, lanes=model.lanes, **prof)
+
+
+def phase_lowering(ph, torch, chk):
+    """The actor lowering on the card (see the module docstring, phase 13)."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.examples.abd import AbdModelCfg
+    from stateright_tpu_torch.examples.paxos import PaxosModelCfg
+    from stateright_tpu_torch.tensor.lowering import lower_actor_model, refine_check
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    def head_vs_plain(tag, model, K, table_log2, steps):
+        """The insert at this path's own shapes: a fresh search of `model`
+        after `steps` steps, its queue-head step held against the plain
+        version."""
+        rs = ResidentSearch(model, K, table_log2)
+        rs.run(max_steps=steps)
+        assert int(rs._c["head"]) < int(rs._c["tail"]), (tag, "queue drained")
+        queue_head_vs_plain(torch, chk, tag, rs)
+
+    nondup = Network.new_unordered_nonduplicating
+    # (a) lowered paxos-2, exact closure.
+    t0 = time.monotonic()
+    lowered = lower_actor_model(
+        PaxosModelCfg(client_count=2, server_count=3, network=nondup()).into_model(),
+        properties=register_properties, closure="exact",
+    )
+    closure_sec = time.monotonic() - t0
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    c = lowered.checker().spawn_cuda(batch_size=2048, table_log2=18).join()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_PAXOS2 and r.complete, got
+    assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    assert launches > 0, "lowered paxos-2 never launched the insert kernel"
+    path = c.discoveries()["value chosen"]
+    c.assert_discovery("value chosen", path.actions())
+    c.assert_no_discovery("linearizable")
+    c.assert_no_discovery("lowering coverage")
+    hand = TensorPaxos(2).checker().spawn_cuda(batch_size=2048, table_log2=18).join()
+    assert (hand.state_count(), hand.unique_state_count()) == got
+    head_vs_plain("[lowering] paxos-2:", lowered, 2048, 18, 12)
+    rows = torch.tensor(c._search.dump_states(decode=False), dtype=torch.int64, device="cuda")
+    model_ops_without_sync(torch, lowered, rows)
+    n = chunk_without_sync(torch, lowered, 2048, 18)
+    log(f"[lowering] paxos-2 exact: closure_sec={closure_sec:.3f} generated={got[0]} "
+        f"unique={got[1]} depth={r.max_depth} steps={r.steps} sec={sec:.3f} "
+        f"launches={launches} lanes={lowered.lanes} actions={lowered.max_actions}; equal to "
+        f"TensorPaxos(2) on the card; value chosen Path[{len(path) - 1}] replayed; expand "
+        f"and {len(lowered.properties())} properties on {rows.shape[0]} reachable rows, "
+        f"and {n} engine steps, queue without a host sync")
+    del c, hand, rows
+    # (b) refine_check on paxos-1, restart and warm.
+    for warm in (False, True):
+        ph.insert_kernel.launches = 0
+        rounds = []
+        t0 = time.monotonic()
+        r, lw = refine_check(
+            PaxosModelCfg(client_count=1, server_count=3).into_model(), batch_size=256,
+            table_log2=12, seed_states=32, properties=register_properties, warm=warm,
+            progress=lambda rnd, ng, res: rounds.append(ng),
+        )
+        sec = time.monotonic() - t0
+        launches = ph.insert_kernel.launches
+        got = (r.state_count, r.unique_state_count)
+        assert got == GOLDEN_PAXOS1 and r.complete, (warm, got)
+        assert set(r.discoveries) == {"value chosen"}, (warm, r.discoveries)
+        assert launches > 0 and rounds, (warm, launches, rounds)
+        head_vs_plain(f"[lowering] refine_check paxos-1 {'warm' if warm else 'restart'}, "
+                      "final model:", lw, 256, 12, 8)
+        log(f"[lowering] refine_check paxos-1 {'warm' if warm else 'restart'}: "
+            f"generated={got[0]} unique={got[1]} extends={len(rounds)} "
+            f"gaps={sum(rounds)} sec={sec:.3f} launches={launches}")
+    torch.cuda.empty_cache()
+    # (c) abd-ordered-16 and (d) paxos 5 servers / 4 clients to depth 10.
+    abd = lowered_deep(
+        ph, torch, chk, "[abd-ordered-16]",
+        lambda: lower_actor_model(
+            AbdModelCfg(2, 3, network=Network.new_ordered()).into_model(),
+            closure="exact", closure_max_depth=ABD_DEPTH, max_joint_states=1 << 22,
+        ),
+        BATCH_ABD, TABLE_ABD, ABD_DEPTH, GOLDEN_ABD16,
+    )
+    paxos5 = lowered_deep(
+        ph, torch, chk, "[paxos-5s4c-10]",
+        lambda: lower_actor_model(
+            PaxosModelCfg(client_count=4, server_count=5, network=nondup()).into_model(),
+            closure="exact", closure_max_depth=PAXOS5_DEPTH, max_joint_states=1 << 22,
+            max_emit=6, properties=register_properties,
+        ),
+        BATCH_PAXOS5, TABLE_PAXOS5, PAXOS5_DEPTH, GOLDEN_PAXOS5S4C10,
+    )
+    return dict(abd=abd, paxos5=paxos5)
 
 
 def checkpoint_timed(rs, path):
@@ -1262,6 +1456,7 @@ def main() -> int:
     paxos3 = phase(11, "paxos-3", phase_paxos3, ph, torch, chk)
     ckpt = phase(12, "checkpoint and regrow", phase_checkpoint, ph, torch, chk,
                  device_path, tiered_path)
+    lowering = phase(13, "actor lowering", phase_lowering, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -1276,6 +1471,7 @@ def main() -> int:
         "launches_paxos3": paxos3["launches"],
         "launches_regrow": ckpt["regrow_launches"],
         "launches_resumed": ckpt["resume_launches"],
+        "launches_lowered": lowering["paxos5"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

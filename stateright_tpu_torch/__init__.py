@@ -7,8 +7,11 @@ The port runs the default breadth-first device search: a `TensorModel`'s
 (csrc/visited_insert.cu). Its models are those of tensor/models.py
 (linear equation, two-phase commit, increment, increment-lock, Raft) and
 tensor/paxos.py, with symmetry reduction through a model's
-`representative`. It imports torch, never jax, and nothing of the
-stateright_tpu package.
+`representative`. Any bounded actor system (actor/, with the consistency
+testers of semantics/ as its history) lowers to a tensor model through
+`tensor.lower_actor_model` or `tensor.refine_check` and is checked the same
+way. It imports torch, never jax, and nothing of the stateright_tpu
+package.
 """
 
 from .core.discovery import HasDiscoveries

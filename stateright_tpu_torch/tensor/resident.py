@@ -963,11 +963,17 @@ class ResidentSearch:
             fp, self.device,
         )
 
-    def dump_states(self, decode: bool = True, evaluated_only: bool = False):
+    def dump_states(self, decode: bool = True, evaluated_only: bool = False,
+                    raw: bool = False, start: int = 0):
         """Every unique state the search reached, from the queue in one
         transfer (rows [0, tail) are exactly the unique states ever
         enqueued; `evaluated_only` stops at the rows the search popped).
-        Refused once a tiered service has compacted the queue."""
+        Refused once a tiered service has compacted the queue.
+
+        `raw=True` returns the rows [start, end) as numpy uint32[n, lanes]
+        (the JAX engine's form): refine_check scans the queue for poison
+        rows after every round, and `start` lets it transfer only the rows
+        it has not scanned yet."""
         c = self._carry()
         if self._q_compacted:
             raise RuntimeError(
@@ -977,6 +983,8 @@ class ResidentSearch:
                 "— use store='device' for exact state-set dumps"
             )
         end = int(c["head"] if evaluated_only else c["tail"])
+        if raw:
+            return c["q_states"][start:end].cpu().numpy().astype(np.uint32)
         rows = c["q_states"][:end].cpu().numpy()
         if not decode:
             return [tuple(int(x) for x in r) for r in rows]

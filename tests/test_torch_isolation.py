@@ -62,6 +62,18 @@ def test_running_the_port_loads_neither_jax_nor_the_jax_package():
         "    r = ResidentSearch.load_checkpoint(TensorTwoPhaseSys(3), ckpt, table_log2=13,\n"
         "        device='cpu').run()\n"
         "assert (r.state_count, r.unique_state_count) == (1146, 288) and r.complete\n"
+        "from stateright_tpu_torch.actor.test_util import PingPongCfg\n"
+        "from stateright_tpu_torch.tensor.lowering import lower_actor_model, refine_check\n"
+        "pp = PingPongCfg(max_nat=5).into_model().with_lossy_network(True)\n"
+        "lw = lower_actor_model(pp, local_boundary=lambda i, s: s <= 5,\n"
+        "    boundary=lambda v: (lambda f: lambda s: (f(s) <= 5).all(1))(\n"
+        "        v.actor_feature(lambda i, s: s)))\n"
+        "c = lw.checker().spawn_cuda(batch_size=512, table_log2=16, device='cpu').join()\n"
+        "assert c.unique_state_count() == 4094\n"
+        "rr, _ = refine_check(PingPongCfg(max_nat=3).into_model(), batch_size=32,\n"
+        "    table_log2=10, seed_states=2, device='cpu', boundary=lambda v: (lambda f:\n"
+        "    lambda s: (f(s) <= 3).all(1))(v.actor_feature(lambda i, s: s)))\n"
+        "assert rr.unique_state_count == 7 and rr.complete\n"
         "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
         "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
         "assert not bad, bad\n"
