@@ -82,7 +82,33 @@ seconds on a line of its own:
     and print the closure and search seconds, generated states per second,
     peak device memory, lanes per row, a chunk without a host sync, and a
     profiled window (launches per step, device busy share, each layer at
-    the queue head, whose insert is held against the plain version).
+    the queue head, whose insert is held against the plain version);
+14. the rest of the engine surface: (a) paxos-3 at full width through the
+    host-driven engine, `spawn_cuda(resident=False)` (batch 8192, table
+    2^22), to its golden, the witness replayed and its telemetry against its
+    counts; (b) the same search suspended at 40 steps, checkpointed, loaded
+    into a fresh engine and resumed to the golden; (c) the tiered
+    host-driven engine on 2pc-4 through a 2^11 hot tier, equal to its CPU
+    run in counts, store counters and witnesses; (d) StateRecorder and
+    PathRecorder on 2pc-3, equal to the CPU run; (e) `trace_out` on a
+    resident paxos-3 run: Chrome trace JSON with one `resident.chunk` span
+    per chunk; (f) the resident engines' telemetry (2pc-10 of phase 7,
+    paxos-3) against their counts, and the launches a step with telemetry
+    on and off (phases 9 and 11, which assert at most 3 more with it on);
+    (g) the insert at the suspended search's queue head held against the
+    plain version;
+15. device simulation (tensor/simulation.py, the threefry twin of
+    tensor/prng.py): (a) the JAX package's 2pc-3 shared-dedup config to the
+    JAX engine's numbers (2,253 generated, 126 unique, 532 walks, 2,127
+    dedup hits, "abort agreement"), equal to its CPU run pair for pair;
+    (b) Raft-6 (max_term 6) at full width: 16,384 walks at once, 65,536
+    walks a round, depth 128, a 2^22 shared table; walks/s, lane
+    utilisation, a step's launches and busy share (one step under sync
+    debug mode), peak memory, "election safety" never violated, "can
+    elect" found and replayed; (c) the same with dedup="trace" for one
+    round; (d) (b)'s checkpoint after round 1, resumed in a fresh engine,
+    bit-identical to the uninterrupted second round; (e) the insert at
+    (b)'s step shape held against the plain version.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -723,7 +749,7 @@ def phase_2pc10(ph, torch):
     del c
     torch.cuda.empty_cache()
     return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
-                rate=got[0] / sec, depth=r.max_depth, discoveries=r.discoveries)
+                rate=got[0] / sec, depth=r.max_depth, discoveries=r.discoveries, result=r)
 
 
 def phase_tiered_anchor(ph, torch):
@@ -832,14 +858,18 @@ def queue_head_vs_plain(torch, chk, tag, rs, tables=None):
 
 
 def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, n_steps,
-                   run_kw=None):
+                   run_kw=None, telemetry_ab=False):
     """Where a step's time goes. (a) The device's busy share: the first
     `n_steps` steps of a fresh search (run with `run_kw`), timed on the host
     clock, then the same steps again under a CUDA-only profiler, whose
-    kernel times are summed. (b) Each layer of one step timed alone with
-    CUDA events (median of 10) on the batch at the queue head after those
-    steps, whose insert is first held against the plain version (chk) at
-    this path's shapes."""
+    kernel times are summed. With `telemetry_ab`, the profiled window runs
+    once more with telemetry off: the launches a step with it on and off,
+    over the window under the profiler (each chunk's drain copy included)
+    and, exactly, within one chunk (chunk_launches; the ring row alone: at
+    most 3 launches a step). (b) Each layer of one step timed alone
+    with CUDA events (median of 10) on the batch at the queue head after
+    those steps, whose insert is first held against the plain version (chk)
+    at this path's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     from stateright_tpu_torch.tensor.frontier import append_new, state_fingerprint
@@ -869,6 +899,19 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
         f"clock, {busy_ms:.3f} ms of kernels per step under the profiler: device busy "
         f"{100 * busy_ms / step_ms:.1f}%, idle {100 - 100 * busy_ms / step_ms:.1f}%; "
         f"{launches:.0f} kernel launches per step")
+    del profiled
+    launches_off = None
+    if telemetry_ab:
+        plain = ResidentSearch(model, K, table_log2, queue_log2=queue_log2, telemetry=False)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof_off:
+            r_off = plain.run(max_steps=n_steps, **run_kw)
+            torch.cuda.synchronize()
+        assert r_off.steps == r.steps
+        launches_off = sum(e.count for e in prof_off.key_averages()
+                           if e.self_device_time_total > 0) / r.steps
+        log(f"{tag} launches per step over the window: {launches:.2f} with telemetry, "
+            f"{launches_off:.2f} without (+{launches - launches_off:.2f}: the ring row "
+            "and each chunk's drain copy)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"{tag}   {e.self_device_time_total / 1e3 / r.steps:7.3f} ms/step "
             f"x{e.count / r.steps:5.1f}/step  {e.key[:80]}")
@@ -905,9 +948,49 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
         log(f"{tag} layer {lname}: {ms:.4f} ms")
     log(f"{tag} layers sum {total:.3f} ms of a {step_ms:.3f} ms step "
         f"({int(validf.sum())} valid successors, {int(is_new.sum())} new at head {head})")
+    chunk_on = chunk_off = None
+    if telemetry_ab:
+        # One chunk of each engine from where its window ended, counted
+        # exactly (chunk_launches): what the ring row adds inside a chunk,
+        # where the steps are.
+        from stateright_tpu_torch.tensor.resident import CHUNK_STEPS
+
+        restore()
+        chunk_on = chunk_launches(torch, rs) / CHUNK_STEPS
+        chunk_off = chunk_launches(torch, plain) / CHUNK_STEPS
+        log(f"{tag} launches per step within a chunk (CUDA graph nodes): {chunk_on:.2f} "
+            f"with telemetry, {chunk_off:.2f} without (+{chunk_on - chunk_off:.2f})")
+        assert chunk_on - chunk_off <= 3, (chunk_on, chunk_off)
+        del plain
     del rs, c, base
     torch.cuda.empty_cache()
-    return dict(step_ms=step_ms, busy_ms=busy_ms, launches_per_step=launches, layers=layer_ms)
+    return dict(step_ms=step_ms, busy_ms=busy_ms, launches_per_step=launches,
+                launches_per_step_telemetry_off=launches_off, chunk_launches_on=chunk_on,
+                chunk_launches_off=chunk_off, layers=layer_ms)
+
+
+def chunk_launches(torch, eng):
+    """Device operations (kernels, copies, fills) of one chunk of `eng` from
+    its carry, counted exactly. The profiler drops a few kernel records of a
+    short window now and then, so the chunk is captured into a CUDA graph
+    instead and the graph's nodes are counted (the driver's
+    cuGraphGetNodes). The capture works on a copy of the carry's dict and
+    the graph is never instantiated or replayed, so the engine's carry is
+    left as it was."""
+    import ctypes
+
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        eng._chunk(dict(eng._c), 0, 0, 0, 0, 1 << 62, CHUNK_STEPS)
+    eng._snap = None
+    n = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(g.raw_cuda_graph()), None, ctypes.byref(n))
+    del g
+    assert rc == 0 and n.value > 0, (rc, n.value)
+    return n.value
 
 
 def phase_profile(ph, torch, chk):
@@ -915,8 +998,8 @@ def phase_profile(ph, torch, chk):
     at the queue head after them (profile_window)."""
     from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
 
-    profile_window(ph, torch, chk, "[profile]", "2pc-10", TensorTwoPhaseSys(10),
-                   BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10, 640)
+    return profile_window(ph, torch, chk, "[profile]", "2pc-10", TensorTwoPhaseSys(10),
+                          BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10, 640, telemetry_ab=True)
 
 
 def breadth_anchors():
@@ -1045,9 +1128,9 @@ def phase_paxos3(ph, torch, chk):
     del c
     torch.cuda.empty_cache()
     prof = profile_window(ph, torch, chk, "[paxos-3 profile]", "paxos-3", model,
-                          BATCH_PAXOS3, TABLE_PAXOS3, None, 64)
+                          BATCH_PAXOS3, TABLE_PAXOS3, None, 64, telemetry_ab=True)
     return dict(sec=sec, launches=launches, steps=r.steps, peak=peak,
-                rate=got[0] / sec, depth=r.max_depth, **prof)
+                rate=got[0] / sec, depth=r.max_depth, result=r, **prof)
 
 
 def register_properties(view):
@@ -1397,6 +1480,355 @@ def phase_checkpoint(ph, torch, chk, device_path, tiered_path):
     return out
 
 
+def frontier_head_vs_plain(torch, chk, tag, fs):
+    """The insert of the host-driven engine's next step, held against the
+    plain version (chk) at its real shape: the batch at the head of the host
+    queue, padded and uploaded as the engine does, expanded, boundary-masked
+    and fingerprinted, into copies of the engine's table."""
+    from stateright_tpu_torch.tensor.frontier import state_fingerprint
+
+    model, K = fs.model, fs.batch_size
+    chunk = fs._q[0]
+    m = min(K, chunk.keys.shape[0])
+    states, keys, active = fs._upload(chunk, 0, m)
+    succs, valid = model.expand(states)
+    flat = succs.reshape(-1, model.lanes)
+    validf = (valid & active[:, None]).reshape(-1) & model.within_boundary(flat)
+    succ_keys = state_fingerprint(model, flat)
+    parents = keys.repeat_interleave(model.max_actions)
+    tables = (fs.table.t_key, fs.table.t_parent)
+    _, is_new, _ = chk.compare(fs.table_log2, succ_keys, parents, validf, tables=tables)
+    log(f"{tag} insert kernel vs plain at the host queue's head: {succ_keys.numel()} lanes "
+        f"({int(validf.sum())} valid) into 2^{fs.table_log2} slots holding "
+        f"{int((tables[0] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts and "
+        "the stored pairs agree")
+
+
+def telemetry_holds(tag, model, r):
+    """The resident engine's ring against its own result: every generated
+    state and every fresh claim in exactly one row, no row lost."""
+    from stateright_tpu_torch.tensor.frontier import seed_init
+
+    init, _, n_raw = seed_init(model)
+    t = r.detail["telemetry"]
+    assert t["steps"] == r.steps and t["dropped_steps"] == 0, t
+    assert t["generated_total"] == r.state_count - n_raw, (t["generated_total"], r.state_count)
+    assert t["claimed_total"] == r.unique_state_count - init.shape[0], t["claimed_total"]
+    log(f"{tag} telemetry: {t['steps']} steps, generated_total={t['generated_total']} "
+        f"(= {r.state_count} generated - {n_raw} seeded), claimed_total={t['claimed_total']}, "
+        f"lane_util={t['lane_util']}, queue_len_max={t['queue_len_max']}, "
+        f"fill last={t['fill']['last']}, step_us p50={t['step_us']['p50']}")
+
+
+def phase_engine_surface(ph, torch, chk, device_path, paxos3, profile2pc10):
+    """The rest of the engine surface. (a) paxos-3 at full width through
+    the host-driven engine, spawn_cuda(resident=False), to its golden, the
+    witness replayed; (b) the same search suspended at 40 steps,
+    checkpointed, loaded into a fresh engine and resumed to the golden
+    (with (g): the insert at the suspended queue's head held against the
+    plain version); (c) the tiered host-driven engine on 2pc-4 through a
+    2^11 hot tier, equal to its CPU run; (d) StateRecorder and PathRecorder
+    on 2pc-3, equal to the CPU run; (e) trace_out on a resident paxos-3
+    run: Chrome trace JSON with one resident.chunk span per chunk; (f) the
+    resident telemetry of 2pc-10 and paxos-3 against their results, and
+    the launches a step with telemetry on and off (phases 9 and 11)."""
+    import math
+    import os
+    import shutil
+    import tempfile
+
+    from stateright_tpu_torch.core.visitor import PathRecorder, StateRecorder
+    from stateright_tpu_torch.tensor.frontier import FrontierSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    out = {}
+    model = TensorPaxos(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    c = model.checker().spawn_cuda(resident=False, batch_size=BATCH_PAXOS3,
+                                   table_log2=TABLE_PAXOS3).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_PAXOS3 and r.complete, got
+    assert launches > 0, "the host-driven engine never launched the insert kernel"
+    assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    path = c.discoveries()["value chosen"]
+    c.assert_discovery("value chosen", path.actions())
+    telemetry_holds("[engine] (a) paxos-3, host-driven", model, r)
+    tel = r.detail["telemetry"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[engine] (a) paxos-3 through FrontierSearch: generated={got[0]} unique={got[1]} "
+        f"depth={r.max_depth} steps={r.steps} sec={sec:.3f} generated_per_s={got[0] / sec:.0f} "
+        f"step_us p50={tel['step_us']['p50']} max_memory_allocated={peak} "
+        f"insert_launches={launches}; value chosen Path[{len(path) - 1}] replayed")
+    out.update(sec=sec, launches=launches, steps=r.steps, peak=peak, rate=got[0] / sec,
+               step_us_p50=tel["step_us"]["p50"])
+    del c
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="smoke-frontier-")
+    try:
+        ckpt = os.path.join(tmp, "paxos3.npz")
+        fs = FrontierSearch(model, BATCH_PAXOS3, TABLE_PAXOS3)
+        part = fs.run(max_steps=40)
+        assert not part.complete and part.steps == 40, part.steps
+        frontier_head_vs_plain(torch, chk, "[engine] (g)", fs)
+        t0 = time.monotonic()
+        fs.checkpoint(ckpt)
+        write_s = time.monotonic() - t0
+        size = os.path.getsize(ckpt)
+        del fs
+        t0 = time.monotonic()
+        fs = FrontierSearch.load_checkpoint(model, ckpt, batch_size=BATCH_PAXOS3)
+        load_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        r2 = fs.run()
+        resume_s = time.monotonic() - t0
+        assert (r2.state_count, r2.unique_state_count) == GOLDEN_PAXOS3 and r2.complete
+        assert r2.discoveries == r.discoveries and r2.steps == r.steps, (r2.discoveries, r2.steps)
+        fs.reconstruct_path(r2.discoveries["value chosen"])
+        log(f"[engine] (b) suspended at step 40 ({part.state_count} generated), "
+            f"checkpoint {size} B written in {write_s:.3f} s, loaded in {load_s:.3f} s, "
+            f"resumed to the golden in {resume_s:.3f} s with the same discovery")
+        out.update(ckpt_bytes=size, write_s=write_s, load_s=load_s, resume_s=resume_s)
+        del fs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    kw = dict(store="tiered", high_water=0.6, summary_log2=14)
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    fs = FrontierSearch(TensorTwoPhaseSys(4), 32, 11, **kw)
+    rt = fs.run()
+    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    cpu = FrontierSearch(TensorTwoPhaseSys(4), 32, 11, device="cpu", **kw)
+    rc = cpu.run()
+    assert (rt.state_count, rt.unique_state_count) == (8_258, 1_568), rt
+    assert (rc.state_count, rc.unique_state_count, rc.steps, rc.discoveries) == (
+        rt.state_count, rt.unique_state_count, rt.steps, rt.discoveries)
+    stats, cstats = fs.store_stats(), cpu.store_stats()
+    assert stats["spill_events"] >= 1 and fused > 0, (stats, fused)
+    assert {k: stats[k] for k in STORE_COUNTERS} == {k: cstats[k] for k in STORE_COUNTERS}
+    for name, fp in rt.discoveries.items():
+        assert fs.reconstruct_path(fp).actions() == cpu.reconstruct_path(fp).actions()
+    log(f"[engine] (c) tiered 2pc-4 through 2^11 slots: {rt.state_count} / "
+        f"{rt.unique_state_count}, steps={rt.steps}, plain_launches={plain} "
+        f"fused_launches={fused}, " + ", ".join(f"{k}={stats[k]}" for k in STORE_COUNTERS)
+        + "; the CPU run agrees, witnesses too")
+    del fs, cpu
+
+    for rec_cls in (StateRecorder, PathRecorder):
+        rec, crec = rec_cls(), rec_cls()
+        TensorTwoPhaseSys(3).checker().visitor(rec).spawn_cuda(batch_size=64,
+                                                               table_log2=12).join()
+        TensorTwoPhaseSys(3).checker().visitor(crec).spawn_cuda(batch_size=64, table_log2=12,
+                                                                device="cpu").join()
+        if rec_cls is StateRecorder:
+            seen, cseen = rec.states, crec.states
+        else:
+            seen = [[(repr(s), a) for s, a in p] for p in rec.paths]
+            cseen = [[(repr(s), a) for s, a in p] for p in crec.paths]
+        assert len(seen) == 288 and [repr(x) for x in seen] == [repr(x) for x in cseen]
+    log("[engine] (d) StateRecorder and PathRecorder on 2pc-3: 288 states and 288 paths, "
+        "equal to the CPU run's")
+
+    tmp = tempfile.mkdtemp(prefix="smoke-trace-")
+    try:
+        trace = os.path.join(tmp, "paxos3.trace.json")
+        c = model.checker().trace_out(trace).spawn_cuda(batch_size=BATCH_PAXOS3,
+                                                        table_log2=TABLE_PAXOS3).join()
+        r3 = c.result()
+        assert (r3.state_count, r3.unique_state_count) == GOLDEN_PAXOS3
+        doc = json.load(open(trace))
+        events = [e for e in doc["traceEvents"] if e.get("ph") != "M"]
+        for e in events:
+            assert {"name", "ph", "ts", "pid", "tid"} <= set(e), e
+            assert e["ph"] != "X" or e["dur"] >= 0
+        chunks = [e for e in events if e["name"] == "resident.chunk"]
+        want = math.ceil(r3.steps / 16)
+        assert len(chunks) == want, (len(chunks), want)
+        assert sum(e["name"] == "search.run" for e in events) == 1
+        log(f"[engine] (e) trace_out on resident paxos-3: {len(events)} events, "
+            f"{len(chunks)} resident.chunk spans for {r3.steps} steps, chunk span p50 "
+            f"{statistics.median(e['dur'] for e in chunks) / 1e3:.3f} ms")
+        telemetry_holds("[engine] (f) paxos-3", model, r3)
+        del c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device_path is not None:
+        telemetry_holds("[engine] (f) 2pc-10", TensorTwoPhaseSys(10), device_path["result"])
+    for name, prof in (("2pc-10", profile2pc10), ("paxos-3", paxos3)):
+        if prof is not None:
+            log(f"[engine] (f) {name} launches per step: "
+                f"{prof['launches_per_step']:.2f} with telemetry, "
+                f"{prof['launches_per_step_telemetry_off']:.2f} without over the profiled "
+                f"window; within a chunk {prof['chunk_launches_on']:.2f} with, "
+                f"{prof['chunk_launches_off']:.2f} without")
+    torch.cuda.empty_cache()
+    return out
+
+
+def sim_outcome(sim, r):
+    tel = {k: v for k, v in r.detail["telemetry"].items() if k != "walks_per_sec"}
+    return (r.state_count, r.unique_state_count, r.max_depth, r.steps, tel,
+            dict(sim._discoveries))
+
+
+def phase_simulation(ph, torch, chk):
+    """Device simulation. (a) The JAX package's 2pc-3 shared-dedup config
+    (tests/test_device_simulation.py:117) to the JAX engine's numbers,
+    equal to the CPU run, slot for slot in the table's stored pairs;
+    (b) Raft-6 (max_term 6) at full width, 16,384 walks at once, shared
+    dedup through a 2^22 table, 65,536 walks a round: walks/s, lane
+    utilisation, launches a step, peak memory, and the verdicts; (c) the
+    same model with dedup="trace" for one round; (d) (b)'s checkpoint after
+    round 1 resumed in a fresh engine, bit-identical to the uninterrupted
+    second round; (e) the insert at (b)'s step shape held against the plain
+    version."""
+    import os
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from stateright_tpu_torch.tensor.frontier import state_fingerprint
+    from stateright_tpu_torch.tensor.models import TensorRaft, TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.simulation import DeviceSimulation
+
+    out = {}
+    kw2 = dict(seed=5, traces=64, max_depth=64, dedup="shared", table_log2=14, walks=512,
+               stale_limit=4)
+    sim = DeviceSimulation(TensorTwoPhaseSys(3), **kw2)
+    r = sim.run()
+    cpu = DeviceSimulation(TensorTwoPhaseSys(3), device="cpu", **kw2)
+    rc = cpu.run()
+    assert (r.state_count, r.unique_state_count) == (2_253, 126), r
+    assert sim._totals["walks"] == 532 and sim._totals["dedup_hits"] == 2_127, sim._totals
+    assert set(r.discoveries) == {"abort agreement"}, r.discoveries
+    assert sim_outcome(sim, r) == sim_outcome(cpu, rc)
+    pairs, cpairs = (stored_pairs(torch, s.table.t_key, s.table.t_parent) for s in (sim, cpu))
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(pairs, cpairs))
+    path = sim.discovery_path("abort agreement")
+    log(f"[sim] (a) 2pc-3 shared: generated={r.state_count} unique={r.unique_state_count} "
+        f"walks={sim._totals['walks']} dedup_hits={sim._totals['dedup_hits']} "
+        f"steps={r.steps}, abort agreement Path[{len(path) - 1}]: the JAX engine's numbers; "
+        "the CPU run agrees, walk for walk and pair for pair")
+
+    model = TensorRaft(6, max_term=6)
+    kw = dict(seed=0, traces=16_384, max_depth=128, dedup="shared", table_log2=22,
+              walks=65_536)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = 0
+    sim = DeviceSimulation(model, **kw)
+    t0 = time.monotonic()
+    r1 = sim.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    tel = r1.detail["telemetry"]
+    assert "election safety" not in r1.discoveries, r1.discoveries
+    assert "can elect" in r1.discoveries, r1.discoveries
+    assert tel["walks"] >= kw["walks"] and launches > 0, (tel, launches)
+    cpath = sim.discovery_path("can elect")
+    log(f"[sim] (b) raft-6 (max_term 6, {model.lanes} lanes, {model.max_actions} actions), "
+        f"16,384 walks at once: generated={r1.state_count} unique={r1.unique_state_count} "
+        f"depth={r1.max_depth} steps={r1.steps} walks={tel['walks']} sec={sec:.3f} "
+        f"walks_per_s={tel['walks'] / sec:.0f} states_per_s={r1.state_count / sec:.0f} "
+        f"lane_util={tel['lane_util']} dedup_hit_rate={tel['dedup_hit_rate']} "
+        f"stale_restarts={tel['stale_restarts']} max_memory_allocated={peak} "
+        f"insert_launches={launches}; discoveries {sorted(r1.discoveries)}, can elect "
+        f"Path[{len(cpath) - 1}] replayed")
+    out.update(sec=sec, launches=launches, steps=r1.steps, peak=peak,
+               walks_per_s=tel["walks"] / sec, lane_util=tel["lane_util"])
+
+    # Launches a step: 32 steps of a fresh round of a second engine (its
+    # own table: the first one's rounds go on untouched), under the
+    # profiler.
+    probe = DeviceSimulation(model, **kw)
+    init = probe._init_states()
+    c = probe._round_carry(12345, init)
+    go = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(4):
+        probe._step(c, go, init)  # warm the allocator
+    with no_host_sync(torch):  # a step queues its work without waiting
+        probe._step(c, go, init)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(32):
+        probe._step(c, go, init)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / 32
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(32):
+            probe._step(c, go, init)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / 32
+    per_step = sum(e.count for e in kernels) / 32
+    log(f"[sim] (b) a step: {step_ms:.3f} ms on the host clock, {busy_ms:.3f} ms of kernels "
+        f"(busy {100 * busy_ms / step_ms:.1f}%), {per_step:.0f} kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
+        log(f"[sim]   {e.self_device_time_total / 1e3 / 32:7.3f} ms/step "
+            f"x{e.count / 32:5.1f}/step  {e.key[:80]}")
+    out.update(step_ms=step_ms, busy_ms=busy_ms, launches_per_step=per_step)
+
+    # (e) the insert at this step's shape: every lane offers its state.
+    key = state_fingerprint(model, c["states"])
+    active = torch.ones_like(key, dtype=torch.bool)
+    _, is_new, _ = chk.compare(kw["table_log2"], key, c["prev"], active,
+                               tables=(sim.table.t_key, sim.table.t_parent))
+    log(f"[sim] (e) insert kernel vs plain at the step shape: {key.numel()} lanes into "
+        f"2^{kw['table_log2']} slots holding {int((sim.table.t_key != 0).sum())} keys: "
+        f"{int(is_new.sum())} new; the verdicts and the stored pairs agree")
+    del c, probe
+
+    tmp = tempfile.mkdtemp(prefix="smoke-sim-")
+    try:
+        ckpt = os.path.join(tmp, "raft6.npz")
+        sim.checkpoint(ckpt)
+        t0 = time.monotonic()
+        r2 = sim.run()
+        sec2 = time.monotonic() - t0
+        resumed = DeviceSimulation.load_checkpoint(model, ckpt)
+        rr = resumed.run()
+        assert sim_outcome(resumed, rr) == sim_outcome(sim, r2)
+        pairs = [stored_pairs(torch, s.table.t_key, s.table.t_parent) for s in (sim, resumed)]
+        assert all(torch.equal(a, b) for a, b in zip(*pairs))
+        log(f"[sim] (d) round 2: generated={r2.state_count} unique={r2.unique_state_count} "
+            f"in {sec2:.3f} s; resumed from round 1's checkpoint "
+            f"({os.path.getsize(ckpt)} B): bit-identical totals, discoveries and table")
+        del resumed, pairs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del sim
+    torch.cuda.empty_cache()
+
+    trace = DeviceSimulation(model, seed=0, traces=16_384, max_depth=128, dedup="trace",
+                             cycle_log2=9, walks=65_536)
+    t0 = time.monotonic()
+    rt = trace.run()
+    torch.cuda.synchronize()
+    sec_t = time.monotonic() - t0
+    tt = rt.detail["telemetry"]
+    assert "election safety" not in rt.discoveries and rt.unique_state_count == rt.state_count
+    log(f"[sim] (c) raft-6, dedup=trace: generated={rt.state_count} depth={rt.max_depth} "
+        f"steps={rt.steps} walks={tt['walks']} sec={sec_t:.3f} "
+        f"walks_per_s={tt['walks'] / sec_t:.0f} lane_util={tt['lane_util']}; "
+        f"discoveries {sorted(rt.discoveries)}")
+    out.update(trace_sec=sec_t, trace_walks=tt["walks"])
+    del trace
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1451,12 +1883,15 @@ def main() -> int:
     phase(6, "tiered anchor", phase_tiered_anchor, ph, torch)
     device_path = phase(7, "2pc-10, device store", phase_2pc10, ph, torch)
     tiered_path = phase(8, "2pc-10, tiered store", phase_2pc10_tiered, ph, torch)
-    phase(9, "profile", phase_profile, ph, torch, chk)
+    profile2pc10 = phase(9, "profile", phase_profile, ph, torch, chk)
     phase(10, "model breadth", phase_breadth, ph, torch)
     paxos3 = phase(11, "paxos-3", phase_paxos3, ph, torch, chk)
     ckpt = phase(12, "checkpoint and regrow", phase_checkpoint, ph, torch, chk,
                  device_path, tiered_path)
     lowering = phase(13, "actor lowering", phase_lowering, ph, torch, chk)
+    surface = phase(14, "engine surface", phase_engine_surface, ph, torch, chk, device_path,
+                    paxos3, profile2pc10)
+    sim = phase(15, "device simulation", phase_simulation, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -1472,6 +1907,8 @@ def main() -> int:
         "launches_regrow": ckpt["regrow_launches"],
         "launches_resumed": ckpt["resume_launches"],
         "launches_lowered": lowering["paxos5"]["launches"],
+        "launches_frontier": surface["launches"],
+        "launches_sim": sim["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

@@ -16,3 +16,15 @@ STORE_KINDS = ("device", "tiered")
 #: HasDiscoveries kinds (core/discovery.py), the early-finish policies the
 #: resident engine encodes as required/any bitmasks (tensor/resident.py).
 FINISH_KINDS = ("all", "any", "any_failures", "all_failures", "all_of", "any_of")
+
+#: Checker modes of `spawn_cuda(mode=...)` (checker/builder.py): "search" is
+#: the exhaustive BFS; "simulation" the device random-walk engine
+#: (tensor/simulation.py), as `spawn_simulation(device=True, ...)`.
+CHECKER_MODES = ("search", "simulation")
+
+#: Dedup designs of the device simulation (`dedup=` on DeviceSimulation):
+#: "trace" detects cycles within each walk only (no global dedup, so
+#: unique_state_count aliases state_count); "shared" adds one visited table
+#: shared by every walk, through the insert kernel, with a per-walk ring for
+#: short cycles.
+SIM_DEDUP_KINDS = ("trace", "shared")

@@ -41,6 +41,15 @@ partition nears full (store/tiered.py says why the last one); like any
 overflow bit it turns the chunk's remaining steps into no-ops, and the
 host then runs `_service` (compact the queue, resolve the suspects and
 enqueue the confirmed-new ones, evict) and resumes the same carry.
+
+Telemetry (`telemetry=True`, the default): each step writes one row into a
+device ring of 2^telemetry_log2 rows from counters the step already holds
+on the device (one stack, one remainder, one indexed write: no host sync),
+and the host reads the new rows at each chunk boundary, where it reads the
+counters anyway. The digest is `detail["telemetry"]` (obs/ring.py), and a
+checkpoint carries the ring as the JAX engine's `tm_rows`. A `tracer`
+(obs/trace.py) records the chunks, the tiered service's parts and
+checkpoints as Chrome trace spans, under the JAX engine's span names.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..faults.ckptio import atomic_savez, load_latest
 from ..knobs import FINISH_KINDS, STORE_KINDS
+from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail
 from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
     SearchResult,
@@ -65,6 +75,7 @@ from .frontier import (
     inject_rows,
     pop_batch,
     reconstruct_path,
+    reinsert,
     record_discovery,
     seed_init,
 )
@@ -88,11 +99,32 @@ ABORT_QUEUE = 2  # the frontier queue tail crossed its capacity
 EXIT_SERVICE = 4
 
 # Steps enqueued between host reads of the counters: the granularity of the
-# timeout, of progress reports and of the undo after an abort.
+# timeout, of progress reports, of the telemetry drain and of the undo after
+# an abort.
 CHUNK_STEPS = 16
-# Columns of the JAX package's telemetry ring (obs/ring.py STEP_COLS): a
-# checkpoint carries an empty ring, which the JAX loader starts afresh.
-TM_COLS = 8
+# Columns of a row of the device telemetry ring: counters the step already
+# holds, so that the row costs one stack. `_step_cols` turns them into the
+# JAX package's STEP_COLS (obs/ring.py): active = head - head0 - cut (the
+# popped lanes less those at the target depth), queue_len = tail - head.
+TM_DEV_COLS = ("step", "head0", "head", "cut", "generated", "claimed", "tail",
+               "table_claims", "suspects", "depth")
+
+
+def _step_cols(rows: np.ndarray) -> np.ndarray:
+    """Device ring rows (int64[n, TM_DEV_COLS]) -> uint32[n, STEP_COLS]."""
+    step, head0, head, cut, gen, claimed, tail, claims, suspects, depth = rows.T
+    return np.stack([step, head - head0 - cut, gen, claimed, tail - head, claims,
+                     suspects, depth], axis=1).astype(np.uint32)
+
+
+def _dev_cols(rows: np.ndarray) -> np.ndarray:
+    """uint32[n, STEP_COLS] (a checkpoint's tm_rows) -> device ring rows
+    that `_step_cols` maps back to the same values."""
+    step, active, gen, claimed, queue_len, claims, suspects, depth = (
+        rows.astype(np.int64).T)
+    zero = np.zeros_like(step)
+    return np.stack([step, zero, active, zero, gen, claimed, queue_len + active, claims,
+                     suspects, depth], axis=1)
 
 
 def _abort_reason(code: int) -> str:
@@ -188,6 +220,9 @@ class ResidentSearch:
         high_water: float = 0.85,
         low_water: Optional[float] = None,
         summary_log2: int = 20,
+        telemetry: bool = True,
+        telemetry_log2: int = 12,
+        tracer=None,
     ):
         """`queue_log2` caps the frontier queue at 2^queue_log2 rows
         (default: table_log2, the always-sufficient bound with the device
@@ -198,7 +233,11 @@ class ResidentSearch:
         `store="tiered"` spills cold table rows to the host past
         `high_water` fill, down to `low_water` (default high_water - 0.25),
         behind a Bloom summary of 2^summary_log2 bits (~6 bits per spilled
-        state keeps suspects rare); see store/tiered.py."""
+        state keeps suspects rare); see store/tiered.py.
+
+        `telemetry` keeps a device ring of the last 2^telemetry_log2 step
+        rows, drained at chunk boundaries into `detail["telemetry"]`;
+        `tracer` (obs.Tracer) records host phases as Chrome trace spans."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -265,6 +304,13 @@ class ResidentSearch:
         #: host seconds of `load_checkpoint`: reading and verifying the file
         #: ("read"), the regrow, when there is one, and the whole load.
         self.load_seconds = {}
+        self._TMR = (1 << telemetry_log2) if telemetry else 0
+        self._ring = StepRing(self._TMR) if telemetry else None
+        # Host copy of the device ring in STEP_COLS form, filled with the new
+        # rows at each drain (StepRing.drain reads it).
+        self._tm_host = np.zeros((self._TMR, N_COLS), np.uint32)
+        self._tracer = as_tracer(tracer)
+        self._metrics_name = REGISTRY.register("resident", self.metrics)
 
     def _fresh_store(self) -> None:
         """(Re)build the tiered store: a fresh search owes nothing to an
@@ -312,6 +358,11 @@ class ResidentSearch:
             disc_keys=torch.zeros(max(len(self.props), 1), **i64),
         )
         c.update({k: torch.zeros((), **i64) for k in self._scalars()})
+        if self._TMR:
+            # Plane 1 is the ring; a step that is a no-op writes its row into
+            # plane 0 instead, so no row of a real step is overwritten.
+            c["tm_dev"] = torch.zeros((2, self._TMR, len(TM_DEV_COLS)), **i64)
+        self._zero = torch.zeros((), **i64)
         if self._store is not None:
             SB = self._SQ + K * model.max_actions
             c.update(
@@ -380,15 +431,18 @@ class ResidentSearch:
         K, A = self.batch_size, model.max_actions
         tiered = self._store is not None
         queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
+        head0 = c["head"]
         states, keys, ebits, depth, active, c["head"] = pop_batch(
-            queue, c["head"], c["tail"], go, self._arange_k
+            queue, head0, c["tail"], go, self._arange_k
         )
         c["max_depth"] = torch.maximum(
             c["max_depth"], torch.where(active, depth, 0).max()
         )
         # target_max_depth: states at the cutoff are neither evaluated nor
         # expanded (ref: bfs.rs:219-224).
+        cut = self._zero
         if tmd:
+            cut = (active & (depth >= tmd)).sum()
             active = active & (depth < tmd)
 
         # -- property evaluation (ref: bfs.rs:230-280) -----------------------
@@ -412,7 +466,8 @@ class ResidentSearch:
             summary=c["summary"] if tiered else None,
             summary_cfg=self._store.summary_cfg if tiered else None,
         )
-        c["gen"] = c["gen"] + gen_rows.sum()
+        gen = gen_rows.sum()
+        c["gen"] = c["gen"] + gen
 
         # -- eventually counterexamples at terminal states -------------------
         term = active & ~has_succ
@@ -431,11 +486,13 @@ class ResidentSearch:
         rows = (flat, succ_keys, ebits.repeat_interleave(A),
                 depth.repeat_interleave(A) + 1)
         tail = append_new(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
-        c["unique"] = c["unique"] + (tail - c["tail"])
+        claimed = tail - c["tail"]
+        c["unique"] = c["unique"] + claimed
         c["tail"] = tail
         code = torch.where(ovf, ABORT_TABLE, 0)
         if tiered:
-            c["hot"] = c["hot"] + is_new.sum()
+            claimed = is_new.sum()
+            c["hot"] = c["hot"] + claimed
             sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
             c["s_tail"] = append_new(sbuf, c["s_tail"], rows, suspect)
             # The reference's three exits, and a fourth of the port's: a
@@ -451,7 +508,16 @@ class ResidentSearch:
         else:
             code = code | torch.where(tail > self._QL, ABORT_QUEUE, 0)
         c["overflow"] = c["overflow"] | code
-        c["steps"] = c["steps"] + go.to(torch.int64)
+        go64 = go.to(torch.int64)
+        if self._TMR:
+            row = torch.stack([
+                c["steps"], head0, c["head"], cut, gen, claimed, tail,
+                c["hot"] if tiered else c["unique"],
+                c["s_tail"] if tiered else self._zero, c["max_depth"],
+            ])
+            slot = c["steps"] % self._TMR
+            c["tm_dev"].index_put_((go64.view(1), slot.view(1)), row.view(1, -1))
+        c["steps"] = c["steps"] + go64
 
     # -- host entry ------------------------------------------------------------
 
@@ -479,6 +545,8 @@ class ResidentSearch:
             raise ValueError("budget must be a positive step count")
         n_chunk = CHUNK_STEPS if budget is None else budget
         start = time.monotonic()
+        if self._ring is not None and self._c is None and self._ring.steps:
+            self._ring = self._ring.fresh()  # a fresh search: fresh telemetry
         if finish_when.matches(self.props, set()) or not self.props:
             # Vacuously-true finish policies stop before exploring anything,
             # matching the host checkers' immediate early-out
@@ -492,6 +560,7 @@ class ResidentSearch:
                 discoveries={},
                 complete=False,
                 duration=time.monotonic() - start,
+                detail=self._detail(),
             )
         if self._c is None:
             self._seed()
@@ -502,15 +571,19 @@ class ResidentSearch:
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         timed_out = False
         while True:
-            self._chunk(c, req, anym, target, tmd, max_steps, n_chunk)
-            go = self._should_continue(c, req, anym, target, max_steps)
-            # ONE device->host read per chunk.
-            (gen, unique, max_depth, overflow, stop, n_suspects) = (
-                int(x) for x in torch.stack(
-                    [c["gen"], c["unique"], c["max_depth"], c["overflow"],
-                     (~go).to(torch.int64), c.get("s_tail", zero)]
-                ).cpu()
-            )
+            t_chunk = time.monotonic()
+            with self._tracer.span("resident.chunk", cat="engine"):
+                self._chunk(c, req, anym, target, tmd, max_steps, n_chunk)
+                go = self._should_continue(c, req, anym, target, max_steps)
+                # ONE device->host read of the counters per chunk.
+                (gen, unique, max_depth, overflow, stop, n_suspects, steps) = (
+                    int(x) for x in torch.stack(
+                        [c["gen"], c["unique"], c["max_depth"], c["overflow"],
+                         (~go).to(torch.int64), c.get("s_tail", zero), c["steps"]]
+                    ).cpu()
+                )
+            if self._ring is not None:
+                self._drain(steps, (time.monotonic() - t_chunk) * 1e6)
             if overflow & EXIT_SERVICE and not overflow & (ABORT_TABLE | ABORT_QUEUE):
                 # Non-fatal: service the tiered store, resume the same carry.
                 self._service()
@@ -548,9 +621,6 @@ class ResidentSearch:
             for i, p in enumerate(self.props)
             if discovered & (1 << i)
         }
-        detail = None
-        if self._store is not None:
-            detail = dict(self.store_stats(), service_seconds=dict(self.service_seconds))
         return SearchResult(
             state_count=gen,
             unique_state_count=unique,
@@ -558,9 +628,52 @@ class ResidentSearch:
             discoveries=discoveries,
             complete=int(c["head"]) >= int(c["tail"]) and not timed_out,
             duration=time.monotonic() - start,
-            steps=int(c["steps"]),
-            detail=detail,
+            steps=steps,
+            detail=self._detail(),
         )
+
+    def _drain(self, steps: int, window_us: float) -> None:
+        """Copy the ring rows of the steps since the last drain (at most
+        the whole ring; one device->host copy, the card already idle after
+        the counter read) into the host copy, and fold them into the
+        StepRing."""
+        ring, R = self._ring, self._TMR
+        first = max(ring.steps if steps >= ring.steps else 0, steps - R)
+        n = steps - first
+        if n > 0:
+            a = first % R
+            tm = self._c["tm_dev"][1]
+            dev_rows = tm[a:a + n] if a + n <= R else torch.cat([tm[a:], tm[:a + n - R]])
+            slots = np.arange(first, steps) % R
+            self._tm_host[slots] = _step_cols(dev_rows.cpu().numpy())
+        ring.drain(self._tm_host, steps, window_us=window_us)
+
+    def telemetry_summary(self) -> Optional[dict]:
+        """The step-telemetry digest (obs/ring.py; None with telemetry
+        off), as in `detail["telemetry"]`."""
+        if self._ring is None:
+            return None
+        return self._ring.summary(1 << self.table_log2, self.batch_size)
+
+    def metrics(self) -> dict:
+        """The "resident" metric source (obs/registry.py): host values
+        only (the drained telemetry and the store's counters), so reading it
+        never waits for the card."""
+        out: dict = {}
+        if self._ring is not None:
+            out.update(steps=self._ring.steps,
+                       generated_states=self._ring.generated_total,
+                       claimed_states=self._ring.claimed_total)
+        stats = self.store_stats()
+        if stats:
+            out["store"] = stats
+        return out
+
+    def _detail(self) -> Optional[dict]:
+        stats = self.store_stats()
+        if stats is not None:
+            stats = dict(stats, service_seconds=dict(self.service_seconds))
+        return build_detail(stats, self.telemetry_summary())
 
     def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:
         """`n_steps` steps queued on the device with no host sync, after a
@@ -606,12 +719,14 @@ class ResidentSearch:
 
     def reset(self) -> None:
         """Drop the carry, so that the next run() starts afresh (the spill
-        tier and summary too)."""
+        tier, summary and telemetry too)."""
         self._c = None
         self._snap = None
         self._last_abort = 0
         self._q_compacted = False
         self.service_seconds = {}
+        if self._ring is not None:
+            self._ring = self._ring.fresh()
         if self._store is not None:
             self._fresh_store()
 
@@ -646,7 +761,8 @@ class ResidentSearch:
         )
         queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
         if head > 0:
-            tail = compact_queue(queue, head, tail)
+            with self._tracer.span("tiered.queue_compact", cat="store"):
+                tail = compact_queue(queue, head, tail)
             head = 0
             self._q_compacted = True
         t1 = time.monotonic()
@@ -663,6 +779,7 @@ class ResidentSearch:
                 "load_checkpoint with a larger queue_log2 to continue"
             )
         if s_tail > 0:
+            self._tracer.instant("tiered.suspect_resolve", cat="store", suspects=s_tail)
             dup = store.resolve_suspects(c["s_keys"][:s_tail])
             keep = torch.from_numpy(~dup).to(dev)
             n_conf = int((~dup).sum())
@@ -673,7 +790,8 @@ class ResidentSearch:
         t2 = time.monotonic()
         at_risk = int(self._part_max(c)) >= store.risk_slots
         if hot >= self._spill_trigger or at_risk:
-            freed = store.evict(c["t_key"], c["t_parent"], hot)
+            with self._tracer.span("tiered.evict", cat="store"):
+                freed = store.evict(c["t_key"], c["t_parent"], hot)
             if freed == 0:
                 raise RuntimeError(
                     "tiered store could not free any bucket (every bucket "
@@ -718,6 +836,10 @@ class ResidentSearch:
         service, needs a larger queue_log2 to load in either package."""
         if self._c is None:
             raise RuntimeError("nothing to checkpoint: run() has not been called")
+        with self._tracer.span("checkpoint", cat="engine", path=path):
+            return self._checkpoint(path)
+
+    def _checkpoint(self, path: str) -> str:
         c, model = self._c, self.model
         tiered = self._store is not None
         names = self._scalars()
@@ -744,7 +866,8 @@ class ResidentSearch:
             hot_claims=_i32(at["hot"] if tiered else int((c["t_key"] != 0).sum()),
                             "hot_claims"),
             s_tail=_i32(s_tail, "s_tail"),
-            tm_rows=np.zeros((0, TM_COLS), np.uint32),
+            tm_rows=(_step_cols(c["tm_dev"][1].cpu().numpy()) if self._TMR
+                     else np.zeros((0, N_COLS), np.uint32)),
         )
         if tiered:
             s_keys = c["s_keys"][:s_tail]
@@ -892,6 +1015,12 @@ class ResidentSearch:
         c["q_depth"][:tail] = from_u32(data["q_depth"][:tail], dev)
         c["disc_keys"].copy_((from_u32(data["disc_hi"], dev) << 32) | from_u32(data["disc_lo"], dev))
         gen = int(data["gen_lo"]) | int(data["gen_hi"]) << 32
+        if self._TMR and "tm_rows" in data and data["tm_rows"].shape == (self._TMR, N_COLS):
+            # Observability, not search state: a ring of another size (or
+            # none) starts empty; the resumed steps count from the file's.
+            c["tm_dev"][1] = torch.from_numpy(_dev_cols(data["tm_rows"])).to(dev)
+        if self._ring is not None:
+            self._ring.skip_to(int(data["steps"]))
         i64 = dict(dtype=torch.int64, device=dev)
         c.update(
             head=torch.tensor(int(data["head"]), **i64),
@@ -917,16 +1046,8 @@ class ResidentSearch:
         carry's empty table, K keys a call, through the engine's insert:
         the CUDA kernel on the card. Overflow raises."""
         occupied = t_key != 0
-        keys, parents = t_key[occupied], t_parent[occupied]
-        K = self.batch_size
-        active = torch.ones(K, dtype=torch.bool, device=self.device)
-        ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        for i in range(0, keys.shape[0], K):
-            k = keys[i:i + K]
-            ovf |= self.insert(c["t_key"], c["t_parent"], k, parents[i:i + K],
-                               active[:k.shape[0]])[-1]
-        if bool(ovf):
-            raise RuntimeError("table overflow while re-growing; raise table_log2 further")
+        reinsert(self.insert, c["t_key"], c["t_parent"], t_key[occupied],
+                 t_parent[occupied], self.batch_size)
 
     # -- after the search --------------------------------------------------------
 

@@ -94,3 +94,65 @@ def test_spawn_cuda_defaults_to_the_card():
         pytest.skip("this box has a CUDA device; the default runs there")
     with pytest.raises(RuntimeError, match="cuda"):
         TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12)
+
+
+def test_new_entry_points_run_without_jax():
+    """The host-driven engine, the device simulation, visitors, telemetry
+    and tracing load neither jax nor the JAX package."""
+    code = (
+        "import os, sys, tempfile\n"
+        "from stateright_tpu_torch.core.visitor import PathRecorder\n"
+        "from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys\n"
+        "from stateright_tpu_torch.tensor.frontier import FrontierSearch\n"
+        "from stateright_tpu_torch.tensor.simulation import DeviceSimulation\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    c = TensorTwoPhaseSys(3).checker().trace_out(os.path.join(d, 't.json'))\\\n"
+        "        .spawn_cuda(table_log2=12, resident=False, device='cpu').join()\n"
+        "    assert (c.state_count(), c.unique_state_count()) == (1146, 288)\n"
+        "    c.discoveries()\n"
+        "    fs = FrontierSearch(TensorTwoPhaseSys(3), 64, 12, device='cpu')\n"
+        "    fs.run(max_steps=3)\n"
+        "    fs.checkpoint(os.path.join(d, 'f.npz'))\n"
+        "    r = FrontierSearch.load_checkpoint(TensorTwoPhaseSys(3), os.path.join(d, 'f.npz'),\n"
+        "        batch_size=64, device='cpu').run()\n"
+        "    assert (r.state_count, r.unique_state_count) == (1146, 288)\n"
+        "    rec = PathRecorder()\n"
+        "    TensorTwoPhaseSys(3).checker().visitor(rec).spawn_cuda(table_log2=12,\n"
+        "        device='cpu').join()\n"
+        "    assert len(rec.paths) == 288\n"
+        "    sim = DeviceSimulation(TensorTwoPhaseSys(3), seed=5, traces=64, max_depth=64,\n"
+        "        dedup='shared', table_log2=14, walks=512, stale_limit=4, device='cpu')\n"
+        "    r = sim.run()\n"
+        "    assert (r.state_count, r.unique_state_count) == (2253, 126)\n"
+        "    sim.discovery_path('abort agreement')\n"
+        "    sim.checkpoint(os.path.join(d, 's.npz'))\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_new_entry_points_default_to_the_card():
+    from stateright_tpu_torch.tensor.frontier import FrontierSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.simulation import DeviceSimulation
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the defaults run there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        FrontierSearch(TensorTwoPhaseSys(3), 64, 12)
+    with pytest.raises(RuntimeError, match="cuda"):
+        DeviceSimulation(TensorTwoPhaseSys(3), traces=8, max_depth=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TensorTwoPhaseSys(3).checker().spawn_simulation(device=True, traces=8, max_depth=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TensorTwoPhaseSys(3).checker().spawn_cuda(mode="simulation", traces=8, max_depth=8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12, resident=False)
