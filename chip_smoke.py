@@ -108,7 +108,24 @@ seconds on a line of its own:
     elect" found and replayed; (c) the same with dedup="trace" for one
     round; (d) (b)'s checkpoint after round 1, resumed in a fresh engine,
     bit-identical to the uninterrupted second round; (e) the insert at
-    (b)'s step shape held against the plain version.
+    (b)'s step shape held against the plain version;
+16. the sharded search (stateright_tpu_torch/parallel/) on a world of one
+    rank over NCCL, in this process: (a) the insert against its plain
+    version on a received buffer of the sharded 2pc-10 run, taken from the
+    engine's carry after 640 steps and sent through the all-to-all
+    (1,703,936 lanes into 2^27 slots), and the exchange's layers alone
+    (route, all-to-all, the step's global sync); (b) 2pc-10 with the device
+    store at phase 7's width to its golden, `per_chip_unique`
+    [61,515,776], phase 7's discoveries, the seconds, ms a step, launches a
+    step within a chunk (exact: the chunk with its NCCL collectives captured
+    into a CUDA graph) and peak memory beside phase 7's and the reckoning
+    made before the run; (c) paxos-3 at full width to its golden with
+    phase 11's discoveries; (d) tiered 2pc-7 through a 2^18 hot tier to
+    2,744,706 / 296,448 with spills, one plain launch and a fused one each
+    step; (e) (c) checkpointed at step 40, loaded with its table regrown
+    from 2^22 to 2^23 and resumed to the golden; (f)
+    `refine_check(engine="sharded")` on paxos-1 and lowered paxos-2 at
+    32,971 / 16,668.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -1829,6 +1846,327 @@ def phase_simulation(ph, torch, chk):
     return out
 
 
+# Phase 16: the sharded search (stateright_tpu_torch/parallel/) on a world of
+# one rank over NCCL. The 2pc-10 run pauses after SHARDED_PAUSE steps (whole
+# chunks) for (a); the tiered cell is 2pc-7 through a hot tier smaller than
+# its unique states (JAX tests/test_sharded.py:105-128 counts); (e) regrows
+# paxos-3's table from 2^22 to 2^23 at step 40.
+SHARDED_PAUSE = 640
+BATCH_TIERED7, TABLE_TIERED7, SUMMARY_TIERED7 = 1024, 18, 20
+GOLDEN_2PC7 = (2_744_706, 296_448)
+CKPT_STEP_PAXOS3 = 40
+
+
+def received_buffer(torch, ss):
+    """The sharded engine's next step up to its insert, from its own carry:
+    the batch at the queue head expanded and fingerprinted, routed into the
+    send buffer and sent through the all-to-all. Returns the route's
+    operands, the send and receive buffers and the received keys, parents
+    and valid mask."""
+    from stateright_tpu_torch.tensor.frontier import expand_keys
+
+    c, K, L = ss._c, ss.batch_size, ss.model.lanes
+    head, tail = int(c["head"]), int(c["tail"])
+    states, keys, ebits, depth = (c[k][head:head + K] for k in
+                                  ("q_states", "q_keys", "q_ebits", "q_depth"))
+    active = torch.arange(K, device=keys.device) < tail - head
+    flat, succ_keys, validf, _, _ = expand_keys(ss.model, states, active)
+    route = (flat, succ_keys, validf, keys, ebits, depth)
+    send, ovf = ss._route(*route)
+    recv = ss._exchange(send)
+    torch.cuda.synchronize()
+    assert not bool(ovf) and torch.equal(recv, send), "one rank's exchange returns its buffer"
+    r_key, r_parent = recv[:, L].contiguous(), recv[:, L + 1].contiguous()
+    r_valid = r_key != 0
+    assert int(r_valid.sum()) == int(validf.sum())
+    return route, send, r_key, r_parent, r_valid
+
+
+def exchanged_insert_vs_plain(torch, chk, ss):
+    """(a) The received buffer's keys of the sharded engine's next step
+    (`received_buffer`) through the kernel and the plain version on copies
+    of the shard's table. Also each layer of the exchange alone (route,
+    all-to-all, the step's global sync; CUDA events, median of 10)."""
+    c = ss._c
+    route, send, r_key, r_parent, r_valid = received_buffer(torch, ss)
+    _, is_new, _ = chk.compare(ss.table_log2, r_key, r_parent, r_valid,
+                               tables=(c["t_key"], c["t_parent"]))
+    log(f"[sharded] (a) insert kernel vs plain on the received buffer at step {ss._steps}: "
+        f"{r_key.numel()} lanes ({int(r_valid.sum())} valid) into 2^{ss.table_log2} slots "
+        f"holding {int((c['t_key'] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts "
+        "and the stored pairs agree")
+    none = lambda: None  # noqa: E731
+    ms = {
+        "route": median_ms(lambda: ss._route(*route), none, reps=10),
+        "all_to_all": median_ms(lambda: ss._exchange(send), none, reps=10),
+        "sync": median_ms(lambda: ss._sync(dict(c), ss._zero, 0, 0, 0, 1 << 62), none, reps=10),
+    }
+    log(f"[sharded] (a) the exchange's layers alone, {send.shape[0]} x {send.shape[1]} int64 "
+        f"({send.numel() * 8} B): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    return dict(lanes=r_key.numel(), valid=int(r_valid.sum()), new=int(is_new.sum()), **ms)
+
+
+def sharded_2pc10(ph, torch, chk, device_path, profile2pc10):
+    """(a) and (b): 2pc-10 with the device store at phase 7's width."""
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS
+
+    model = TensorTwoPhaseSys(10)
+    K, A, L = BATCH_2PC10, model.max_actions, model.lanes
+    nc = K * A  # one rank's default dest_capacity: every successor
+    S = 1 << TABLE_2PC10
+    Q = S + nc + 1
+    parts = {"queue": Q * (L + 3) * 8, "table": 2 * S * 8, "send and receive": 2 * nc * (L + 4) * 8}
+    log(f"[sharded 2pc-10] reckoned before the run: queue {Q} rows x {L + 3} int64, table "
+        f"2 x {S} int64, send and receive 2 x {nc} x {L + 4} int64: "
+        + ", ".join(f"{k} {v} B" for k, v in parts.items()) + f"; {sum(parts.values())} B in all")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ss = ShardedSearch(model, device="cuda:0", batch_size=K, table_log2=TABLE_2PC10)
+    assert ss.n_chips * ss.dest_capacity == nc, ss.dest_capacity
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    r1 = ss.run(max_steps=SHARDED_PAUSE)
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    assert r1.steps == SHARDED_PAUSE and not r1.complete, r1
+    # The run's own peak: (a)'s table copies and the captured chunk's
+    # graph pool fall between the two halves and are left out.
+    peak = torch.cuda.max_memory_allocated()
+    a = exchanged_insert_vs_plain(torch, chk, ss)
+    chunk = chunk_launches(torch, ss) / CHUNK_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    r = ss.run()
+    torch.cuda.synchronize()
+    sec += time.monotonic() - t0
+    launches += ph.insert_kernel.launches
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_2PC10 and r.complete, got
+    assert r.detail["per_chip_unique"] == [GOLDEN_2PC10[1]], r.detail["per_chip_unique"]
+    assert launches > 0, "the sharded 2pc-10 never launched the insert kernel"
+    assert set(r.discoveries) == {"abort agreement", "commit agreement"}, r.discoveries
+    if device_path is not None:
+        assert r.discoveries == device_path["discoveries"], r.discoveries
+    lengths = {n: len(ss.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
+    assert lengths == {"abort agreement": 10, "commit agreement": 31}, lengths
+    tel = r.detail["telemetry"]
+    assert tel["generated_total"] == got[0] - 1, tel["generated_total"]
+    beside = ""
+    if device_path is not None:
+        beside = (f"; phase 7: {device_path['sec']:.3f} s, {device_path['steps']} steps, "
+                  f"{1e3 * device_path['sec'] / device_path['steps']:.3f} ms a step, "
+                  f"max_memory_allocated={device_path['peak']}")
+    if profile2pc10 is not None:
+        beside += f"; phase 9: {profile2pc10['chunk_launches_on']:.2f} launches a step within a chunk"
+    log(f"[sharded 2pc-10] one rank over NCCL: generated={got[0]} unique={got[1]} "
+        f"per_chip_unique={r.detail['per_chip_unique']} depth={r.max_depth} steps={r.steps} "
+        f"sec={sec:.3f} ({1e3 * sec / r.steps:.3f} ms a step) generated_per_s={got[0] / sec:.0f} "
+        f"max_memory_allocated={peak} insert_launches={launches}; {chunk:.2f} launches a step "
+        "within a chunk, counted exactly (the chunk, NCCL collectives included, captured "
+        "into a CUDA graph, its nodes counted)" + beside)
+    log("[sharded 2pc-10] discoveries equal phase 7's; witnesses "
+        + ", ".join(f"{n} Path[{k}]" for n, k in sorted(lengths.items())))
+    del ss
+    torch.cuda.empty_cache()
+    return dict(sec=sec, steps=r.steps, peak=peak, launches=launches, chunk_launches=chunk,
+                reckoned=sum(parts.values()), exchange=a)
+
+
+def sharded_paxos3(ph, torch, paxos3, tmp):
+    """(c) paxos-3 at full width and (e) its checkpoint at step 40, loaded
+    with the table regrown from 2^22 to 2^23 and resumed."""
+    import os
+
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    ss = ShardedSearch(TensorPaxos(3), device="cuda:0", batch_size=BATCH_PAXOS3,
+                       table_log2=TABLE_PAXOS3)
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    r = ss.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+    assert set(r.discoveries) == {"value chosen"} and launches > 0, (r.discoveries, launches)
+    if paxos3 is not None:
+        assert r.discoveries == paxos3["result"].discoveries, r.discoveries
+    path = ss.reconstruct_path(r.discoveries["value chosen"])
+    log(f"[sharded paxos-3] generated={r.state_count} unique={r.unique_state_count} "
+        f"steps={r.steps} sec={sec:.3f} insert_launches={launches}; value chosen "
+        f"Path[{len(path) - 1}]" + (f"; phase 11: {paxos3['sec']:.3f} s, discoveries equal"
+                                    if paxos3 is not None else ""))
+    ss.reset()
+    r1 = ss.run(max_steps=CKPT_STEP_PAXOS3)
+    assert r1.steps == CKPT_STEP_PAXOS3 and not r1.complete, r1
+    file = os.path.join(tmp, "paxos3.npz")
+    t0 = time.monotonic()
+    ss.checkpoint(file)
+    write_s = time.monotonic() - t0
+    size = os.path.getsize(file)
+    del ss
+    torch.cuda.empty_cache()
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    g = ShardedSearch.load_checkpoint(TensorPaxos(3), file, device="cuda:0",
+                                      table_log2=TABLE_PAXOS3 + 1)
+    load_s = time.monotonic() - t0
+    regrow = ph.insert_kernel.launches
+    assert regrow == -(-r1.unique_state_count // BATCH_PAXOS3), (regrow, r1.unique_state_count)
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    rg = g.run()
+    torch.cuda.synchronize()
+    resume_s = time.monotonic() - t0
+    assert (rg.state_count, rg.unique_state_count) == GOLDEN_PAXOS3 and rg.complete, rg
+    assert rg.discoveries == r.discoveries, rg.discoveries
+    log(f"[sharded paxos-3] (e) checkpoint at step {r1.steps} (unique={r1.unique_state_count}): "
+        f"{size} B written in {write_s:.3f} s; loaded with the table regrown 2^{TABLE_PAXOS3} "
+        f"-> 2^{TABLE_PAXOS3 + 1} in {load_s:.3f} s ({regrow} kernel calls); resumed to "
+        f"generated={rg.state_count} unique={rg.unique_state_count} in {resume_s:.3f} s "
+        f"({ph.insert_kernel.launches} insert launches), discoveries equal (c)'s")
+    del g
+    os.unlink(file)
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=launches, steps=r.steps, ckpt_bytes=size, write_s=write_s,
+                load_s=load_s, regrow_launches=regrow, resume_s=resume_s)
+
+
+def sharded_tiered(ph, torch, chk):
+    """(d) tiered 2pc-7 through a 2^18 hot tier (296,448 unique states). The
+    run pauses at the first chunk boundary after its first spill, where the
+    fused insert is held against its plain version on the received buffer
+    of the next step, with the shard's Bloom summary."""
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS
+
+    ss = ShardedSearch(TensorTwoPhaseSys(7), device="cuda:0", batch_size=BATCH_TIERED7,
+                       table_log2=TABLE_TIERED7, store="tiered", summary_log2=SUMMARY_TIERED7)
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    sec, pause = 0.0, 0
+    while True:
+        pause += CHUNK_STEPS
+        t0 = time.monotonic()
+        r1 = ss.run(max_steps=pause)
+        torch.cuda.synchronize()
+        sec += time.monotonic() - t0
+        if r1.detail["spill_events"] >= 1:
+            break
+        assert not r1.complete, "tiered 2pc-7 finished without a spill"
+    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    c = ss._c
+    assert int((c["summary"] != 0).sum()) > 0, "the summary is empty after a spill"
+    r_key, r_parent, r_valid = received_buffer(torch, ss)[2:]
+    cfg = ss._store.summary_cfg
+    _, is_new, suspect = chk.compare(ss.table_log2, r_key, r_parent, r_valid,
+                                     tables=(c["t_key"], c["t_parent"]), summary=c["summary"],
+                                     summary_cfg=cfg)
+    log(f"[sharded tiered 2pc-7] fused insert kernel vs plain on the received buffer at step "
+        f"{ss._steps}, after {r1.detail['spill_events']} spill(s) "
+        f"({r1.detail['spilled_states']} states): {r_key.numel()} lanes ({int(r_valid.sum())} "
+        f"valid) into 2^{ss.table_log2} slots holding {int((c['t_key'] != 0).sum())} keys, "
+        f"summary of {c['summary'].numel() * 32} bits ({int((c['summary'] != 0).sum())} words "
+        f"set): {int(is_new.sum())} new, {int(suspect.sum())} suspect; the verdicts, suspects "
+        "and stored pairs agree")
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    t0 = time.monotonic()
+    r = ss.run()
+    torch.cuda.synchronize()
+    sec += time.monotonic() - t0
+    plain += ph.insert_kernel.launches
+    fused += ph.insert_kernel.bloom_launches
+    assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+    d = r.detail
+    assert d["spill_events"] >= 1 and d["spilled_states"] > 0, d
+    # The seed insert is the plain form's one launch; every step a fused one.
+    assert plain == 1 and fused >= r.steps, (plain, fused, r.steps)
+    lengths = {n: len(ss.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
+    assert lengths == {"abort agreement": 7, "commit agreement": 22}, lengths
+    log(f"[sharded tiered 2pc-7] table 2^{TABLE_TIERED7}, summary 2^{SUMMARY_TIERED7}: "
+        f"generated={r.state_count} unique={r.unique_state_count} steps={r.steps} "
+        f"sec={sec:.3f} (paused at step {pause}) plain_launches={plain} fused_launches={fused}; "
+        + " ".join(f"{k}={d[k]}" for k in STORE_COUNTERS + ("per_shard_spilled",))
+        + f"; service {ss.service_seconds.get('service', 0.0):.3f} s in "
+        f"{ss.service_seconds.get('calls', 0)} calls; witnesses "
+        + ", ".join(f"{n} Path[{k}]" for n, k in sorted(lengths.items())))
+    del ss
+    torch.cuda.empty_cache()
+    return dict(sec=sec, steps=r.steps, launches=fused, spilled=d["spilled_states"],
+                pause=pause, lanes=r_key.numel(), valid=int(r_valid.sum()))
+
+
+def sharded_lowering(ph, torch):
+    """(f) refine_check(engine="sharded") on paxos-1 and lowered paxos-2."""
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.examples.paxos import PaxosModelCfg
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.tensor.lowering import lower_actor_model, refine_check
+
+    ph.insert_kernel.launches = 0
+    rounds = []
+    t0 = time.monotonic()
+    r, _ = refine_check(
+        PaxosModelCfg(client_count=1, server_count=3).into_model(), batch_size=256,
+        table_log2=12, seed_states=32, properties=register_properties, engine="sharded",
+        device="cuda:0", progress=lambda rnd, ng, res: rounds.append(ng),
+    )
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS1 and r.complete, r
+    assert set(r.discoveries) == {"value chosen"} and rounds and launches > 0
+    log(f"[sharded lowering] refine_check(engine='sharded') paxos-1: generated={r.state_count} "
+        f"unique={r.unique_state_count} extends={len(rounds)} gaps={sum(rounds)} "
+        f"sec={sec:.3f} launches={launches}")
+    lowered = lower_actor_model(
+        PaxosModelCfg(client_count=2, server_count=3,
+                      network=Network.new_unordered_nonduplicating()).into_model(),
+        properties=register_properties, closure="exact",
+    )
+    ss = ShardedSearch(lowered, device="cuda:0", batch_size=2048, table_log2=18)
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    r = ss.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS2 and r.complete, r
+    assert set(r.discoveries) == {"value chosen"} and ph.insert_kernel.launches > 0
+    path = ss.reconstruct_path(r.discoveries["value chosen"])
+    log(f"[sharded lowering] lowered paxos-2: generated={r.state_count} "
+        f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} "
+        f"launches={ph.insert_kernel.launches}; value chosen Path[{len(path) - 1}]")
+
+
+def phase_sharded(ph, torch, chk, device_path, profile2pc10, paxos3):
+    """The sharded search on a world of one rank over NCCL, inside this
+    process (see the module docstring, phase 16); the group is destroyed
+    at the end."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            out = sharded_2pc10(ph, torch, chk, device_path, profile2pc10)
+            out["paxos3"] = sharded_paxos3(ph, torch, paxos3, tmp)
+            out["tiered"] = sharded_tiered(ph, torch, chk)
+            sharded_lowering(ph, torch)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1892,6 +2230,8 @@ def main() -> int:
     surface = phase(14, "engine surface", phase_engine_surface, ph, torch, chk, device_path,
                     paxos3, profile2pc10)
     sim = phase(15, "device simulation", phase_simulation, ph, torch, chk)
+    sharded = phase(16, "sharded search", phase_sharded, ph, torch, chk, device_path,
+                    profile2pc10, paxos3)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -1909,6 +2249,7 @@ def main() -> int:
         "launches_lowered": lowering["paxos5"]["launches"],
         "launches_frontier": surface["launches"],
         "launches_sim": sim["launches"],
+        "launches_sharded": sharded["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -1925,6 +2266,7 @@ def main() -> int:
         "replaces": "stateright_tpu/tensor/pallas_hashtable.py:246",
         "launches": tiered_path["launches"],
         "launches_resumed": ckpt["tiered_launches"],
+        "launches_sharded_tiered": sharded["tiered"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

@@ -1,13 +1,14 @@
 """Step telemetry: one fixed-width metrics row per engine step, and the host
-accumulator that digests the rows (the JAX package's `obs/ring.py`, without
-the sharded drain: the port has no sharded engine yet).
+accumulator that digests the rows (the JAX package's `obs/ring.py`).
 
 The resident engine writes each step's row into a ring on the device at
 `steps % capacity` and the host reads the new rows at the chunk boundaries,
 where it already reads the counters (tensor/resident.py), so a step adds no
-host sync. The host-driven engine (tensor/frontier.py) already holds every
-scalar of the row on the host and appends it directly, with the step's wall
-time.
+host sync. The sharded engine (parallel/sharded.py) keeps one such ring per
+rank and gathers the chunk's rows of every rank with its chunk summary, so
+that every rank drains the same rows (`drain_sharded`). The host-driven
+engine (tensor/frontier.py) already holds every scalar of the row on the
+host and appends it directly, with the step's wall time.
 
 `StepRing` owns the drained rows, exact running totals (kept when old rows
 fall off the ring), per-drain step timing, and the `summary()` surfaced as
@@ -104,6 +105,8 @@ class StepRing:
         self.generated_total = 0
         self.claimed_total = 0
         self._drained = 0  # device-ring drain watermark (step index)
+        #: per-shard claimed totals (drain_sharded; None for one shard's rings)
+        self.per_shard_claimed: Optional[np.ndarray] = None
 
     def fresh(self) -> "StepRing":
         """A new empty ring with the same capacity."""
@@ -190,6 +193,52 @@ class StepRing:
                 del self._chunk_times[: -self.capacity]
         return steps_total - first
 
+    def drain_sharded(self, rings: np.ndarray, steps_total: int,
+                      window_us: Optional[float] = None) -> int:
+        """Fold per-shard rings (`uint32[n_shards, capacity, N_COLS]`) whose
+        step counters are globally synced: per step, the extensive columns
+        (active, generated, claimed, queue_len, suspects) sum across shards,
+        while table_claims and depth take the max (fill and depth are
+        per-shard: how hot is the hottest shard). Also accumulates per-shard
+        claimed totals for the imbalance digest."""
+        steps_total = int(steps_total)
+        if steps_total < self._drained:
+            self.__init__(self.capacity)
+        N = rings.shape[0]
+        if self.per_shard_claimed is None:
+            self.per_shard_claimed = np.zeros(N, dtype=np.int64)
+        new = steps_total - self._drained
+        if new <= 0:
+            return 0
+        R = rings.shape[1] if rings.ndim == 3 else 0
+        if R == 0:  # no device ring: count, capture nothing
+            self.dropped_steps += new
+            self.steps = self._drained = steps_total
+            return 0
+        first = max(self._drained, steps_total - R)
+        self.dropped_steps += first - self._drained
+        sum_cols = [_I[c] for c in ("active", "generated", "claimed", "queue_len", "suspects")]
+        max_cols = [_I["table_claims"], _I["depth"]]
+        # A gather copy over the window, never views into `rings`.
+        steps_idx = np.arange(first, steps_total, dtype=np.int64)
+        shard_rows = rings[:, steps_idx % R, :].astype(np.int64)  # [N, n, C]
+        rows = np.zeros((len(steps_idx), N_COLS), dtype=np.uint32)
+        rows[:, _I["step"]] = steps_idx.astype(np.uint32)
+        for c in sum_cols:
+            rows[:, c] = np.minimum(shard_rows[:, :, c].sum(axis=0), 0xFFFFFFFF).astype(np.uint32)
+        for c in max_cols:
+            rows[:, c] = shard_rows[:, :, c].max(axis=0).astype(np.uint32)
+        self.generated_total += int(shard_rows[:, :, _I["generated"]].sum())
+        self.claimed_total += int(shard_rows[:, :, _I["claimed"]].sum())
+        self.per_shard_claimed += shard_rows[:, :, _I["claimed"]].sum(axis=1)
+        self._extend(rows)
+        self.steps = self._drained = steps_total
+        if window_us is not None:
+            self._chunk_times.append((new, float(window_us) / new))
+            if len(self._chunk_times) > self.capacity:
+                del self._chunk_times[: -self.capacity]
+        return steps_total - first
+
     def _col(self, name: str) -> np.ndarray:
         if not self._rows:
             return np.zeros(0, dtype=np.uint32)
@@ -234,6 +283,11 @@ class StepRing:
         suspects = self._col("suspects")
         if suspects.size and suspects.any():
             out["suspects_max"] = int(suspects.max())
+        if self.per_shard_claimed is not None:
+            mean = float(self.per_shard_claimed.mean())
+            out["shard_imbalance"] = (
+                round(float(self.per_shard_claimed.max()) / mean, 4) if mean > 0 else 1.0
+            )
         return out
 
 

@@ -1,7 +1,7 @@
 """The documented key sets of `SearchResult.detail` and of the metric
 sources (the JAX package's `obs/schema.py`, trimmed to the engines the port
-has: the resident, host-driven and simulation engines and the tiered
-store). Every key an engine of the port puts in `detail` is named here, with
+has: the resident, host-driven, sharded and simulation engines and the
+tiered store). Every key an engine of the port puts in `detail` is named here, with
 the JAX package's spelling, and `validate_detail` checks a result against
 them."""
 
@@ -22,6 +22,10 @@ DETAIL_KEYS = {
     "evict_bytes_unfiltered": "bytes full-window eviction would have moved",
     "partition_spills": "partitions near full emptied whole by eviction "
                         "(the port's pass; store/tiered.py)",
+    # the sharded engine (parallel/sharded.py)
+    "per_chip_unique": "unique states owned by each shard (fingerprint "
+                       "sharding balance)",
+    "per_shard_spilled": "states in each shard's rank-local spill tier",
     # the resident engine's host service (tensor/resident.py)
     "service_seconds": "host seconds in each part of the tiered service",
     # telemetry (obs/ring.py `StepRing.summary`)
@@ -47,6 +51,7 @@ TELEMETRY_KEYS = {
     "lane_util": "mean active lanes / batch size",
     "step_us": "per-step wall-time digest {mean,p50,p95,max} where timed",
     "suspects_max": "peak suspect-buffer occupancy (tiered only)",
+    "shard_imbalance": "max/mean of per-shard claimed totals (sharded only)",
     # the device simulation engine (tensor/simulation.py)
     "walks": "random walks completed (simulation engine)",
     "walks_per_sec": "completed walks per second of round wall time (simulation)",

@@ -66,21 +66,12 @@ def seed_init(model: TensorModel):
     return init[keep], keys[keep], n_raw
 
 
-def expand_insert(model, insert, t_key, t_parent, states, keys, active,
-                  summary=None, summary_cfg=None):
-    """The core of one step: expand, boundary-mask, fingerprint, and
-    insert-if-absent into the visited table with parent keys (the insert
-    also dedups within the batch).
-
-    Returns (flat_states int64[K*A, L], succ_keys int64[K*A], is_new,
-    suspect, gen_rows int64[K], has_succ bool[K], overflow bool[]); flat row
-    i came from input row i // max_actions. `gen_rows` is the per-row
-    post-boundary pre-dedup successor count (ref: bfs.rs:288-291).
-
-    `summary` (int32 Bloom words, with `summary_cfg=(summary_log2, hashes)`)
-    is the tiered store's summary of the spilled set: the insert then runs
-    in its fused form and `suspect` marks the new keys that hit it (the
-    JAX package's verdict 3). Without a summary, `suspect` is all False."""
+def expand_keys(model, states, active):
+    """Expand, boundary-mask and fingerprint a batch. Returns (flat_states
+    int64[K*A, L], succ_keys int64[K*A], validf bool[K*A], gen_rows
+    int64[K], has_succ bool[K]); flat row i came from input row
+    i // max_actions. `gen_rows` is the per-row post-boundary pre-dedup
+    successor count (ref: bfs.rs:288-291)."""
     K = states.shape[0]
     A = model.max_actions
     succs, valid = model.expand(states)
@@ -91,8 +82,24 @@ def expand_insert(model, insert, t_key, t_parent, states, keys, active,
     # Terminality counts deduped successors too, but not boundary-excluded
     # ones (ref: bfs.rs:287-333).
     has_succ = validf.view(K, A).any(dim=1)
-    succ_keys = state_fingerprint(model, flat)
-    parents = keys.repeat_interleave(A)
+    return flat, state_fingerprint(model, flat), validf, gen_rows, has_succ
+
+
+def expand_insert(model, insert, t_key, t_parent, states, keys, active,
+                  summary=None, summary_cfg=None):
+    """The core of one step: `expand_keys`, then insert-if-absent into the
+    visited table with parent keys (the insert also dedups within the
+    batch).
+
+    Returns (flat_states int64[K*A, L], succ_keys int64[K*A], is_new,
+    suspect, gen_rows int64[K], has_succ bool[K], overflow bool[]).
+
+    `summary` (int32 Bloom words, with `summary_cfg=(summary_log2, hashes)`)
+    is the tiered store's summary of the spilled set: the insert then runs
+    in its fused form and `suspect` marks the new keys that hit it (the
+    JAX package's verdict 3). Without a summary, `suspect` is all False."""
+    flat, succ_keys, validf, gen_rows, has_succ = expand_keys(model, states, active)
+    parents = keys.repeat_interleave(model.max_actions)
     if summary is None:
         _, _, is_new, overflow = insert(t_key, t_parent, succ_keys, parents, validf)
         suspect = torch.zeros_like(is_new)

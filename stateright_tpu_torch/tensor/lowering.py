@@ -2246,6 +2246,7 @@ def refine_check(
     progress=None,
     run_kwargs: Optional[dict] = None,
     engine: str = "resident",
+    group=None,
     warm: bool = False,
     device="cuda",
     **lower_kwargs,
@@ -2287,22 +2288,37 @@ def refine_check(
     `progress(round_index, new_gap_count, result)` is called after each
     round that surfaced new gaps; `result` is the INTERMEDIATE search's
     (its counts include phantom poison entries and re-expansions).
-    `engine="sharded"` (the JAX package's multi-chip refinement) is not
-    ported yet.
+    `engine="sharded"` refines over the sharded engine
+    (parallel/sharded.py) on the process group `group` (default: the
+    default group), with `device` as this rank's device: every rank calls
+    refine_check with the same arguments, the state dump unions the
+    shards' queues, so gaps surface from every shard, and every rank
+    extends the same closure. Warm rounds need the resident engine.
     """
-    if engine == "sharded":
-        raise ValueError(
-            "engine='sharded' needs the sharded search, which the port does "
-            "not have yet (ROADMAP A13); use engine='resident'"
-        )
-    if engine != "resident":
-        raise ValueError("engine must be 'resident' or 'sharded'")
-    from .resident import ResidentSearch
+    if engine == "resident":
+        if group is not None:
+            raise ValueError("group is only meaningful with engine='sharded'")
+        from .resident import ResidentSearch
 
-    def make_search(lowered):
-        return ResidentSearch(
-            lowered, batch_size=batch_size, table_log2=table_log2, device=device,
-        )
+        def make_search(lowered):
+            return ResidentSearch(
+                lowered, batch_size=batch_size, table_log2=table_log2, device=device,
+            )
+    elif engine == "sharded":
+        if warm:
+            raise ValueError(
+                "warm=True requires engine='resident' (the sharded engine has no "
+                "carried-search injection path)"
+            )
+        from ..parallel.sharded import ShardedSearch
+
+        def make_search(lowered):
+            return ShardedSearch(
+                lowered, group=group, device=device, batch_size=batch_size,
+                table_log2=table_log2,
+            )
+    else:
+        raise ValueError("engine must be 'resident' or 'sharded'")
 
     lowered = LoweredActorModel(
         model, closure="seed", max_joint_states=seed_states, **lower_kwargs

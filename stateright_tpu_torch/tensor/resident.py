@@ -184,6 +184,140 @@ def _i32(value: int, name: str) -> np.int32:
     return np.int32(value)
 
 
+def check_properties(model, props, states, keys, active, ebits, discovered, disc_keys):
+    """The property masks of a popped batch (ref: bfs.rs:230-280): the
+    first witness of an ALWAYS violation or a SOMETIMES example is recorded
+    (device ops only), and an EVENTUALLY bit is cleared where its condition
+    holds. Returns (discovered, ebits)."""
+    for i, p in enumerate(props):
+        mask = p.condition(model, states)
+        if p.expectation == Expectation.ALWAYS:
+            discovered = record_discovery(discovered, disc_keys, i, active & ~mask, keys)
+        elif p.expectation == Expectation.SOMETIMES:
+            discovered = record_discovery(discovered, disc_keys, i, active & mask, keys)
+        else:
+            ebits = torch.where(mask, ebits & ~(1 << i), ebits)
+    return discovered, ebits
+
+
+def check_eventually(props, term, ebits, keys, discovered, disc_keys):
+    """EVENTUALLY counterexamples: the terminal states (`term`) that still
+    owe a property. Returns discovered."""
+    for i, p in enumerate(props):
+        if p.expectation == Expectation.EVENTUALLY:
+            bad = term & (((ebits >> i) & 1) != 0)
+            discovered = record_discovery(discovered, disc_keys, i, bad, keys)
+    return discovered
+
+
+def undo_chunk(eng) -> None:
+    """Put an engine's carry (`eng._c`) back at the chunk boundary
+    (`eng._snap`) after an abort, slot for slot, without a copy of the
+    table or queue.
+
+    A step writes the table only where it claims a key, and only slots
+    that were empty at the boundary (no eviction runs inside a chunk).
+    Every key the chunk claimed was appended to the queue at
+    [tail0, tail) — or, tiered, buffered as a suspect at
+    [s_tail0, s_tail), the suspects keeping their claims — where tail0
+    and s_tail0 are the boundary's. Clearing exactly their slots, found
+    by the chain walk before any of them is cleared (a cleared slot
+    would end a later key's walk early), gives back the boundary's
+    table, and every chain is again "occupied prefix, then empty"
+    (tensor/pallas_hashtable.py). Queue and buffer rows below the
+    boundary's tails are never written inside a chunk, so restoring the
+    counters and discovery keys restores the rest."""
+    c = eng._c
+    snap, disc = eng._snap
+    names = eng._scalars()
+    at = dict(zip(names, snap.tolist()))
+    claimed = [c["q_keys"][at["tail"]:int(c["tail"])]]
+    if eng._store is not None:
+        claimed.append(c["s_keys"][at["s_tail"]:int(c["s_tail"])])
+    keys = torch.cat(claimed)
+    slots = torch.cat([find_slots(c["t_key"], part) for part in keys.split(1 << 22)])
+    if bool((slots < 0).any()):
+        raise RuntimeError("undo of an aborted chunk: a claimed key is not in the table")
+    c["t_key"].index_fill_(0, slots, 0)
+    c["t_parent"].index_fill_(0, slots, 0)
+    c.update(zip(names, snap.clone().unbind()))
+    c["disc_keys"].copy_(disc)
+
+
+def service_carry(eng, queue_cap: int) -> int:
+    """The host half of the tiered store on an engine's carry (`eng._c`,
+    `eng._store`), run between chunks — the JAX engine's `_service`:
+
+    1. compact the frontier queue (live rows shift to the front: with
+       spilling, the unique states outnumber the table, so the
+       append-only tail would otherwise grow without bound);
+    2. drain the suspect buffer: exact membership against the spill
+       tier; duplicates are dropped, Bloom false positives are injected
+       at the queue tail and counted unique;
+    3. at or past the spill trigger, or with a partition near full,
+       evict: non-full rows, and every partition near full whole, move
+       to the spill tier and the summary absorbs their keys.
+
+    Then the service bit is cleared. Returns 0, ABORT_QUEUE when the
+    compacted live frontier still passes `queue_cap` rows (the carry is
+    left compacted and sound: checkpoint, then regrow), or ABORT_TABLE when
+    eviction could free nothing (every row full). Adds the seconds of each
+    part to `eng.service_seconds`."""
+    t0 = time.monotonic()
+    c, store, dev = eng._c, eng._store, eng.device
+    head, tail, s_tail, hot, unique = (
+        int(x) for x in torch.stack(
+            [c["head"], c["tail"], c["s_tail"], c["hot"], c["unique"]]
+        ).cpu()
+    )
+    i64 = dict(dtype=torch.int64, device=dev)
+    queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
+    if head > 0:
+        with eng._tracer.span("tiered.queue_compact", cat="store"):
+            tail = compact_queue(queue, head, tail)
+        head = 0
+        eng._q_compacted = True
+    t1 = time.monotonic()
+    if tail > queue_cap:
+        c.update(head=torch.zeros((), **i64), tail=torch.tensor(tail, **i64),
+                 overflow=torch.zeros((), **i64))
+        return ABORT_QUEUE
+    if s_tail > 0:
+        eng._tracer.instant("tiered.suspect_resolve", cat="store", suspects=s_tail)
+        dup = store.resolve_suspects(c["s_keys"][:s_tail])
+        keep = torch.from_numpy(~dup).to(dev)
+        n_conf = int((~dup).sum())
+        if n_conf:
+            sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
+            tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
+            unique += n_conf
+    t2 = time.monotonic()
+    at_risk = int(store.partition_fill(c["t_key"]).max()) >= store.risk_slots
+    if hot >= eng._spill_trigger or at_risk:
+        with eng._tracer.span("tiered.evict", cat="store"):
+            freed = store.evict(c["t_key"], c["t_parent"], hot)
+        if freed == 0:
+            return ABORT_TABLE
+        hot -= freed
+    c.update(
+        head=torch.tensor(head, **i64),
+        tail=torch.tensor(tail, **i64),
+        unique=torch.tensor(unique, **i64),
+        hot=torch.tensor(hot, **i64),
+        s_tail=torch.zeros((), **i64),
+        overflow=torch.zeros((), **i64),
+    )
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t3 = time.monotonic()
+    sec = eng.service_seconds
+    for part, dt in (("compact", t1 - t0), ("resolve", t2 - t1), ("evict", t3 - t2),
+                     ("service", t3 - t0)):
+        sec[part] = sec.get(part, 0.0) + dt
+    sec["calls"] = sec.get("calls", 0) + 1
+    return 0
+
+
 class _TableParents:
     """`.get(fp, 0)` over the visited set, one key at a time — path
     reconstruction walks a few dozen keys, never the whole table. With a
@@ -445,20 +579,8 @@ class ResidentSearch:
             cut = (active & (depth >= tmd)).sum()
             active = active & (depth < tmd)
 
-        # -- property evaluation (ref: bfs.rs:230-280) -----------------------
-        discovered = c["discovered"]
-        for i, p in enumerate(props):
-            mask = p.condition(model, states)
-            if p.expectation == Expectation.ALWAYS:
-                discovered = record_discovery(
-                    discovered, c["disc_keys"], i, active & ~mask, keys
-                )
-            elif p.expectation == Expectation.SOMETIMES:
-                discovered = record_discovery(
-                    discovered, c["disc_keys"], i, active & mask, keys
-                )
-            else:
-                ebits = torch.where(mask, ebits & ~(1 << i), ebits)
+        discovered, ebits = check_properties(model, props, states, keys, active, ebits,
+                                             c["discovered"], c["disc_keys"])
 
         # -- expand + fingerprint + dedup + insert ---------------------------
         flat, succ_keys, is_new, suspect, gen_rows, has_succ, ovf = expand_insert(
@@ -469,15 +591,8 @@ class ResidentSearch:
         gen = gen_rows.sum()
         c["gen"] = c["gen"] + gen
 
-        # -- eventually counterexamples at terminal states -------------------
-        term = active & ~has_succ
-        for i, p in enumerate(props):
-            if p.expectation == Expectation.EVENTUALLY:
-                bad = term & (((ebits >> i) & 1) != 0)
-                discovered = record_discovery(
-                    discovered, c["disc_keys"], i, bad, keys
-                )
-        c["discovered"] = discovered
+        c["discovered"] = check_eventually(props, active & ~has_succ, ebits, keys,
+                                           discovered, c["disc_keys"])
 
         # -- append the new states at the queue tail -------------------------
         # Tiered: a suspect is buffered for exact host resolution instead of
@@ -686,36 +801,9 @@ class ResidentSearch:
             self._step(c, go, tmd)
 
     def _undo_chunk(self) -> None:
-        """Put the carry back at the chunk boundary after an abort, slot for
-        slot, without a copy of the table or queue.
-
-        A step writes the table only where it claims a key, and only slots
-        that were empty at the boundary (no eviction runs inside a chunk).
-        Every key the chunk claimed was appended to the queue at
-        [tail0, tail) — or, tiered, buffered as a suspect at
-        [s_tail0, s_tail), the suspects keeping their claims — where tail0
-        and s_tail0 are the boundary's. Clearing exactly their slots, found
-        by the chain walk before any of them is cleared (a cleared slot
-        would end a later key's walk early), gives back the boundary's
-        table, and every chain is again "occupied prefix, then empty"
-        (tensor/pallas_hashtable.py). Queue and buffer rows below the
-        boundary's tails are never written inside a chunk, so restoring the
-        counters and discovery keys restores the rest."""
-        c = self._c
-        snap, disc = self._snap
-        names = self._scalars()
-        at = dict(zip(names, snap.tolist()))
-        claimed = [c["q_keys"][at["tail"]:int(c["tail"])]]
-        if self._store is not None:
-            claimed.append(c["s_keys"][at["s_tail"]:int(c["s_tail"])])
-        keys = torch.cat(claimed)
-        slots = torch.cat([find_slots(c["t_key"], part) for part in keys.split(1 << 22)])
-        if bool((slots < 0).any()):
-            raise RuntimeError("undo of an aborted chunk: a claimed key is not in the table")
-        c["t_key"].index_fill_(0, slots, 0)
-        c["t_parent"].index_fill_(0, slots, 0)
-        c.update(zip(names, snap.clone().unbind()))
-        c["disc_keys"].copy_(disc)
+        """Put the carry back at the chunk boundary after an abort
+        (`undo_chunk`)."""
+        undo_chunk(self)
 
     def reset(self) -> None:
         """Drop the carry, so that the next run() starts afresh (the spill
@@ -736,85 +824,26 @@ class ResidentSearch:
         return self._store.partition_fill(c["t_key"]).max()
 
     def _service(self) -> None:
-        """Host half of the tiered store, run between chunks on an
-        EXIT_SERVICE (or a drained queue with buffered suspects) — the JAX
-        engine's `_service`:
-
-        1. compact the frontier queue (live rows shift to the front: with
-           spilling, the unique states outnumber the table, so the
-           append-only tail would otherwise grow without bound);
-        2. drain the suspect buffer: exact membership against the spill
-           tier; duplicates are dropped, Bloom false positives are injected
-           at the queue tail and counted unique;
-        3. at or past the spill trigger, or with a partition near full,
-           evict: non-full rows, and every partition near full whole, move
-           to the spill tier and the summary absorbs their keys. If nothing
-           can be freed (every row full), raise.
-
-        Then the service bit is cleared and the caller resumes the carry."""
-        t0 = time.monotonic()
-        c, store, dev = self._c, self._store, self.device
-        head, tail, s_tail, hot, unique = (
-            int(x) for x in torch.stack(
-                [c["head"], c["tail"], c["s_tail"], c["hot"], c["unique"]]
-            ).cpu()
-        )
-        queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
-        if head > 0:
-            with self._tracer.span("tiered.queue_compact", cat="store"):
-                tail = compact_queue(queue, head, tail)
-            head = 0
-            self._q_compacted = True
-        t1 = time.monotonic()
-        if tail > self._QL:
+        """The tiered store's service between chunks, on an EXIT_SERVICE
+        (or a drained queue with buffered suspects): `service_carry`; then
+        the caller resumes the carry. A live frontier past the queue, or an
+        eviction that frees nothing, raises."""
+        code = service_carry(self, self._QL)
+        if code == ABORT_QUEUE:
             # A real capacity wall, recoverable like the device store's queue
             # abort: the compacted carry is sound (checkpoint, then regrow).
-            i64 = dict(dtype=torch.int64, device=dev)
-            c.update(head=torch.zeros((), **i64), tail=torch.tensor(tail, **i64),
-                     overflow=torch.zeros((), **i64))
             self._last_abort = ABORT_QUEUE
             raise RuntimeError(
                 f"frontier queue full — {_abort_reason(ABORT_QUEUE)}; the live "
                 "frontier exceeds the compacted queue — checkpoint(path) then "
                 "load_checkpoint with a larger queue_log2 to continue"
             )
-        if s_tail > 0:
-            self._tracer.instant("tiered.suspect_resolve", cat="store", suspects=s_tail)
-            dup = store.resolve_suspects(c["s_keys"][:s_tail])
-            keep = torch.from_numpy(~dup).to(dev)
-            n_conf = int((~dup).sum())
-            if n_conf:
-                sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
-                tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
-                unique += n_conf
-        t2 = time.monotonic()
-        at_risk = int(self._part_max(c)) >= store.risk_slots
-        if hot >= self._spill_trigger or at_risk:
-            with self._tracer.span("tiered.evict", cat="store"):
-                freed = store.evict(c["t_key"], c["t_parent"], hot)
-            if freed == 0:
-                raise RuntimeError(
-                    "tiered store could not free any bucket (every bucket "
-                    "is full and pinned); raise table_log2 or lower "
-                    "high_water"
-                )
-            hot -= freed
-        i64 = dict(dtype=torch.int64, device=dev)
-        c.update(
-            head=torch.tensor(head, **i64),
-            tail=torch.tensor(tail, **i64),
-            unique=torch.tensor(unique, **i64),
-            hot=torch.tensor(hot, **i64),
-            s_tail=torch.zeros((), **i64),
-            overflow=torch.zeros((), **i64),
-        )
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t3 = time.monotonic()
-        for part, sec in (("compact", t1 - t0), ("resolve", t2 - t1),
-                          ("evict", t3 - t2), ("service", t3 - t0)):
-            self.service_seconds[part] = self.service_seconds.get(part, 0.0) + sec
-        self.service_seconds["calls"] = self.service_seconds.get("calls", 0) + 1
+        if code:
+            raise RuntimeError(
+                "tiered store could not free any bucket (every bucket "
+                "is full and pinned); raise table_log2 or lower "
+                "high_water"
+            )
 
     # -- checkpoint and resume ------------------------------------------------------
 

@@ -156,3 +156,45 @@ def test_new_entry_points_default_to_the_card():
         TensorTwoPhaseSys(3).checker().spawn_cuda(mode="simulation", traces=8, max_depth=8)
     with pytest.raises(RuntimeError, match="cuda"):
         TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12, resident=False)
+
+
+def test_sharded_search_runs_without_jax():
+    """The sharded engine's ranks and the process that spawns them load
+    neither jax nor the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import sharded_ranks\n"
+        "from stateright_tpu_torch.parallel import run_world\n"
+        "if __name__ == '__main__':\n"
+        "    assert run_world(sharded_ranks.loaded_jax_modules, 2, device='cpu') == [[], []]\n"
+        "    bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "           or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "    assert not bad, bad\n"
+        "    print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sharded_entry_points_default_to_the_card():
+    """ShardedSearch, run_world and init_world go to the card unless asked
+    for the CPU; a CUDA device in a gloo group raises."""
+    import sharded_ranks
+    from stateright_tpu_torch.parallel import ShardedSearch, init_world, run_world
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the defaults run there")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardedSearch(TensorTwoPhaseSys(3), table_log2=12)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_world(sharded_ranks.world_of_1, 1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_world()
+    (msg,) = run_world(sharded_ranks.cuda_in_a_gloo_group, 1, device="cpu", timeout=120)
+    assert "nccl" in msg and "gloo" in msg

@@ -124,12 +124,16 @@ def test_refine_check_capacity_overflow_is_actionable():
 
 
 def test_refine_check_engines():
-    """The sharded engine is not ported: it raises and names ROADMAP A13,
-    never running the resident engine instead; an unknown engine raises;
-    with no `device` the search goes to the card (a box without one
+    """The sharded engine needs a process group: without one it raises,
+    never running the resident engine instead, and it takes no warm rounds
+    (tests/test_torch_sharded.py runs it on gloo ranks); an unknown engine
+    raises; with no `device` the search goes to the card (a box without one
     raises)."""
-    with pytest.raises(ValueError, match="A13"):
+    with pytest.raises(RuntimeError, match="process group"):
         _refine(ping_pong_model("torch", 3, False), engine="sharded", boundary=counters_le(3))
+    with pytest.raises(ValueError, match="warm"):
+        _refine(ping_pong_model("torch", 3, False), engine="sharded", warm=True,
+                boundary=counters_le(3))
     with pytest.raises(ValueError, match="engine"):
         _refine(ping_pong_model("torch", 3, False), engine="frontier", boundary=counters_le(3))
     if not torch.cuda.is_available():

@@ -67,6 +67,24 @@ def test_ring_drain_exact_and_wrap_matches_jax():
     assert port.summary(1 << 10, 64) == jax_ring.summary(1 << 10, 64)
 
 
+def test_ring_drain_sharded_matches_jax():
+    """Per-shard rings (the sharded engine's): the extensive columns sum,
+    fill and depth take the max, the per-shard claims give the imbalance,
+    and the window wraps, the same as JAX `drain_sharded`."""
+    cap, n = 8, 3
+    rng = np.random.default_rng(9)
+    port, jax_ring = StepRing(cap), JaxStepRing(cap)
+    rings = rng.integers(0, 1000, size=(n, cap, N_COLS)).astype(np.uint32)
+    for steps in (5, 5, 19, 30, 2):  # repeat, wrap past the ring, go back
+        rings[:, :, STEP_COLS.index("claimed")] = rng.integers(0, 50, size=(n, cap))
+        assert port.drain_sharded(rings, steps, window_us=80.0) == jax_ring.drain_sharded(
+            rings, steps, window_us=80.0)
+        assert _state(port) == _state(jax_ring)
+        assert (port.per_shard_claimed == jax_ring.per_shard_claimed).all()
+        assert port.summary(1 << 10, n * 16) == jax_ring.summary(1 << 10, n * 16)
+    assert "shard_imbalance" in port.summary(1 << 10, n * 16)
+
+
 def test_ring_summary_keys_match_schema_and_jax():
     assert set(TELEMETRY_KEYS) <= set(JAX_TELEMETRY_KEYS)
     port, jax_ring = StepRing(8), JaxStepRing(8)
