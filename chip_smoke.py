@@ -125,7 +125,33 @@ seconds on a line of its own:
     step; (e) (c) checkpointed at step 40, loaded with its table regrown
     from 2^22 to 2^23 and resumed to the golden; (f)
     `refine_check(engine="sharded")` on paxos-1 and lowered paxos-2 at
-    32,971 / 16,668.
+    32,971 / 16,668;
+17. the check service (stateright_tpu_torch/service/): (a) a background
+    `CheckService(batch_size=8192, table_log2=24)` behind
+    `serve_service(svc, "localhost:0")`, whose `ModelRegistry` maps
+    "paxos3" to one `TensorPaxos(3)` and "2pc7" to one
+    `TensorTwoPhaseSys(7)`: four paxos-3 and two 2pc-7 jobs submitted with
+    `POST /jobs` and polled with `GET /jobs/<id>` to their goldens, each
+    job's witnesses from `/jobs/<id>/discoveries`, `/metrics` Prometheus
+    text with `device_steps`, `/.status` listing every job; the wall
+    seconds, generated states per second, the device steps against the
+    sum of the jobs' own, lane utilisation and peak memory; (b)
+    `FrontierSearch` at the same batch on paxos-3 and 2pc-7, which each
+    service job equals in counts, depth, discovery fingerprints and
+    witness actions, with its seconds; then a foreground service of four
+    paxos-3 jobs past its first 64 steps: the ms of a step, and the
+    launches and device busy share of a step over a profiled window of
+    32 steps; (c) the insert of its next step, a mixed step of salted
+    lanes from several jobs (114,688 lanes into 2^24 slots), held against
+    the plain version; (d) two paxos-3 jobs through a tiered service
+    (table 2^20, summary 2^24 bits) to the golden with spills and
+    suspects, the fused insert of the step after the first spill held
+    against its plain version on its salted operands, and the share of
+    the wall spent in eviction and suspect resolution; (e) on 2pc-7:
+    preemption and resumption (`max_resident=1, preempt_steps=3`), a
+    cancellation mid-flight, a `timeout=0` job, `spawn_service`, and a
+    poison job quarantined under a `FaultPlan` while its sibling reaches
+    the golden.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -2167,6 +2193,366 @@ def phase_sharded(ph, torch, chk, device_path, profile2pc10, paxos3):
     return out
 
 
+# -- phase 17: the check service -------------------------------------------------
+
+SERVICE_TABLE, SERVICE_TIERED_TABLE, SERVICE_SUMMARY = 24, 20, 24
+SERVICE_JOBS = {"paxos3": 4, "2pc7": 2}
+SERVICE_WARM_STEPS, SERVICE_WINDOW = 64, 32
+
+
+def http_json(base, path, body=None, method=None):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        raw = resp.read().decode()
+    return raw if path == "/metrics" else json.loads(raw)
+
+
+def capture_insert(eng, summary=False):
+    """Wrap the service engine's insert so that the next step's operands
+    (the salted keys and parents, the active lanes, copies of the table
+    and of the Bloom summary as the insert finds them) are kept. Returns
+    (captured dict, restore function)."""
+    real, got = eng._insert, {}
+
+    def insert(t_key, t_parent, key, parent, active, **kw):
+        if not got:
+            got.update(tables=(t_key.clone(), t_parent.clone()), key=key.clone(),
+                       parent=parent.clone(), active=active.clone())
+            if kw.get("summary") is not None:
+                got.update(summary=kw["summary"].clone(), summary_cfg=kw["summary_cfg"])
+        return real(t_key, t_parent, key, parent, active, **kw)
+
+    eng._insert = insert
+
+    def restore():
+        eng._insert = real
+    return got, restore
+
+
+def step_jobs(eng, model):
+    """The distinct jobs (by salt) among the lanes of the group's last step."""
+    g = eng.groups[id(model)]
+    m = eng.last_active_lanes
+    return len(set(g.up[2].numpy()[:m].tolist())), m
+
+
+def service_served(ph, torch):
+    """(a): the background service behind its HTTP front end, six jobs
+    submitted and polled over HTTP."""
+    from stateright_tpu_torch.service import CheckService, ModelRegistry, serve_service
+    from stateright_tpu_torch.tensor import TensorPaxos
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    models = {"paxos3": TensorPaxos(3), "2pc7": TensorTwoPhaseSys(7)}
+    golden = {"paxos3": (GOLDEN_PAXOS3, {"value chosen"}),
+              "2pc7": (GOLDEN_2PC7, {"abort agreement", "commit agreement"})}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = CheckService(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TABLE)
+    server = serve_service(svc, "localhost:0",
+                           registry=ModelRegistry({k: (lambda m=m: m) for k, m in models.items()}))
+    base = "http://" + server.address
+    try:
+        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        t0 = time.monotonic()
+        jobs = [(name, http_json(base, "/jobs", {"model": name})["job"])
+                for name, n in SERVICE_JOBS.items() for _ in range(n)]
+        polls = {}
+        while len(polls) < len(jobs):
+            for name, jid in jobs:
+                if jid not in polls:
+                    p = http_json(base, f"/jobs/{jid}")
+                    assert p["status"] in ("queued", "running", "done"), p
+                    if p["status"] == "done":
+                        polls[jid] = p
+            assert svc._failed is None, svc._failed
+            assert time.monotonic() - t0 < 200, "the service jobs did not finish in 200 s"
+            time.sleep(0.05)
+        sec = time.monotonic() - t0
+        launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        peak = torch.cuda.max_memory_allocated()
+        assert launches > 0 and bloom == 0, (launches, bloom)
+        generated = 0
+        out = {}
+        for name, jid in jobs:
+            p = polls[jid]
+            (gold, props) = golden[name]
+            assert (p["state_count"], p["unique_state_count"]) == gold, (name, p)
+            assert set(p["discoveries"]) == props, (name, p["discoveries"])
+            d = http_json(base, f"/jobs/{jid}/discoveries")
+            assert set(d) == props and all(v["actions"] for v in d.values()), d
+            generated += p["state_count"]
+            out.setdefault(name, []).append(dict(
+                max_depth=p["max_depth"], steps=p["steps"],
+                discoveries={n: (int(v["fingerprint"]), v["actions"]) for n, v in d.items()}))
+        status = http_json(base, "/.status")
+        assert {row["id"] for row in status["job_rows"]} == {jid for _n, jid in jobs}
+        metrics = http_json(base, "/metrics")
+        assert "stateright_service_device_steps " in metrics, metrics[:400]
+        st = svc.stats()
+        own_steps = sum(p["steps"] for p in polls.values())
+        tm = st["telemetry"]
+        log(f"[service] {len(jobs)} jobs over HTTP ({SERVICE_JOBS}), batch {BATCH_PAXOS3}, "
+            f"table 2^{SERVICE_TABLE}: sec={sec:.3f} generated={generated} "
+            f"generated_per_s={generated / sec:.0f} device_steps={st['device_steps']} "
+            f"(the jobs' own steps sum to {own_steps}) lane_util={tm['lane_util']} "
+            f"table_fill={st['table_fill']} keys={svc._engine.hot_claims} "
+            f"max_memory_allocated={peak} insert_launches={launches}")
+        for name, rows in out.items():
+            for row in rows:
+                log(f"[service]   {name}: depth={row['max_depth']} steps={row['steps']} "
+                    + ", ".join(f"{n} Path[{len(a)}]" for n, (_f, a) in
+                                sorted(row["discoveries"].items())))
+        assert st["device_steps"] < own_steps, (st["device_steps"], own_steps)
+        assert svc._engine.hot_claims == sum(g[0][1] * SERVICE_JOBS[n] for n, g in golden.items())
+    finally:
+        server.shutdown()
+        svc.close()
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=launches, jobs=out, generated=generated,
+                device_steps=st["device_steps"], own_steps=own_steps,
+                lane_util=tm["lane_util"], peak=peak)
+
+
+def service_standalone(torch, served):
+    """(b): FrontierSearch on the card at the service's batch: each service
+    job equals it in counts, depth, discovery fingerprints and witness
+    actions."""
+    from stateright_tpu_torch.tensor import TensorPaxos
+    from stateright_tpu_torch.tensor.frontier import FrontierSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    secs = {}
+    for name, model, gold in (("paxos3", TensorPaxos(3), GOLDEN_PAXOS3),
+                              ("2pc7", TensorTwoPhaseSys(7), GOLDEN_2PC7)):
+        t0 = time.monotonic()
+        fs = FrontierSearch(model, BATCH_PAXOS3, TABLE_PAXOS3)
+        r = fs.run()
+        torch.cuda.synchronize()
+        secs[name] = time.monotonic() - t0
+        assert (r.state_count, r.unique_state_count) == gold and r.complete, r
+        want = {n: (fp, [repr(a) for a in fs.reconstruct_path(fp).actions()])
+                for n, fp in r.discoveries.items()}
+        for row in served["jobs"][name]:
+            assert row["max_depth"] == r.max_depth, (name, row["max_depth"], r.max_depth)
+            assert row["discoveries"] == want, (name, row["discoveries"], want)
+        log(f"[service] (b) standalone FrontierSearch {name}, batch {BATCH_PAXOS3}, table "
+            f"2^{TABLE_PAXOS3}: sec={secs[name]:.3f} steps={r.steps} depth={r.max_depth}; each "
+            f"of the {len(served['jobs'][name])} service jobs equals it in counts, depth, "
+            "discovery fingerprints and witness actions")
+        del fs
+        torch.cuda.empty_cache()
+    serial = sum(secs[n] * k for n, k in SERVICE_JOBS.items())
+    log(f"[service] (a) served the six jobs in {served['sec']:.3f} s; the standalone runs "
+        f"above, one per job in turn, sum to {serial:.3f} s")
+    return secs
+
+
+def service_profile(ph, torch, chk):
+    """(a)'s step over a profiled window, then (c): the next step's insert
+    held against the plain version on its salted operands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stateright_tpu_torch.service import CheckService
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    model = TensorPaxos(3)
+    svc = CheckService(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TABLE, background=False)
+    try:
+        for _ in range(SERVICE_JOBS["paxos3"]):
+            svc.submit(model)
+        svc.pump(SERVICE_WARM_STEPS)  # every job's frontier wide
+        eng = svc._engine
+        torch.cuda.synchronize()
+        s0, t0 = eng.total_steps, time.monotonic()
+        svc.pump(SERVICE_WINDOW)
+        torch.cuda.synchronize()
+        n = eng.total_steps - s0
+        step_ms = (time.monotonic() - t0) * 1e3 / n
+        s0 = eng.total_steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            svc.pump(SERVICE_WINDOW)
+            torch.cuda.synchronize()
+        n_prof = eng.total_steps - s0
+        kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n_prof
+        launches = sum(e.count for e in kernels) / n_prof
+        log(f"[service] paxos-3 x{SERVICE_JOBS['paxos3']} on one service, steps "
+            f"{SERVICE_WARM_STEPS + 1}-{SERVICE_WARM_STEPS + n}: {step_ms:.3f} ms per step on the "
+            f"host clock (lanes {eng.last_active_lanes}); the next {n_prof} steps under the "
+            f"profiler: {busy_ms:.3f} ms of kernels per step, device busy "
+            f"{100 * busy_ms / step_ms:.1f}%, {launches:.1f} kernel launches per step")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"[service]   {e.self_device_time_total / 1e3 / n_prof:7.3f} ms/step "
+                f"x{e.count / n_prof:5.1f}/step  {e.key[:80]}")
+        got, restore = capture_insert(eng)
+        svc.pump(1)
+        restore()
+        n_jobs, m = step_jobs(eng, model)
+        assert n_jobs >= 2 and got["key"].numel() == BATCH_PAXOS3 * model.max_actions, (
+            n_jobs, got["key"].numel())
+        _, is_new, _ = chk.compare(SERVICE_TABLE, got["key"], got["parent"], got["active"],
+                                   tables=got["tables"])
+        log(f"[service] (c) insert kernel vs plain on a mixed service step: "
+            f"{got['key'].numel()} salted lanes ({int(got['active'].sum())} valid) from "
+            f"{n_jobs} jobs ({m} lanes) into 2^{SERVICE_TABLE} slots holding "
+            f"{int((got['tables'][0] != 0).sum())} keys: {int(is_new.sum())} new; the verdicts "
+            "and the stored pairs agree")
+    finally:
+        svc.close()
+    torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, busy_ms=busy_ms, launches_per_step=launches)
+
+
+def service_tiered(ph, torch, chk):
+    """(d): two paxos-3 jobs through a spilling 2^20-slot tiered service;
+    after the first spill, one step's fused insert held against its plain
+    version on its salted operands and the Bloom summary."""
+    from stateright_tpu_torch.service import CheckService
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    model = TensorPaxos(3)
+    torch.cuda.synchronize()
+    svc = CheckService(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE,
+                       store="tiered", summary_log2=SERVICE_SUMMARY, background=False)
+    eng = svc._engine
+    store = eng._store
+    spent = {"evict": 0.0, "resolve": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.monotonic() - t
+        return run
+
+    store.evict = timed("evict", store.evict)
+    store.resolve_suspects = timed("resolve", store.resolve_suspects)
+    try:
+        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        t0 = time.monotonic()
+        hs = [svc.submit(model) for _ in range(2)]
+        while store.spill_events == 0:
+            assert svc.pump(1) == 1, "the tiered service finished without a spill"
+        got, restore = capture_insert(eng)
+        svc.pump(1)
+        restore()
+        n_jobs, _m = step_jobs(eng, model)
+        saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+        _, is_new, suspect = chk.compare(
+            SERVICE_TIERED_TABLE, got["key"], got["parent"], got["active"],
+            tables=got["tables"], summary=got["summary"], summary_cfg=got["summary_cfg"])
+        # The comparison's own launch is not the path's.
+        ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+        assert n_jobs == 2, n_jobs
+        log(f"[service tiered] fused insert kernel vs plain after the first spill: "
+            f"{got['key'].numel()} salted lanes from {n_jobs} jobs into 2^{SERVICE_TIERED_TABLE} "
+            f"slots, summary 2^{SERVICE_SUMMARY} bits: {int(is_new.sum())} new, "
+            f"{int(suspect.sum())} suspects; the verdicts, suspects and stored pairs agree")
+        svc.drain(timeout=600)
+        sec = time.monotonic() - t0
+        plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        rs = [h.result() for h in hs]
+        st = svc.store_stats()
+        steps = svc.stats()["device_steps"]
+    finally:
+        svc.close()
+    for r in rs:
+        assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+        assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    assert st["spill_events"] >= 1 and st["suspects_checked"] > 0, st
+    assert plain == len(hs) and fused == steps, (plain, fused, steps)
+    host = spent["evict"] + spent["resolve"]
+    log(f"[service tiered] paxos-3 x2, batch {BATCH_PAXOS3}, table 2^{SERVICE_TIERED_TABLE}, "
+        f"summary 2^{SERVICE_SUMMARY}: sec={sec:.3f} device_steps={steps} "
+        f"plain_launches={plain} fused_launches={fused}; eviction {spent['evict']:.3f} s + "
+        f"suspect resolution {spent['resolve']:.3f} s = {100 * host / sec:.1f}% of the wall")
+    log("[service tiered] store: " + " ".join(f"{k}={v}" for k, v in st.items()))
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=fused, plain_launches=plain, host_share=host / sec,
+                evict_s=spent["evict"], resolve_s=spent["resolve"])
+
+
+def service_behaviours(torch):
+    """(e): preemption, cancellation, a timeout, spawn_service and a
+    quarantined poison job, on 2pc-7 with a foreground service."""
+    import tempfile
+
+    from stateright_tpu_torch import faults
+    from stateright_tpu_torch.service import CheckService, JobStatus
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    model = TensorTwoPhaseSys(7)
+
+    def service(**kw):
+        return CheckService(batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3,
+                            background=False, **kw)
+
+    def golden(h):
+        r = h.result()
+        assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+        return r
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_service_") as tmp:
+        svc = service(max_resident=1, preempt_steps=3, spill_dir=tmp)
+        ha, hb = svc.submit(model), svc.submit(model)
+        svc.drain(timeout=300)
+        pre = [golden(h).detail["service"]["preemptions"] for h in (ha, hb)]
+        assert min(pre) >= 1, pre
+        svc.close()
+    svc = service()
+    h1, h2 = svc.submit(model), svc.submit(model)
+    svc.pump(3)
+    assert h1.cancel() and h1.status() == JobStatus.CANCELLED
+    h_late = svc.submit(model, timeout=0.0)
+    c = model.checker().spawn_service(svc)
+    svc.drain(timeout=300)
+    golden(h2)
+    r_late = h_late.result()
+    assert r_late.complete is False and r_late.detail.get("timed_out") is True
+    c.join()
+    assert (c.state_count(), c.unique_state_count()) == GOLDEN_2PC7
+    assert set(c.discoveries()) == {"abort agreement", "commit agreement"}
+    svc.close()
+    svc = service(retry_limit=1)
+    h_ok, h_poison = svc.submit(model), svc.submit(model)
+    plan = faults.FaultPlan().rule("service.step", "poison", times=-1,
+                                   match={"job": h_poison.id})
+    with faults.active(plan):
+        svc.drain(timeout=300)
+    golden(h_ok)
+    p = svc.poll(h_poison.id)
+    assert p["status"] == "error" and p["quarantined"], p
+    fc = svc.stats()["faults"]
+    assert fc["quarantined_jobs"] == 1 and fc["retries"] >= 1, fc
+    svc.close()
+    sec = time.monotonic() - t0
+    log(f"[service] (e) 2pc-7 serving behaviours in {sec:.3f} s: preempted and resumed to the "
+        f"golden (preemptions {pre}); cancelled mid-flight with the survivor at the golden; "
+        f"a timeout=0 job incomplete at {r_late.state_count} states; spawn_service at the "
+        f"golden; the poison job quarantined ({fc}) and its sibling at the golden")
+    torch.cuda.empty_cache()
+    return sec
+
+
+def phase_service(ph, torch, chk):
+    """The check service (see the module docstring, phase 17)."""
+    served = service_served(ph, torch)
+    standalone = service_standalone(torch, served)
+    prof = service_profile(ph, torch, chk)
+    tiered = service_tiered(ph, torch, chk)
+    behaviours = service_behaviours(torch)
+    return dict(served=served, standalone_secs=standalone, profile=prof, tiered=tiered,
+                behaviours_sec=behaviours, launches=served["launches"],
+                tiered_launches=tiered["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -2232,6 +2618,7 @@ def main() -> int:
     sim = phase(15, "device simulation", phase_simulation, ph, torch, chk)
     sharded = phase(16, "sharded search", phase_sharded, ph, torch, chk, device_path,
                     profile2pc10, paxos3)
+    service = phase(17, "check service", phase_service, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -2250,6 +2637,7 @@ def main() -> int:
         "launches_frontier": surface["launches"],
         "launches_sim": sim["launches"],
         "launches_sharded": sharded["launches"],
+        "launches_service": service["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -2267,6 +2655,7 @@ def main() -> int:
         "launches": tiered_path["launches"],
         "launches_resumed": ckpt["tiered_launches"],
         "launches_sharded_tiered": sharded["tiered"]["launches"],
+        "launches_service_tiered": service["tiered_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

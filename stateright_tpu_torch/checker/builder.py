@@ -2,7 +2,8 @@
 
 Instantiated via `TensorModel.checker()`; fluent config, then `spawn_cuda()`
 starts the batched device search (or, with `mode="simulation"`, the device
-random walks) behind the standard `Checker` interface.
+random walks), and `spawn_service(service)` submits the check as a job of a
+shared check service, each behind the standard `Checker` interface.
 """
 
 from __future__ import annotations
@@ -90,6 +91,30 @@ class CheckerBuilder:
         if self.trace_out_ is not None:
             kwargs.setdefault("trace_out", self.trace_out_)
         return CudaChecker(self, **kwargs)
+
+    def spawn_service(self, service, priority: int = 0):
+        """Submit this check as a job of a shared `CheckService`
+        (stateright_tpu_torch/service/) and return the `Checker` surface
+        `spawn_cuda` gives, served from the service's shared table. The
+        builder's finish_when, targets and timeout become the job's
+        options; visitors and symmetry_fn are refused, as on spawn_cuda's
+        device engines."""
+        if self.visitor_ is not None:
+            raise NotImplementedError("visitors are not supported on service jobs; use spawn_cuda")
+        if self.symmetry_fn_ is not None:
+            raise NotImplementedError(
+                "symmetry_fn is host-level; device symmetry is the "
+                "TensorModel.representative kernel (see spawn_cuda)"
+            )
+        handle = service.submit(
+            self.model,
+            finish_when=self.finish_when_,
+            target_state_count=self.target_state_count_,
+            target_max_depth=self.target_max_depth_,
+            timeout=self.timeout_,
+            priority=priority,
+        )
+        return handle.as_checker()
 
     def spawn_simulation(self, seed: int = 0, chooser=None, device=False, **kwargs):
         """Spawn the random-simulation checker (ref: src/checker/simulation.rs).

@@ -45,10 +45,12 @@ def normalize_ckpt_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def atomic_savez(path: str, arrays: dict) -> str:
+def atomic_savez(path: str, arrays: dict, keep_prev: bool = True) -> str:
     """Write `arrays` as an npz (stored entries) with a CRC32 footer at
     `path`, crash-atomically; an existing verified generation moves to
-    ``path + ".prev"`` first, a torn one is deleted. Returns the path."""
+    ``path + ".prev"`` first, a torn one is deleted. With `keep_prev=False`
+    (a check-service preemption spill, read back once) the new file simply
+    replaces the old one. Returns the path."""
     path = normalize_ckpt_path(path)
     buf = io.BytesIO()
     np.savez(buf, **arrays)
@@ -67,7 +69,7 @@ def atomic_savez(path: str, arrays: dict) -> str:
             os.unlink(tmp)
         raise
     del payload
-    if os.path.exists(path):
+    if keep_prev and os.path.exists(path):
         # Only a verified generation may become the fallback: rotating a
         # torn file into .prev would evict the last good one. (The JAX
         # writer trusts a file it wrote itself without this read; a file

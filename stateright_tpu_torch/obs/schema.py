@@ -1,9 +1,12 @@
-"""The documented key sets of `SearchResult.detail` and of the metric
-sources (the JAX package's `obs/schema.py`, trimmed to the engines the port
-has: the resident, host-driven, sharded and simulation engines and the
-tiered store). Every key an engine of the port puts in `detail` is named here, with
-the JAX package's spelling, and `validate_detail` checks a result against
-them."""
+"""The documented key sets of `SearchResult.detail`, of the metric
+sources and of the event journal (the JAX package's `obs/schema.py`,
+trimmed to what the port has: the resident, host-driven, sharded and
+simulation engines, the tiered store and the check service). Every key an
+engine or the service of the port puts in `detail` is named here, with the
+JAX package's spelling, and `validate_detail` checks a result against
+them. `EVENT_TYPES` is the journal vocabulary of obs/events.py, the JAX
+package's whole, so that a journal either package writes is one the other
+accepts."""
 
 from __future__ import annotations
 
@@ -30,6 +33,51 @@ DETAIL_KEYS = {
     "service_seconds": "host seconds in each part of the tiered service",
     # telemetry (obs/ring.py `StepRing.summary`)
     "telemetry": "step-telemetry digest sub-dict (TELEMETRY_KEYS)",
+    # the check service (service/scheduler.py `build_result`)
+    "service": "per-job service metrics sub-dict (SERVICE_DETAIL_KEYS)",
+    "timed_out": "True when the job hit its service deadline",
+    "faults": "fault-injection/recovery counters sub-dict "
+              "(FAULTS_DETAIL_KEYS)",
+    "trace": "job-scoped trace correlation id (service jobs)",
+    "tenant": "per-tenant accounting sub-dict (TENANT_DETAIL_KEYS)",
+}
+
+#: Keys of `detail["service"]` (service/metrics.py JobMetrics.to_dict).
+SERVICE_DETAIL_KEYS = {
+    "queue_wait": "seconds between submission and first lane grant",
+    "device_steps": "fused device steps the job held >= 1 lane in",
+    "lanes_held": "cumulative lanes across those steps (device share)",
+    "preemptions": "times the job was parked for waiting jobs",
+    "suspects_checked": "the job's Bloom-positive claims",
+    "suspects_dup": "...of which were confirmed spilled duplicates",
+    "spill_share": "suspects_checked / unique states (spill pressure)",
+}
+
+#: Keys of `detail["tenant"]`: present only when the job ran under a
+#: non-default tenant.
+TENANT_DETAIL_KEYS = {
+    "name": "the tenant identity the job was submitted under",
+    "lane_seconds": "device lane-seconds the job charged against the "
+                    "tenant's budget (lanes x wall-seconds of fused "
+                    "steps it held lanes in)",
+}
+
+#: Keys of `detail["faults"]` (the check service's fault counters; the
+#: supervisor's keys are the JAX package's, kept so one schema reads both).
+#: `injected` is the one dynamic sub-dict: "<point>:<kind>" keys.
+FAULTS_DETAIL_KEYS = {
+    "injected_total": "faults injected by the active FaultPlan, total",
+    "injected": "per-injection-point counts sub-dict ('point:kind' keys)",
+    "retries": "recovery retries (supervisor slices / service step retries)",
+    "backoff_ms": "cumulative retry backoff, milliseconds",
+    "degrade_steps": "degrade-ladder escalations taken",
+    "degrade_rung": "final ladder rung index",
+    "checkpoint_generations": "atomic checkpoint generations written",
+    "restores": "engine rebuilds served from a checkpoint generation",
+    "watchdog_fired": "hangs the watchdog cancelled or abandoned",
+    "drained": "graceful SIGTERM drains taken",
+    "step_faults": "service fused-step faults absorbed (group-scoped)",
+    "quarantined_jobs": "poison jobs parked by the service retry policy",
 }
 
 #: Keys of `detail["telemetry"]` (obs/ring.py StepRing.summary, and the
@@ -65,12 +113,74 @@ TELEMETRY_KEYS = {
 }
 
 
+#: The event-journal vocabulary (obs/events.py): event type -> the fields
+#: every emission of that type must carry, beyond the stamps the journal
+#: adds (ts / seq / writer / pid). `EventJournal.emit` rejects an
+#: undeclared type or a missing field. The JAX package's vocabulary whole:
+#: the fleet's, lease and calibration types are emitted there, and here
+#: once the fleet is ported.
+EVENT_TYPES = {
+    # job lifecycle
+    "job.submitted": ("job",),       # accepted by a router or service
+    "replica.admit": ("job",),       # granted lanes on a service/replica
+    "job.preempted": ("job",),       # parked for waiting jobs (re-admits)
+    "job.requeued": ("job", "src"),  # moved off a dead replica
+    "job.resumed": ("job",),         # re-admitted from a checkpoint journal
+    "job.warm_start": ("job", "kind"),  # corpus preloaded at admission
+    "job.quarantined": ("job",),     # poison job parked by the retry policy
+    "job.quota_rejected": ("tenant",),  # admission refused over-quota (429)
+    "job.done": ("job",),
+    "job.cancelled": ("job",),
+    "job.error": ("job",),
+    # router / fleet choreography
+    "router.route": ("job", "replica"),
+    "router.failover": ("job", "replica"),
+    "router.probe": ("replica", "ok"),
+    "router.unavailable": ("reason",),
+    "replica.crash": ("replica",),
+    "replica.rejoin": ("replica", "phase"),
+    "fleet.steal": ("job", "src", "dst"),
+    "fleet.scale_out": ("replica",),
+    "fleet.scale_in": ("replica",),
+    # engine / durability plane
+    "engine.chunk": ("jobs",),       # one fused service step (jobs: id list)
+    "ckpt.write": ("job",),
+    "fault.injected": ("point", "kind"),  # chaos plane (faults/plan.py)
+    # checkpoint leases
+    "lease.grant": ("member", "epoch"),
+    "lease.revoke": ("member", "epoch"),
+    "lease.reject": ("member",),
+    # calibration observatory, credential chain
+    "calib.drift": ("engine", "term"),
+    "creds.refresh": ("provider",),
+}
+
+#: Event types that end a job's timeline.
+TERMINAL_EVENTS = ("job.done", "job.cancelled", "job.error", "job.quarantined")
+
+#: Finish status (service JobStatus) -> its terminal event.
+TERMINAL_EVENT_BY_STATUS = {
+    "done": "job.done",
+    "cancelled": "job.cancelled",
+    "error": "job.error",
+}
+
+#: The nested sub-dict vocabularies under `SearchResult.detail`.
+DETAIL_SUBSCHEMAS = (
+    ("service", SERVICE_DETAIL_KEYS),
+    ("telemetry", TELEMETRY_KEYS),
+    ("faults", FAULTS_DETAIL_KEYS),
+    ("tenant", TENANT_DETAIL_KEYS),
+)
+
+
 def validate_detail(detail: Optional[dict]) -> list:
     """Key paths of a `SearchResult.detail` dict that the schema does not
     name (an empty list: it conforms)."""
     if detail is None:
         return []
     bad = [k for k in detail if k not in DETAIL_KEYS]
-    if isinstance(detail.get("telemetry"), dict):
-        bad.extend(f"telemetry.{k}" for k in detail["telemetry"] if k not in TELEMETRY_KEYS)
+    for sub, allowed in DETAIL_SUBSCHEMAS:
+        if isinstance(detail.get(sub), dict):
+            bad.extend(f"{sub}.{k}" for k in detail[sub] if k not in allowed)
     return bad

@@ -66,3 +66,54 @@ def from_host_fp(fp: int) -> int:
     """Host fingerprint (Python int in [0, 2^64)) -> the int64 key value."""
     fp = int(fp) & 0xFFFFFFFFFFFFFFFF
     return fp - (1 << 64) if fp >= 1 << 63 else fp
+
+
+# -- job salts (the check service's shared table) ------------------------------
+
+
+def _mix32_int(h: int) -> int:
+    """fmix32 over Python ints."""
+    h &= MASK32
+    h = ((h ^ (h >> 16)) * _M1) & MASK32
+    h = ((h ^ (h >> 13)) * _M2) & MASK32
+    return h ^ (h >> 16)
+
+
+def job_salt(job_id: int) -> tuple[np.uint32, np.uint32]:
+    """Two well-mixed uint32 salt words for a job id (the JAX package's
+    `job_salt`, bit for bit). fmix32 is a bijection of u32 and the two
+    words mix independent streams, so distinct job ids give distinct
+    salts."""
+    j = int(job_id) & MASK32
+    lo = _mix32_int((j * _GOLDEN) ^ 0x243F6A88)
+    hi = _mix32_int((j * _M2) ^ 0x85A308D3)
+    return np.uint32(lo), np.uint32(hi)
+
+
+def salt_fp(lo, hi, salt_lo, salt_hi):
+    """Fold a job salt into (lo, hi) fingerprint pairs: numpy uint32 arrays
+    or scalars, or torch int64 lanes holding uint32 values. XOR, except
+    that `lo == salt_lo` (which XOR would send to the empty-slot sentinel
+    0) maps to `salt_lo`, a value otherwise unreachable since lo is never
+    0. So the map stays injective, never yields 0, and is its own inverse:
+    the same call salts and unsalts (the JAX package's `salt_fp`)."""
+    slo = lo ^ salt_lo
+    if isinstance(slo, torch.Tensor):
+        return torch.where(slo == 0, salt_lo, slo), hi ^ salt_hi
+    return np.where(slo == 0, salt_lo, slo), hi ^ salt_hi
+
+
+def pack_salt(salt_lo, salt_hi) -> int:
+    """A job salt as one int64 key value (`hi << 32 | lo`), for `salt_keys`."""
+    return from_host_fp((int(salt_hi) << 32) | int(salt_lo))
+
+
+def salt_keys(keys, salts):
+    """`salt_fp` on packed int64 keys with packed int64 salts (`pack_salt`):
+    torch tensors or numpy int64 arrays, broadcasting. One XOR flips both
+    words; the sentinel remap then restores salt_lo where lo came out 0."""
+    k = keys ^ salts
+    lo_zero = (k & MASK32) == 0
+    if isinstance(k, torch.Tensor):
+        return torch.where(lo_zero, k | (salts & MASK32), k)
+    return np.where(lo_zero, k | (salts & MASK32), k)

@@ -36,7 +36,7 @@ from ..core.path import Path
 from ..faults.ckptio import atomic_savez, load_latest
 from ..knobs import STORE_KINDS
 from ..obs import REGISTRY, StepRing, as_tracer, build_detail
-from .fingerprint import MASK32, device_fingerprint, pack_fp, to_host_fp
+from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
 from .inserts import resolve_insert
 from .model import TensorModel
 from .pallas_hashtable import PallasHashTable, from_jax_table, to_jax_table
@@ -86,7 +86,7 @@ def expand_keys(model, states, active):
 
 
 def expand_insert(model, insert, t_key, t_parent, states, keys, active,
-                  summary=None, summary_cfg=None):
+                  summary=None, summary_cfg=None, salts=None):
     """The core of one step: `expand_keys`, then insert-if-absent into the
     visited table with parent keys (the insert also dedups within the
     batch).
@@ -97,15 +97,27 @@ def expand_insert(model, insert, t_key, t_parent, states, keys, active,
     `summary` (int32 Bloom words, with `summary_cfg=(summary_log2, hashes)`)
     is the tiered store's summary of the spilled set: the insert then runs
     in its fused form and `suspect` marks the new keys that hit it (the
-    JAX package's verdict 3). Without a summary, `suspect` is all False."""
+    JAX package's verdict 3). Without a summary, `suspect` is all False.
+
+    `salts` (int64[K], packed job salts, fingerprint.pack_salt) folds each
+    lane's job salt into every key the table sees: the successor keys and
+    the parent keys stored beside them, so that the check service's jobs
+    share one table without colliding (fingerprint.salt_keys). The Bloom
+    probe sees the salted keys, which are what the spill tier stores. The
+    returned `succ_keys` stay unsalted."""
     flat, succ_keys, validf, gen_rows, has_succ = expand_keys(model, states, active)
     parents = keys.repeat_interleave(model.max_actions)
+    table_keys = succ_keys
+    if salts is not None:
+        lane_salts = salts.repeat_interleave(model.max_actions)
+        table_keys = salt_keys(succ_keys, lane_salts)
+        parents = salt_keys(parents, lane_salts)
     if summary is None:
-        _, _, is_new, overflow = insert(t_key, t_parent, succ_keys, parents, validf)
+        _, _, is_new, overflow = insert(t_key, t_parent, table_keys, parents, validf)
         suspect = torch.zeros_like(is_new)
     else:
         _, _, is_new, suspect, overflow = insert(
-            t_key, t_parent, succ_keys, parents, validf,
+            t_key, t_parent, table_keys, parents, validf,
             summary=summary, summary_cfg=summary_cfg,
         )
     return flat, succ_keys, is_new, suspect, gen_rows, has_succ, overflow

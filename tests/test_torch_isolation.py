@@ -198,3 +198,39 @@ def test_sharded_entry_points_default_to_the_card():
         init_world()
     (msg,) = run_world(sharded_ranks.cuda_in_a_gloo_group, 1, device="cpu", timeout=120)
     assert "nccl" in msg and "gloo" in msg
+
+
+def test_the_check_service_runs_without_jax():
+    """The check service, its HTTP front end, the chaos plane and the
+    event journal load neither jax nor the JAX package."""
+    code = (
+        "import json, os, sys, tempfile, urllib.request\n"
+        "from stateright_tpu_torch import faults\n"
+        "from stateright_tpu_torch.service import CheckService, serve_service\n"
+        "from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    svc = CheckService(batch_size=64, table_log2=12, device='cpu',\n"
+        "        events_out=os.path.join(d, 'j.jsonl'))\n"
+        "    srv = serve_service(svc, 'localhost:0')\n"
+        "    req = urllib.request.Request('http://' + srv.address + '/jobs', method='POST',\n"
+        "        data=json.dumps({'model': '2pc', 'args': {'n': 3}}).encode())\n"
+        "    jid = json.loads(urllib.request.urlopen(req, timeout=30).read())['job']\n"
+        "    with faults.active(faults.FaultPlan().rule('service.step', 'xla', times=1)):\n"
+        "        svc.drain(timeout=60)\n"
+        "    r = svc.result(jid)\n"
+        "    assert (r.state_count, r.unique_state_count) == (1146, 288)\n"
+        "    assert svc.stats()['faults']['retries'] == 1\n"
+        "    assert set(svc.discovery_paths(jid)) == {'abort agreement', 'commit agreement'}\n"
+        "    srv.shutdown()\n"
+        "    svc.close()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
