@@ -151,7 +151,30 @@ seconds on a line of its own:
     preemption and resumption (`max_resident=1, preempt_steps=3`), a
     cancellation mid-flight, a `timeout=0` job, `spawn_service`, and a
     poison job quarantined under a `FaultPlan` while its sibling reaches
-    the golden.
+    the golden;
+18. the service fleet in one process (stateright_tpu_torch/service/
+    fleet.py, router.py, lease.py): (a) a foreground `ServiceFleet` of
+    three replicas at phase 17's widths (batch 8192, table 2^24) with
+    leases and journals and a checkpoint generation of each running job
+    every 8 spins, behind `serve_fleet`; phase 17's mix submitted
+    with `POST /jobs` (the four paxos-3 jobs share a route key, so one
+    replica holds them) and, after 200 of that replica's steps, a
+    `FaultPlan` `fleet.replica_crash` on it: the router revokes its lease,
+    requeues its jobs and a survivor resumes each from its newest fenced
+    checkpoint generation, re-seeding the job's journal into its table
+    through the insert kernel; every job at its golden and equal to its
+    standalone `FrontierSearch` (phase 17 (b)) in counts, depth, discovery
+    fingerprints and witness actions, a clean timeline of the journals;
+    the wall seconds against phase 17 (a)'s, the requeued and restored
+    jobs, the time from the crash to a resumed job's first step, the rows
+    re-seeded and their insert calls, the checkpoint generations with
+    their bytes and seconds, the lease counters; (b) the first re-seed
+    insert (salted journal keys and parents, parent 0 kept for roots, into
+    the survivor's table as it was) held against the plain version; (c)
+    two tiered replicas at phase 17 (d)'s sizes (2^20 slots, a 2^24-bit
+    summary), two paxos-3 jobs, the holding replica crashed after its
+    first spill: the survivor's first fused step after the re-seed held
+    against its plain version, both jobs at the golden.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -175,6 +198,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2213,17 +2237,20 @@ def http_json(base, path, body=None, method=None):
 def capture_insert(eng, summary=False):
     """Wrap the service engine's insert so that the next step's operands
     (the salted keys and parents, the active lanes, copies of the table
-    and of the Bloom summary as the insert finds them) are kept. Returns
-    (captured dict, restore function)."""
+    and of the Bloom summary as the insert finds them) are kept, and the
+    call's own outputs under "out". Returns (captured dict, restore
+    function)."""
     real, got = eng._insert, {}
 
     def insert(t_key, t_parent, key, parent, active, **kw):
-        if not got:
-            got.update(tables=(t_key.clone(), t_parent.clone()), key=key.clone(),
-                       parent=parent.clone(), active=active.clone())
-            if kw.get("summary") is not None:
-                got.update(summary=kw["summary"].clone(), summary_cfg=kw["summary_cfg"])
-        return real(t_key, t_parent, key, parent, active, **kw)
+        if got:
+            return real(t_key, t_parent, key, parent, active, **kw)
+        got.update(tables=(t_key.clone(), t_parent.clone()), key=key.clone(),
+                   parent=parent.clone(), active=active.clone())
+        if kw.get("summary") is not None:
+            got.update(summary=kw["summary"].clone(), summary_cfg=kw["summary_cfg"])
+        got["out"] = real(t_key, t_parent, key, parent, active, **kw)
+        return got["out"]
 
     eng._insert = insert
 
@@ -2320,12 +2347,13 @@ def service_served(ph, torch):
 def service_standalone(torch, served):
     """(b): FrontierSearch on the card at the service's batch: each service
     job equals it in counts, depth, discovery fingerprints and witness
-    actions."""
+    actions. With `served` None (phase 18 alone) it only computes the
+    references. Returns (seconds, references) by model name."""
     from stateright_tpu_torch.tensor import TensorPaxos
     from stateright_tpu_torch.tensor.frontier import FrontierSearch
     from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
 
-    secs = {}
+    secs, refs = {}, {}
     for name, model, gold in (("paxos3", TensorPaxos(3), GOLDEN_PAXOS3),
                               ("2pc7", TensorTwoPhaseSys(7), GOLDEN_2PC7)):
         t0 = time.monotonic()
@@ -2336,19 +2364,21 @@ def service_standalone(torch, served):
         assert (r.state_count, r.unique_state_count) == gold and r.complete, r
         want = {n: (fp, [repr(a) for a in fs.reconstruct_path(fp).actions()])
                 for n, fp in r.discoveries.items()}
-        for row in served["jobs"][name]:
+        refs[name] = dict(max_depth=r.max_depth, discoveries=want)
+        for row in (served["jobs"][name] if served else ()):
             assert row["max_depth"] == r.max_depth, (name, row["max_depth"], r.max_depth)
             assert row["discoveries"] == want, (name, row["discoveries"], want)
         log(f"[service] (b) standalone FrontierSearch {name}, batch {BATCH_PAXOS3}, table "
-            f"2^{TABLE_PAXOS3}: sec={secs[name]:.3f} steps={r.steps} depth={r.max_depth}; each "
-            f"of the {len(served['jobs'][name])} service jobs equals it in counts, depth, "
-            "discovery fingerprints and witness actions")
+            f"2^{TABLE_PAXOS3}: sec={secs[name]:.3f} steps={r.steps} depth={r.max_depth}"
+            + (f"; each of the {len(served['jobs'][name])} service jobs equals it in counts, "
+               "depth, discovery fingerprints and witness actions" if served else ""))
         del fs
         torch.cuda.empty_cache()
-    serial = sum(secs[n] * k for n, k in SERVICE_JOBS.items())
-    log(f"[service] (a) served the six jobs in {served['sec']:.3f} s; the standalone runs "
-        f"above, one per job in turn, sum to {serial:.3f} s")
-    return secs
+    if served:
+        serial = sum(secs[n] * k for n, k in SERVICE_JOBS.items())
+        log(f"[service] (a) served the six jobs in {served['sec']:.3f} s; the standalone runs "
+            f"above, one per job in turn, sum to {serial:.3f} s")
+    return secs, refs
 
 
 def service_profile(ph, torch, chk):
@@ -2544,12 +2574,391 @@ def service_behaviours(torch):
 def phase_service(ph, torch, chk):
     """The check service (see the module docstring, phase 17)."""
     served = service_served(ph, torch)
-    standalone = service_standalone(torch, served)
+    standalone, refs = service_standalone(torch, served)
     prof = service_profile(ph, torch, chk)
     tiered = service_tiered(ph, torch, chk)
     behaviours = service_behaviours(torch)
-    return dict(served=served, standalone_secs=standalone, profile=prof, tiered=tiered,
-                behaviours_sec=behaviours, launches=served["launches"],
+    return dict(served=served, standalone_secs=standalone, refs=refs, profile=prof,
+                tiered=tiered, behaviours_sec=behaviours, launches=served["launches"],
+                tiered_launches=tiered["launches"])
+
+
+# -- phase 18: the service fleet in one process ------------------------------------
+
+FLEET_REPLICAS = 3
+# The replica runner's checkpoint cadence (`ckpt_every_spins`), in spins of
+# 4 service rounds. At the default, 1, every running journaled job writes a
+# generation each spin: on an H100 80GB HBM3 at 700 W that took 34.2 s of
+# (a)'s 50.0 s (436 generations, 8.28 GB; PERF.md, the fleet). Every 8th spin
+# writes about an eighth of it, and a crash redoes at most 32 rounds.
+FLEET_CKPT_EVERY = 8
+# The paxos-3 replica's device steps before its crash: about a third of the
+# four jobs' shared steps, so every job has checkpoint generations mid-run.
+FLEET_CRASH_STEPS = 200
+
+
+class FleetProbe:
+    """Instruments a fleet's replicas for phase 18 without changing what
+    they run: checkpoint generations (count, bytes, seconds with the
+    snapshot), the crash's time, each re-seed (journal rows, insert calls,
+    seconds), the first step of a resumed job, and one insert's operands —
+    the first re-seed call's (capture="reseed") or, on a tiered replica,
+    those of the first fused step of a resumed job whose kernel flagged a
+    suspect (capture="after"; `after_steps` counts the resumed steps up to
+    it), so that the check meets verdict 3 in every run. From the crash to
+    that first resumed step it splits the one pumping thread's time
+    (`window`): the router's re-seal of each orphan's generation, the
+    survivor's fenced load of it (`load_npz`: the part in
+    `JobResume.from_npz`), the re-seed, steps and checkpoints."""
+
+    def __init__(self, fleet, capture):
+        import stateright_tpu_torch.service.fleet as fleet_mod
+        from stateright_tpu_torch.service.queue import JobResume
+
+        self.ckpt_n = self.ckpt_bytes = 0
+        self.ckpt_s = 0.0
+        self.t_crash = self.t_first_step = None
+        self.reseed_rows = self.reseed_calls = 0
+        self.reseed_s = 0.0
+        self.resumed = []
+        self.got = None
+        self.after_steps = 0
+        self.window = dict.fromkeys(
+            ("detect", "reseal", "load", "load_npz", "reseed", "steps", "ckpt"), 0.0)
+        self.resume_chunks = []
+        self._capture = capture
+        self._mod, self._savez = fleet_mod, fleet_mod.fenced_savez
+        fleet_mod.fenced_savez = self._fenced_savez
+        for r in fleet.replicas:
+            self._wrap(r)
+        self._timed(fleet.router, "_resume_token", "reseal")
+        self._resume_cls, self._from_npz = JobResume, JobResume.__dict__["from_npz"]
+        real_from_npz = JobResume.from_npz
+
+        def from_npz(cls, data):
+            t = time.monotonic()
+            out = real_from_npz(data)
+            if self._in_window():
+                self.window["load_npz"] += time.monotonic() - t
+                self.resume_chunks.append(len(out.chunks))
+            return out
+        JobResume.from_npz = classmethod(from_npz)
+
+    def _in_window(self) -> bool:
+        return self.t_crash is not None and self.t_first_step is None
+
+    def _timed(self, obj, attr, part):
+        """Wrap obj.attr so that its time within the crash window adds to
+        `window[part]`; the router's first re-seal also closes "detect"
+        (crash to the router's requeue)."""
+        real = getattr(obj, attr)
+
+        def timed(*a, **kw):
+            t = time.monotonic()
+            if part == "reseal" and self._in_window() and not self.window["detect"]:
+                self.window["detect"] = t - self.t_crash
+            try:
+                return real(*a, **kw)
+            finally:
+                if self._in_window():
+                    self.window[part] += time.monotonic() - t
+        setattr(obj, attr, timed)
+
+    def close(self):
+        self._mod.fenced_savez = self._savez
+        self._resume_cls.from_npz = self._from_npz
+
+    def _fenced_savez(self, path, arrays, lease=None, **kw):
+        out = self._savez(path, arrays, lease=lease, **kw)
+        self.ckpt_n += 1
+        self.ckpt_bytes += os.path.getsize(out)
+        return out
+
+    def _wrap(self, replica):
+        eng = replica.service._engine
+        real_ckpt, real_die = replica._checkpoint_jobs, replica._die
+        real_resumed, real_step = eng._admit_resumed, eng.step_group
+
+        def checkpoint_jobs():
+            t = time.monotonic()
+            try:
+                return real_ckpt()
+            finally:
+                self.ckpt_s += time.monotonic() - t
+                if self._in_window():
+                    self.window["ckpt"] += time.monotonic() - t
+
+        def die(e):
+            if self.t_crash is None:
+                self.t_crash = time.monotonic()
+            real_die(e)
+
+        def admit_resumed(job):
+            rows = len(job.resume.journal[0])
+            base = eng._insert
+            if self._capture == "reseed" and self.got is None and rows:
+                self.got, _ = capture_insert(eng)
+            inner = eng._insert
+
+            def counting(*a, **kw):
+                self.reseed_calls += 1
+                return inner(*a, **kw)
+
+            eng._insert = counting
+            t = time.monotonic()
+            try:
+                out = real_resumed(job)
+            finally:
+                self.reseed_s += time.monotonic() - t
+                if self._in_window():
+                    self.window["reseed"] += time.monotonic() - t
+                eng._insert = base
+            self.reseed_rows += rows
+            self.resumed.append(job)
+            return out
+
+        def step_group(group, only=None):
+            got = restore = None
+            if (self._capture == "after" and self.got is None
+                    and any(j in self.resumed for j in group.runnable())):
+                got, restore = capture_insert(eng, summary=True)
+            t = time.monotonic()
+            try:
+                out = real_step(group, only=only)
+            finally:
+                if self._in_window():
+                    self.window["steps"] += time.monotonic() - t
+                if restore is not None:
+                    restore()
+                    self.after_steps += 1
+                    if "out" in got and int(got["out"][3].sum()) > 0:
+                        self.got = got
+            if self.t_first_step is None and any(j.metrics.device_steps for j in self.resumed):
+                self.t_first_step = time.monotonic()
+            return out
+
+        replica._checkpoint_jobs, replica._die = checkpoint_jobs, die
+        eng._admit_resumed, eng.step_group = admit_resumed, step_group
+        self._timed(replica, "_resolve_resume", "load")
+
+    def line(self, sec) -> str:
+        return (f"checkpoint generations={self.ckpt_n} bytes={self.ckpt_bytes} "
+                f"seconds={self.ckpt_s:.3f} ({100 * self.ckpt_s / sec:.1f}% of the wall); "
+                f"re-seeded rows={self.reseed_rows} in {self.reseed_calls} insert calls, "
+                f"{self.reseed_s:.3f} s; crash to a resumed job's first step "
+                f"{self.t_first_step - self.t_crash:.3f} s: "
+                + " ".join(f"{k}={v:.3f}" for k, v in self.window.items())
+                + f" other={self.t_first_step - self.t_crash - self._window_busy():.3f} s "
+                f"(load_npz is the part of load in JobResume.from_npz, over "
+                f"{self.resume_chunks} frontier chunks)")
+
+    def _window_busy(self) -> float:
+        return sum(v for k, v in self.window.items() if k not in ("detect", "load_npz"))
+
+
+def fleet_served(ph, torch, chk, refs, served17):
+    """(a) and (b): three replicas behind `serve_fleet`, phase 17's mix over
+    HTTP, the paxos-3 replica crashed mid-run; then the first re-seed insert
+    held against its plain version."""
+    import tempfile
+
+    from stateright_tpu_torch import faults
+    from stateright_tpu_torch.obs import timeline
+    from stateright_tpu_torch.service import ModelRegistry, ServiceFleet, serve_fleet
+    from stateright_tpu_torch.tensor import TensorPaxos
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    models = {"paxos3": TensorPaxos(3), "2pc7": TensorTwoPhaseSys(7)}
+    golden = {"paxos3": (GOLDEN_PAXOS3, {"value chosen"}),
+              "2pc7": (GOLDEN_2PC7, {"abort agreement", "commit agreement"})}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fleet = ServiceFleet(
+            n_replicas=FLEET_REPLICAS, background=False,
+            service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TABLE),
+            ckpt_every_spins=FLEET_CKPT_EVERY, ckpt_dir=os.path.join(tmp, "ckpt"),
+            lease_dir=os.path.join(tmp, "leases"), journal_dir=os.path.join(tmp, "journal"))
+        probe = FleetProbe(fleet, capture="reseed")
+        server = serve_fleet(fleet, "localhost:0", registry=ModelRegistry(
+            {k: (lambda m=m: m) for k, m in models.items()}))
+        base = "http://" + server.address
+        router = fleet.router
+        try:
+            ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+            t0 = time.monotonic()
+            jobs = [(name, http_json(base, "/jobs", {"model": name})["job"])
+                    for name, n in SERVICE_JOBS.items() for _ in range(n)]
+            holders = {name: {router._jobs[jid].replica for n2, jid in jobs if n2 == name}
+                       for name in SERVICE_JOBS}
+            assert len(holders["paxos3"]) == 1, holders  # one route key, one replica
+            victim = next(iter(holders["paxos3"]))
+            veng = fleet.replicas[victim].service._engine
+            while veng.total_steps < FLEET_CRASH_STEPS:
+                assert fleet.pump(1), "the paxos-3 jobs finished before the crash"
+                assert time.monotonic() - t0 < 300, fleet.stats()
+            assert probe.ckpt_n > 0, "no checkpoint generation before the crash"
+            t_armed = time.monotonic() - t0
+            plan = faults.FaultPlan().rule("fleet.replica_crash", "crash", times=1,
+                                           match={"replica": victim})
+            with faults.active(plan):
+                while not router.all_done():
+                    fleet.pump(1)
+                    assert time.monotonic() - t0 < 500, fleet.stats()
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+            launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+            peak = torch.cuda.max_memory_allocated()
+            assert plan.injected_total() == 1 and launches > 0 and bloom == 0, (launches, bloom)
+            generated = 0
+            for name, jid in jobs:
+                p = http_json(base, f"/jobs/{jid}")
+                gold, props = golden[name]
+                assert p["status"] == "done", p
+                assert (p["state_count"], p["unique_state_count"]) == gold, (name, p)
+                assert set(p["discoveries"]) == props, (name, p["discoveries"])
+                generated += p["state_count"]
+                r = router.result(jid)
+                paths = router.discovery_paths(jid)
+                got = {n: (fp, [repr(a) for a in paths[n].actions()])
+                       for n, fp in r.discoveries.items()}
+                assert r.max_depth == refs[name]["max_depth"], (name, r.max_depth)
+                assert got == refs[name]["discoveries"], (name, got, refs[name]["discoveries"])
+            status = http_json(base, "/.status")
+            assert {row["id"] for row in status["job_rows"]} == {jid for _n, jid in jobs}
+            metrics = http_json(base, "/metrics")
+            assert "stateright_fleet_replica_crashes 1" in metrics, metrics[:400]
+            st = fleet.stats()
+            requeued = [jid for _n, jid in jobs if router._jobs[jid].requeues]
+            assert st["replica_crashes"] == 1 and st["healthy"] == FLEET_REPLICAS - 1, st
+            assert st["requeued_jobs"] >= SERVICE_JOBS["paxos3"], st
+            # Every requeue resumed (a steal of a requeued job resumes again).
+            assert st["restored_jobs"] >= st["requeued_jobs"], st
+            assert all(router._jobs[jid].replica != victim for jid in requeued)
+            assert st["lease_revokes"] == 1, st
+            fleet.close()
+            evs = timeline.load_events([os.path.join(tmp, "journal")])
+            traces, _untraced = timeline.group_traces(evs)
+            assert len(traces) == len(jobs) and timeline.find_anomalies(traces) == []
+        finally:
+            probe.close()
+            server.shutdown()
+            fleet.close()
+    got = probe.got
+    assert got, "no re-seed insert was captured"
+    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+    _, is_new, _ = chk.compare(SERVICE_TABLE, got["key"], got["parent"], got["active"],
+                               tables=got["tables"])
+    ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+    valid = int(got["active"].sum())
+    roots = int((got["active"] & (got["parent"] == 0)).sum())
+    # The journal's rows are new to the survivor's table, roots included.
+    assert int(is_new.sum()) == valid and roots >= 1, (int(is_new.sum()), valid, roots)
+    log(f"[fleet] (b) insert kernel vs plain on the first re-seed call: {got['key'].numel()} "
+        f"salted journal lanes ({valid} valid, {roots} roots with parent 0) into "
+        f"2^{SERVICE_TABLE} slots holding {int((got['tables'][0] != 0).sum())} keys: "
+        f"{int(is_new.sum())} new; the verdicts and the stored pairs agree")
+    ref = f"{served17['sec']:.3f} s" if served17 else "not run in this call"
+    log(f"[fleet] (a) {len(jobs)} jobs over HTTP ({SERVICE_JOBS}) on {FLEET_REPLICAS} replicas, "
+        f"batch {BATCH_PAXOS3}, table 2^{SERVICE_TABLE}, ckpt_every_spins={FLEET_CKPT_EVERY}: "
+        f"sec={sec:.3f} (phase 17 (a), one replica: {ref}) generated={generated} "
+        f"generated_per_s={generated / sec:.0f}; replica {victim} (the paxos-3 jobs) crashed "
+        f"at {t_armed:.3f} s after {FLEET_CRASH_STEPS} steps; requeued_jobs="
+        f"{st['requeued_jobs']} restored_jobs={st['restored_jobs']} lease_revokes="
+        f"{st['lease_revokes']} lease_reseals={st['lease_reseals']} lease_rejected="
+        f"{st['lease_rejected']} steals={st['steals']}; max_memory_allocated={peak} "
+        f"insert_launches={launches}")
+    log(f"[fleet] (a) {probe.line(sec)}")
+    log(f"[fleet] (a) every job at its golden and equal to its standalone FrontierSearch in "
+        f"counts, depth, discovery fingerprints and witness actions; the timeline reads "
+        f"{len(evs)} events as {len(traces)} clean lifecycles")
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=launches, generated=generated, peak=peak,
+                requeued=st["requeued_jobs"], restored=st["restored_jobs"],
+                crash_to_step=probe.t_first_step - probe.t_crash,
+                reseed_rows=probe.reseed_rows, reseed_calls=probe.reseed_calls,
+                reseed_s=probe.reseed_s, ckpt_n=probe.ckpt_n, ckpt_bytes=probe.ckpt_bytes,
+                ckpt_s=probe.ckpt_s, lease_rejected=st["lease_rejected"],
+                lease_revokes=st["lease_revokes"])
+
+
+def fleet_tiered(ph, torch, chk):
+    """(c): two tiered replicas at phase 17 (d)'s sizes, two paxos-3 jobs,
+    the holding replica crashed after its first spill; the survivor's first
+    fused step after the re-seed held against its plain version."""
+    import tempfile
+
+    from stateright_tpu_torch import faults
+    from stateright_tpu_torch.service import ServiceFleet
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    model = TensorPaxos(3)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_tiered_") as tmp:
+        fleet = ServiceFleet(
+            n_replicas=2, background=False,
+            service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE,
+                                store="tiered", summary_log2=SERVICE_SUMMARY),
+            ckpt_every_spins=FLEET_CKPT_EVERY, ckpt_dir=os.path.join(tmp, "ckpt"),
+            lease_dir=os.path.join(tmp, "leases"))
+        probe = FleetProbe(fleet, capture="after")
+        try:
+            ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+            t0 = time.monotonic()
+            hs = [fleet.submit(model) for _ in range(2)]
+            victim = hs[0]._job.replica
+            store = fleet.replicas[victim].service._engine._store
+            while store.spill_events == 0:
+                assert fleet.pump(1), "the tiered replica finished without a spill"
+            plan = faults.FaultPlan().rule("fleet.replica_crash", "crash", times=1,
+                                           match={"replica": victim})
+            with faults.active(plan):
+                fleet.drain(timeout=600)
+            torch.cuda.synchronize()
+            sec = time.monotonic() - t0
+            plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+            rs = [h.result() for h in hs]
+            survivor = fleet.replicas[1 - victim].service
+            sst = survivor.store_stats()
+            st = fleet.stats()
+            steps = sum(r.service._engine.total_steps for r in fleet.replicas)
+        finally:
+            probe.close()
+            fleet.close()
+    for r in rs:
+        assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+        assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    assert st["replica_crashes"] == 1 and st["restored_jobs"] == 2, st
+    assert fused == steps and plain == 2 + probe.reseed_calls, (plain, fused, steps)
+    got = probe.got
+    assert got and "summary" in got, (
+        f"none of the {probe.after_steps} fused steps of the resumed jobs flagged a suspect")
+    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+    _, is_new, suspect = chk.compare(
+        SERVICE_TIERED_TABLE, got["key"], got["parent"], got["active"], tables=got["tables"],
+        summary=got["summary"], summary_cfg=got["summary_cfg"])
+    ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+    assert int(suspect.sum()) > 0, "the captured fused step met no suspect"
+    log(f"[fleet tiered] (c) fused insert kernel vs plain on the survivor's first step after "
+        f"the re-seed that met suspects (resumed step {probe.after_steps}): "
+        f"{got['key'].numel()} salted lanes into 2^{SERVICE_TIERED_TABLE} slots "
+        f"holding {int((got['tables'][0] != 0).sum())} keys, summary 2^{SERVICE_SUMMARY} bits: "
+        f"{int(is_new.sum())} new, {int(suspect.sum())} suspects; the verdicts, suspects and "
+        "stored pairs agree")
+    log(f"[fleet tiered] (c) paxos-3 x2 on 2 tiered replicas, crash after the first spill: "
+        f"sec={sec:.3f} device_steps={steps} fused_launches={fused} plain_launches={plain} "
+        f"(2 seeds + {probe.reseed_calls} re-seed calls); {probe.line(sec)}")
+    log("[fleet tiered] survivor store: " + " ".join(f"{k}={v}" for k, v in sst.items()))
+    torch.cuda.empty_cache()
+    return dict(sec=sec, launches=fused, plain_launches=plain, reseed_rows=probe.reseed_rows,
+                reseed_calls=probe.reseed_calls, crash_to_step=probe.t_first_step - probe.t_crash)
+
+
+def phase_fleet(ph, torch, chk, service):
+    """The service fleet in one process (see the module docstring, phase 18)."""
+    refs = service["refs"] if service else service_standalone(torch, None)[1]
+    served = fleet_served(ph, torch, chk, refs, service["served"] if service else None)
+    tiered = fleet_tiered(ph, torch, chk)
+    return dict(served=served, tiered=tiered, launches=served["launches"],
                 tiered_launches=tiered["launches"])
 
 
@@ -2619,6 +3028,7 @@ def main() -> int:
     sharded = phase(16, "sharded search", phase_sharded, ph, torch, chk, device_path,
                     profile2pc10, paxos3)
     service = phase(17, "check service", phase_service, ph, torch, chk)
+    fleet = phase(18, "service fleet", phase_fleet, ph, torch, chk, service)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -2638,6 +3048,7 @@ def main() -> int:
         "launches_sim": sim["launches"],
         "launches_sharded": sharded["launches"],
         "launches_service": service["launches"],
+        "launches_fleet": fleet["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -2656,6 +3067,7 @@ def main() -> int:
         "launches_resumed": ckpt["tiered_launches"],
         "launches_sharded_tiered": sharded["tiered"]["launches"],
         "launches_service_tiered": service["tiered_launches"],
+        "launches_fleet_tiered": fleet["tiered_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

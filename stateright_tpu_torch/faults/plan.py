@@ -12,16 +12,42 @@ for `maybe_fault(`):
   rule with ``match={"job": id}`` fires only on steps carrying that job,
   the poison-job scenario. The step's lanes go back to the front of each
   job's frontier, so a retry is exact.
-- ``service.http`` — the service HTTP front end (service/server.py; ctx
-  ``method, path``), answered with a 503 and a ``Retry-After`` header.
+- ``service.http`` — the service and fleet HTTP front ends
+  (service/server.py, service/router.py; ctx ``method, path``), answered
+  with a 503 and a ``Retry-After`` header.
+- ``fleet.replica_crash`` — a fleet replica runner's spin (service/fleet.py;
+  ctx ``replica=i``), before the pump: the ``crash`` kind kills the replica
+  for good and the router requeues its jobs from their checkpoints.
+- ``fleet.replica_hang`` — a replica's health probe (ctx ``replica=i``): a
+  ``hang`` parks the probe until the router's deadline (background) or the
+  plan's own limit (foreground) counts it failed.
+- ``fleet.partition`` — the router's probe of a replica (ctx ``replica=i``):
+  the router loses a replica that keeps running, the false death the lease
+  fence covers.
+- ``router.timeout`` — the router's submission to one replica (ctx
+  ``replica=i, job=id``), before the replica is touched: retried with the
+  deterministic backoff on the ring's next replica.
+- ``fleet.steal`` — a work steal (ctx ``src=i, dst=j``), before the queued
+  job is withdrawn: a fault leaves the job where it was.
+- ``fleet.rejoin`` — `ServiceFleet.rejoin_replica` (ctx ``replica=i``),
+  before the fresh lease grant: a fault aborts the rejoin, nothing changed.
+- ``fleet.zombie_write`` — the ``bypass`` kind, consumed by
+  `ckptio.fenced_savez`: the write skips its lease check, as a hung writer
+  past the check when the revocation landed would.
+- ``lease.revoke_race`` — `LeaseStore.revoke` (service/lease.py; ctx
+  ``member=<name>``), before the revocation persists: the lease stays
+  granted and the router's death handling runs again next tick.
+- ``blob.list`` — the ``stale`` kind, consumed by the local store's listing
+  (faults/blobstore.py), serves the previous listing.
 
 The JAX package's other points (engine steps and chunks, the tiered
-store's spill and resolve, checkpoint writes, the fleet and the blob
-store) fire there; here they wait for the supervisor and the fleet
-(ROADMAP A14's second half, A15). The plan machinery is whole: the
-``SR_TPU_FAULTS`` grammar, the raising kinds, and the consumed kinds
-(``hang`` parks on a cancel gate, ``torn`` / ``bypass`` / ``stale`` /
-``slow`` are acted out by the boundary that pulls them).
+store's spill and resolve, checkpoint writes, the wire blob stores, the
+corpus, the autoscaler) fire there; here they wait for the supervisor
+(ROADMAP A15), the fleet across processes (A item 3) and the corpus (A12).
+The plan machinery is whole: the ``SR_TPU_FAULTS`` grammar, the raising
+kinds, and the consumed kinds (``hang`` parks on a cancel gate, ``torn`` /
+``bypass`` / ``stale`` / ``slow`` are acted out by the boundary that pulls
+them).
 
 Determinism: every decision is a pure function of (plan seed, per-point
 hit counter, rule spec) — no RNG state, no wall clock — so a failing chaos

@@ -28,3 +28,10 @@ CHECKER_MODES = ("search", "simulation")
 #: shared by every walk, through the insert kernel, with a per-walk ring for
 #: short cycles.
 SIM_DEDUP_KINDS = ("trace", "shared")
+
+#: Store-root backends, chosen by the root's URI scheme
+#: (faults/blobstore.py `backend_of`): a plain path or ``file://`` is the
+#: local file system; ``blob://``, ``s3://`` and ``gs://`` are wire stores,
+#: which the port refuses until ROADMAP A item 3 (the fleet across
+#: processes) brings their clients.
+BLOB_BACKENDS = ("file", "blob", "s3", "gs")

@@ -9,8 +9,10 @@ trimmed to what the port's engines and check service use):
    through `trace_out=`;
 3. the metric-source registry and its Prometheus text (`registry.py`), and
    the documented detail keys and event vocabulary (`schema.py`);
-4. the event journal (`events.py`): the check service's JSONL flight
-   recorder, in the JAX package's format.
+4. the event journal (`events.py`): the check service's and the fleet's
+   JSONL flight recorder, in the JAX package's format, and the forensic
+   timeline over a run's journals (`timeline.py`,
+   ``python -m stateright_tpu_torch.obs.timeline``).
 """
 
 from .events import (
@@ -28,6 +30,9 @@ from .schema import (
     DETAIL_KEYS,
     EVENT_TYPES,
     FAULTS_DETAIL_KEYS,
+    FLEET_COUNTER_KEYS,
+    LEASE_GATED_EVENTS,
+    REGISTRY_SOURCES,
     SERVICE_DETAIL_KEYS,
     TELEMETRY_KEYS,
     TENANT_DETAIL_KEYS,
@@ -42,11 +47,14 @@ __all__ = [
     "EVENT_TYPES",
     "EventJournal",
     "FAULTS_DETAIL_KEYS",
+    "FLEET_COUNTER_KEYS",
+    "LEASE_GATED_EVENTS",
     "LogHistogram",
     "NULL_EVENTS",
     "NULL_TRACER",
     "N_COLS",
     "REGISTRY",
+    "REGISTRY_SOURCES",
     "SERVICE_DETAIL_KEYS",
     "STEP_COLS",
     "StepRing",

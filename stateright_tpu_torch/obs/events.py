@@ -1,6 +1,6 @@
-"""The event journal: the check service's flight recorder (the JAX
-package's `obs/events.py`, local files only; its blob-store mirror comes
-with the fleet).
+"""The event journal: the flight recorder of the check service and its
+fleet (the JAX package's `obs/events.py`, local files only: its blob-store
+mirror is ROADMAP A item 3, and a wire-store URI raises).
 
 - `EventJournal` appends schema'd events (obs/schema.py `EVENT_TYPES` pins
   the vocabulary and each type's required fields) to a JSONL file. Every
@@ -253,7 +253,10 @@ def read_journal(path: str) -> list:
     """Every intact event of one journal file, in file order. An append can
     only tear the last line, so a line that does not parse is skipped; a
     missing or unreadable file is an empty journal. Never raises on the
-    journal's content."""
+    journal's content; a wire-store URI raises `NotImplementedError`."""
+    from ..faults.blobstore import refuse_wire
+
+    refuse_wire(path, "reading a journal")
     try:
         with open(path, "r") as f:
             data = f.read()

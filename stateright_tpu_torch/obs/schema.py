@@ -1,8 +1,9 @@
 """The documented key sets of `SearchResult.detail`, of the metric
 sources and of the event journal (the JAX package's `obs/schema.py`,
 trimmed to what the port has: the resident, host-driven, sharded and
-simulation engines, the tiered store and the check service). Every key an
-engine or the service of the port puts in `detail` is named here, with the
+simulation engines, the tiered store, the check service and its fleet).
+Every key an engine or the service of the port puts in `detail` is named
+here, with the
 JAX package's spelling, and `validate_detail` checks a result against
 them. `EVENT_TYPES` is the journal vocabulary of obs/events.py, the JAX
 package's whole, so that a journal either package writes is one the other
@@ -116,9 +117,9 @@ TELEMETRY_KEYS = {
 #: The event-journal vocabulary (obs/events.py): event type -> the fields
 #: every emission of that type must carry, beyond the stamps the journal
 #: adds (ts / seq / writer / pid). `EventJournal.emit` rejects an
-#: undeclared type or a missing field. The JAX package's vocabulary whole:
-#: the fleet's, lease and calibration types are emitted there, and here
-#: once the fleet is ported.
+#: undeclared type or a missing field. The JAX package's vocabulary whole;
+#: the calibration, credential and autoscaling types are emitted only
+#: there.
 EVENT_TYPES = {
     # job lifecycle
     "job.submitted": ("job",),       # accepted by a router or service
@@ -158,6 +159,14 @@ EVENT_TYPES = {
 #: Event types that end a job's timeline.
 TERMINAL_EVENTS = ("job.done", "job.cancelled", "job.error", "job.quarantined")
 
+#: Event types a revoked lease fences (service/lease.py `FencedEvents` drops
+#: them at emit time; obs/timeline.py drops any that still reached a journal
+#: at merge time): the terminal and requeue-relevant vocabulary. Hot-path
+#: `engine.chunk` rows pass ungated.
+LEASE_GATED_EVENTS = TERMINAL_EVENTS + (
+    "replica.admit", "job.resumed", "ckpt.write", "job.warm_start",
+)
+
 #: Finish status (service JobStatus) -> its terminal event.
 TERMINAL_EVENT_BY_STATUS = {
     "done": "job.done",
@@ -172,6 +181,71 @@ DETAIL_SUBSCHEMAS = (
     ("faults", FAULTS_DETAIL_KEYS),
     ("tenant", TENANT_DETAIL_KEYS),
 )
+
+
+def all_detail_key_paths() -> set:
+    """Every declared `SearchResult.detail` key path ("store",
+    "service.queue_wait", ...)."""
+    paths = set(DETAIL_KEYS)
+    for sub, allowed in DETAIL_SUBSCHEMAS:
+        paths.update(f"{sub}.{k}" for k in allowed)
+    return paths
+
+
+#: Source names the port's components register metric providers under
+#: (obs/registry.py `REGISTRY.register`): the `/metrics` scrape names.
+REGISTRY_SOURCES = {
+    "frontier": "host-driven engine (tensor/frontier.py)",
+    "resident": "device-resident engine (tensor/resident.py)",
+    "sharded": "sharded engine (parallel/sharded.py)",
+    "simulation": "device random-simulation engine (tensor/simulation.py)",
+    "service": "check service scheduler (service/api.py)",
+    "fleet": "multi-replica fleet router (service/router.py; "
+             "FLEET_COUNTER_KEYS)",
+    "lease": "epoch-fenced checkpoint leases (service/lease.py)",
+}
+
+
+#: Keys of the fleet router's `stats()` (service/router.py), the fleet
+#: `/.status` body and the "fleet" `/metrics` source: the JAX package's
+#: set. `per_replica` is the one dynamic sub-dict (a row per replica,
+#: fleet.Replica.snapshot_row).
+FLEET_COUNTER_KEYS = {
+    "replicas": "replicas the fleet was built with",
+    "healthy": "replicas currently passing health probes",
+    "jobs": "fleet jobs by status sub-dict (routed/done/cancelled/error)",
+    "queued": "inner jobs waiting in replica admission queues, fleet-wide",
+    "jobs_routed": "successful job placements (initial + requeue + steal)",
+    "router_retries": "submissions retried after a replica timeout/fault",
+    "router_backoff_ms": "cumulative deterministic submit backoff, ms",
+    "probe_failures": "health probes that failed or timed out",
+    "replica_crashes": "replicas declared dead and removed from the ring",
+    "requeued_jobs": "jobs moved off a dead replica (zero-lost-jobs ledger)",
+    "restored_jobs": "requeued jobs resumed from an intact checkpoint "
+                     "generation (the rest restarted fresh)",
+    "steals": "queued jobs pulled to an idle replica (work stealing)",
+    "probe_skipped": "health probes deferred by the per-replica "
+                     "exponential probe backoff (failing members)",
+    "rejoins": "dead/fenced members re-admitted into probation with a "
+               "fresh lease epoch",
+    "rejoin_promotions": "rejoined members that passed their probation "
+                         "probes and re-entered the ring",
+    "scale_outs": "replicas joined at a new index (autoscaler scale-out; "
+                  "0 in the port until ROADMAP A item 3)",
+    "scale_ins": "replicas drained and retired (autoscaler scale-in; 0 in "
+                 "the port until ROADMAP A item 3)",
+    "quota_rejected": "submissions refused at admission because the "
+                      "tenant was over its in-flight or lane-seconds quota",
+    "lease_revokes": "ring-member leases revoked before requeueing "
+                     "(0 on a lease-less fleet)",
+    "lease_reseals": "orphan checkpoint generations re-sealed under the "
+                     "router's lease at requeue time",
+    "lease_rejected": "fenced writes/reads/events refused or discarded "
+                      "because the writer's lease epoch was revoked",
+    "per_replica": "one status row per replica sub-dict",
+    "events_recent": "last-N flight-recorder events ([] when the fleet "
+                     "journals nothing)",
+}
 
 
 def validate_detail(detail: Optional[dict]) -> list:

@@ -1,7 +1,7 @@
-"""The check service on one replica (the JAX package's
-`stateright_tpu/service/`, without its fleet): a continuous-batching
-scheduler that runs many check jobs at once against one shared device
-table.
+"""The check service and its fleet in one process (the JAX package's
+`stateright_tpu/service/`, without its cross-process replicas and
+autoscaler): a continuous-batching scheduler that runs many check jobs at
+once against one shared device table, and a router over N such replicas.
 
 A standalone engine (`spawn_cuda`, FrontierSearch, ResidentSearch) owns the
 card for one check. The service is the serving layer above: one persistent
@@ -25,15 +25,23 @@ Pieces:
 - `server`    — the HTTP front end (`serve_service`);
 - `metrics`   — per-job queue wait, steps, lanes held, preemptions, spill
                 share;
-- `tenancy`   — tenant identity, quotas (`QuotaExceeded`, HTTP 429).
+- `tenancy`   — tenant identity, quotas (`QuotaExceeded`, HTTP 429);
+- `lease`     — epoch-fenced checkpoint leases (`LeaseStore`, `Lease`,
+                `FencedEvents`);
+- `router`    — `FleetRouter`: the consistent-hash ring, health probes,
+                requeue and resume, work stealing, rejoin, and the HTTP
+                front door `serve_fleet`;
+- `fleet`     — `Replica` crash-only runners and `ServiceFleet`.
 
-The fleet (router, leases, remote replicas, autoscaler) is ROADMAP A14's
-second half.
+Replicas in other processes and the autoscaler are ROADMAP A item 3.
 """
 
 from .api import CheckService, JobHandle, ServiceChecker
+from .fleet import Replica, ServiceFleet
+from .lease import FencedEvents, Lease, LeaseRevoked, LeaseStore
 from .metrics import JobMetrics
 from .queue import AdmissionQueue, Job, JobResume, JobStatus
+from .router import FleetJobHandle, FleetRouter, HashRing, ResumeToken, serve_fleet
 from .scheduler import ServiceEngine, ServiceError, StepFault
 from .server import ModelRegistry, default_registry, serve_service, status_view
 from .tenancy import DEFAULT_TENANT, QuotaExceeded, TenantQuota, TenantQuotas
@@ -42,20 +50,31 @@ __all__ = [
     "AdmissionQueue",
     "CheckService",
     "DEFAULT_TENANT",
+    "FencedEvents",
+    "FleetJobHandle",
+    "FleetRouter",
+    "HashRing",
     "Job",
     "JobHandle",
     "JobMetrics",
     "JobResume",
     "JobStatus",
+    "Lease",
+    "LeaseRevoked",
+    "LeaseStore",
     "ModelRegistry",
     "QuotaExceeded",
+    "Replica",
+    "ResumeToken",
     "ServiceChecker",
     "ServiceEngine",
     "ServiceError",
+    "ServiceFleet",
     "StepFault",
     "TenantQuota",
     "TenantQuotas",
     "default_registry",
+    "serve_fleet",
     "serve_service",
     "status_view",
 ]

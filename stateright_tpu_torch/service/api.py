@@ -50,7 +50,7 @@ from ..obs import (
     as_tracer,
     mint_trace_id,
 )
-from .queue import FLEET_ITEM, AdmissionQueue, Job, JobStatus
+from .queue import AdmissionQueue, Job, JobResume, JobStatus
 from .scheduler import ServiceEngine, ServiceError, StepFault
 from .tenancy import DEFAULT_TENANT, QuotaExceeded, TenantQuotas
 
@@ -150,7 +150,9 @@ class CheckService:
             raise NotImplementedError(
                 "the warm-start corpus (corpus_dir=) is not ported yet (ROADMAP A12)")
         self._trace_out = trace_out
-        self._tracer = as_tracer(Tracer(annotate=True) if trace_out else None)
+        self._tracer = as_tracer(
+            Tracer(annotate=True, out=trace_out) if trace_out else None
+        )
         self._events_owned = None
         if events is None and events_out:
             events = self._events_owned = EventJournal(events_out, writer="service")
@@ -221,12 +223,16 @@ class CheckService:
         TensorModel; jobs of the same model instance share a step and its
         batches. `trace` is the flight-recorder correlation id (minted here
         when not given); `tenant` scopes quotas and the two-level waterfill.
-        `journal=` and `resume=` are the fleet's requeue plumbing, not
-        ported yet: they raise."""
+
+        The fleet's requeue plumbing: `journal=True` records the job's
+        claimed (key, parent key) pairs on the host so a fleet replica can
+        checkpoint it (`Job.fleet_snapshot`); `resume` (a queue.JobResume)
+        continues a checkpointed job, its whole visited set re-seeded into
+        this service's table under this job's salt."""
         from ..tensor.model import TensorModel
 
-        if journal or resume is not None:
-            raise NotImplementedError(f"job journals and resumes are part of {FLEET_ITEM}")
+        if resume is not None and not isinstance(resume, JobResume):
+            raise TypeError(f"resume must be a JobResume, got {type(resume).__name__}")
         if not isinstance(model, TensorModel):
             raise TypeError(
                 "CheckService.submit requires a stateright_tpu_torch.tensor."
@@ -249,15 +255,33 @@ class CheckService:
             job = Job(
                 self._next_id, model, finish_when=finish_when,
                 target_state_count=target_state_count, target_max_depth=target_max_depth,
-                timeout=timeout, priority=priority, trace=trace or mint_trace_id(),
-                tenant=tenant,
+                timeout=timeout, priority=priority, journal=journal, resume=resume,
+                trace=trace or mint_trace_id(), tenant=tenant,
             )
             self._next_id += 1
             self._jobs[job.id] = job
             self._adm.push(job)
-            self._events.emit("job.submitted", job=job.id, trace=job.trace)
+            self._events.emit("job.submitted", job=job.id, trace=job.trace,
+                              resumed=bool(resume) or None)
             self._work.notify_all()
             return JobHandle(self, job)
+
+    def withdraw(self, job_id: int) -> bool:
+        """Remove a still-queued job at once: the fleet's work-stealing
+        primitive (a queued job has no table state, so moving it is a clean
+        cancel here and submit there). Returns False once the job was
+        admitted or finished. Journals nothing: the router's `fleet.steal`
+        records the move."""
+        job = self._get(job_id)
+        with self._work:
+            if job.status != JobStatus.QUEUED:
+                return False
+            self._adm.remove(job)
+            job.status = JobStatus.CANCELLED
+            job.metrics.finished_at = time.monotonic()
+            job.event.set()
+            self._idle.notify_all()
+            return True
 
     def poll(self, job_id: int) -> dict:
         job = self._get(job_id)
@@ -302,6 +326,7 @@ class CheckService:
             job.status = JobStatus.CANCELLED
             self._engine.retire(job)
             job.metrics.finished_at = time.monotonic()
+            job.journal = None  # finished: no checkpoint reads it again
             self._events.emit("job.cancelled", job=job.id, trace=job.trace)
             job.event.set()
             self._work.notify_all()
@@ -340,6 +365,12 @@ class CheckService:
                 out["tenants"] = self.quotas.snapshot()
                 out["quota_rejected"] = self._quota_rejected
             return out
+
+    def lane_util(self) -> float:
+        """The last fused step's batch occupancy (0..1): a fleet replica's
+        lane-utilisation signal."""
+        with self._lock:
+            return self._engine.lane_util()
 
     def admission_p99_ms(self) -> float:
         """p99 of the recent queue waits, in milliseconds (0.0 before any
@@ -414,6 +445,9 @@ class CheckService:
             while self._finalizing:
                 job, status = self._finalizing.pop(0)
                 job.result = self._engine.build_result(job)
+                # A finished job is never checkpointed or resumed: release
+                # its journal (16 B a state) while the Job stays listed.
+                job.journal = None
                 self._events.emit(
                     TERMINAL_EVENT_BY_STATUS[status], job=job.id, trace=job.trace,
                     states=job.state_count, unique=job.unique_count,
@@ -455,6 +489,7 @@ class CheckService:
                 self._engine.group_of(job).jobs.append(job)
                 self._events.emit("replica.admit", job=job.id, trace=job.trace, preempted=True)
                 continue
+            resumed = job.resume is not None
             try:
                 with self._tracer.span("service.admit", cat="service", job=job.id,
                                        trace=job.trace):
@@ -471,7 +506,10 @@ class CheckService:
                 self._adm_hist.observe(qw * 1000.0)
             job.status = JobStatus.RUNNING
             job.steps_since_admit = 0
-            self._events.emit("replica.admit", job=job.id, trace=job.trace)
+            # A fleet requeue continuing from its checkpoint journals
+            # `job.resumed`; the timeline reads crash -> requeue -> resume.
+            self._events.emit("job.resumed" if resumed else "replica.admit",
+                              job=job.id, trace=job.trace)
             if done is not None:
                 self._finalize(job)
 

@@ -1,5 +1,5 @@
 """Admission queue and per-job state of the check service (the JAX
-package's `service/queue.py`, without the fleet's journal and resume).
+package's `service/queue.py`).
 
 A `Job` owns everything host-side about one check: its fingerprint salt
 (tensor/fingerprint.py `job_salt`, what lets co-resident jobs share one
@@ -15,6 +15,15 @@ Preemption spills the pending frontier to disk in the engines' checkpoint
 queue schema, the JAX package's arrays (`q_states / q_lo / q_hi / q_ebits /
 q_depths / q_lens`, uint32 where the JAX package has uint32), so the file
 is the JAX service's.
+
+The fleet's requeue plane: a job submitted with `journal=True` records each
+unique state it claims as (unsalted key, unsalted parent key), packed int64
+like every key of the port, so a fleet replica can checkpoint it
+(`fleet_snapshot`) and a survivor can continue it from that checkpoint
+(`JobResume`) after the replica dies. The snapshot speaks the JAX format —
+`j_lo / j_hi / jp_lo / jp_hi` uint32, the frontier's queue arrays,
+`c_counts`, `w_warm`, `d_names / d_fps` — converted at this boundary only,
+so either package resumes the other's checkpoint.
 """
 
 from __future__ import annotations
@@ -30,8 +39,16 @@ from ..faults.ckptio import atomic_savez, load_latest
 from ..tensor.fingerprint import MASK32, job_salt, pack_salt
 from .metrics import JobMetrics
 
-#: What the fleet plumbing of the JAX package's queue waits for here.
-FLEET_ITEM = "the service fleet (ROADMAP A14, second half)"
+
+def _split(keys) -> tuple:
+    """Packed int64 keys -> (lo, hi) uint32 arrays, the JAX format."""
+    keys = np.asarray(keys, np.int64)
+    return (keys & MASK32).astype(np.uint32), ((keys >> 32) & MASK32).astype(np.uint32)
+
+
+def _pack(lo, hi) -> np.ndarray:
+    """(lo, hi) uint32 arrays -> packed int64 keys."""
+    return (np.asarray(hi).astype(np.int64) << 32) | np.asarray(lo).astype(np.int64)
 
 
 class JobStatus:
@@ -62,15 +79,52 @@ class _Chunk:
 
 
 class JobResume:
-    """The fleet's requeue payload (a job continued on another replica from
-    its journal). Not ported yet: constructing one raises."""
+    """A fleet requeue payload: what a job needs to continue on a replica
+    whose table holds none of its visited set. Built from a
+    `fleet_snapshot` checkpoint by `from_npz`, in the JAX format: `chunks`
+    are (states, lo, hi, ebits, depth) uint32 tuples and `journal` is
+    (j_lo, j_hi, jp_lo, jp_hi) uint32 arrays; the scheduler packs them when
+    it re-seeds (scheduler.py `_admit_resumed`)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"job resume is part of {FLEET_ITEM}")
+    __slots__ = ("chunks", "journal", "state_count", "unique_count", "max_depth",
+                 "discoveries", "was_warm")
+
+    def __init__(self, chunks, journal, state_count, unique_count, max_depth,
+                 discoveries, was_warm=False):
+        self.chunks = chunks
+        self.journal = journal
+        self.state_count = state_count
+        self.unique_count = unique_count
+        self.max_depth = max_depth
+        self.discoveries = discoveries  # {property name: unsalted host fingerprint}
+        # The checkpoint came from a warm-started run (the corpus, ROADMAP
+        # A12): its journal covers only the re-expanded slice, so only a
+        # replica that re-warms from the same entry may resume it.
+        self.was_warm = was_warm
 
     @classmethod
     def from_npz(cls, data) -> "JobResume":
-        raise NotImplementedError(f"job resume is part of {FLEET_ITEM}")
+        chunks = []
+        off = 0
+        for ln in data["q_lens"]:
+            sl = slice(off, off + int(ln))
+            chunks.append((data["q_states"][sl], data["q_lo"][sl], data["q_hi"][sl],
+                           data["q_ebits"][sl], data["q_depths"][sl]))
+            off += int(ln)
+        counts = data["c_counts"]
+        try:
+            was_warm = bool(int(np.asarray(data["w_warm"]).reshape(-1)[0]))
+        except KeyError:
+            was_warm = False  # a generation written before the corpus
+        return cls(
+            chunks=chunks,
+            journal=(data["j_lo"], data["j_hi"], data["jp_lo"], data["jp_hi"]),
+            state_count=int(counts[0]),
+            unique_count=int(counts[1]),
+            max_depth=int(counts[2]),
+            discoveries={str(n): int(f) for n, f in zip(data["d_names"], data["d_fps"])},
+            was_warm=was_warm,
+        )
 
 
 class Job:
@@ -83,6 +137,8 @@ class Job:
         target_max_depth: Optional[int] = None,
         timeout: Optional[float] = None,
         priority: int = 0,
+        journal: bool = False,
+        resume: Optional[JobResume] = None,
         trace: Optional[str] = None,
         tenant: str = "default",
     ):
@@ -118,6 +174,10 @@ class Job:
         self._chunks: deque[_Chunk] = deque()
         self._pending = 0
         self._spill_path: Optional[str] = None
+        # The fleet's requeue journal: (unsalted keys, unsalted parent keys)
+        # int64 pairs, one per batch of claims; a root's parent is 0.
+        self.journal: Optional[list] = [] if journal or resume else None
+        self.resume = resume
 
     # -- frontier --------------------------------------------------------------
 
@@ -169,6 +229,13 @@ class Job:
         self._chunks.clear()
         self._pending = 0
 
+    def journal_append(self, keys, parents) -> None:
+        """Record freshly claimed unique states: unsalted keys and their
+        unsalted parent keys (0 for an initial state)."""
+        if self.journal is None or len(keys) == 0:
+            return
+        self.journal.append((np.asarray(keys, np.int64), np.asarray(parents, np.int64)))
+
     # -- preemption spill (the checkpoint queue schema) --------------------------
 
     def _frontier_arrays(self) -> dict:
@@ -206,7 +273,7 @@ class Job:
             return
         data, _src = load_latest(self._spill_path)
         states = data["q_states"].astype(np.int64)
-        keys = (data["q_hi"].astype(np.int64) << 32) | data["q_lo"].astype(np.int64)
+        keys = _pack(data["q_lo"], data["q_hi"])
         ebits = np.asarray(data["q_ebits"], bool)
         depth = data["q_depths"].astype(np.int64)
         off = 0
@@ -218,8 +285,27 @@ class Job:
         self._spill_path = None
 
     def fleet_snapshot(self) -> dict:
-        """The fleet's requeue checkpoint of this job: not ported yet."""
-        raise NotImplementedError(f"job snapshots are part of {FLEET_ITEM}")
+        """The fleet's requeue checkpoint of this job, in the JAX format: the
+        pending frontier, the whole journal, the counters and discoveries.
+        Call under the owning service's lock (no step may run mid-copy); the
+        replica writes it through `faults/ckptio.fenced_savez`."""
+        j = self.journal or []
+        keys = np.concatenate([c[0] for c in j]) if j else np.zeros(0, np.int64)
+        parents = np.concatenate([c[1] for c in j]) if j else np.zeros(0, np.int64)
+        j_lo, j_hi = _split(keys)
+        jp_lo, jp_hi = _split(parents)
+        names = sorted(self.discoveries)
+        arrays = self._frontier_arrays()
+        arrays.update(
+            j_lo=j_lo, j_hi=j_hi, jp_lo=jp_lo, jp_hi=jp_hi,
+            c_counts=np.asarray([self.state_count, self.unique_count, self.max_depth],
+                                np.int64),
+            # No warm starts before the corpus (ROADMAP A12): never warm.
+            w_warm=np.asarray([0], np.int64),
+            d_names=np.asarray(names, dtype=np.str_),
+            d_fps=np.asarray([self.discoveries[n] for n in names], np.uint64),
+        )
+        return arrays
 
 
 class AdmissionQueue:
@@ -277,3 +363,7 @@ class AdmissionQueue:
             return True
         except ValueError:
             return False
+
+    def jobs(self) -> list:
+        """The waiting jobs in queue order."""
+        return list(self._q)

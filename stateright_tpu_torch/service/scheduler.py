@@ -26,6 +26,14 @@ exhaustion ends with the counts, discovery fingerprints and paths of a
 standalone run, even while it shares batches. The one quantity that
 depends on the grants is the state count of a job that exits early (every
 property found): the lanes that shared its last batch.
+
+A fleet replica's jobs are journaled (queue.py `Job.journal`): each claim's
+unsalted key and unsalted parent key, from the host copies the step's
+bookkeeping already holds. When a replica dies, the survivor re-seeds a
+requeued job's whole journal into its own table under the job's new salt
+(`_admit_resumed`), one insert call per batch of K rows through the same
+insert route as a step, and the search continues where the checkpoint left
+it, bit for bit.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from ..tensor.frontier import (
 )
 from ..tensor.inserts import resolve_insert
 from ..tensor.pallas_hashtable import PallasHashTable
-from .queue import Job, JobStatus
+from .queue import Job, JobStatus, _pack
 
 
 def _salt_host(fp: int, salt: int) -> int:
@@ -198,7 +206,10 @@ class ServiceEngine:
         """Seed a job's init states into the shared table (salted, with no
         parent) and hand its frontier to the scheduler. Returns the job if
         it finished at once (a vacuous finish policy or an empty space),
-        else None."""
+        else None. A job carrying a `resume` payload (a fleet requeue) is
+        re-seeded from its journal instead."""
+        if job.resume is not None:
+            return self._admit_resumed(job)
         g = self.group_of(job)
         model, props = job.model, g.props
         init, keys, n_raw = seed_init(model)
@@ -228,9 +239,89 @@ class ServiceEngine:
         ebits0 = np.zeros((n0, len(props)), dtype=bool)
         ebits0[:, g.prop_is["eventually"]] = True
         job.push(init.numpy(), keys.numpy(), ebits0, np.ones(n0, np.int64))
+        job.journal_append(keys.numpy(), np.zeros(n0, np.int64))
         g.jobs.append(job)
         if job.pending_lanes == 0:
             return job  # empty reachable space: complete at once
+        return None
+
+    def _admit_resumed(self, job: Job) -> Optional[Job]:
+        """Fleet requeue admission: re-seed the job's whole visited set (the
+        checkpointed journal, salted with this job's salt, parent chains
+        intact) into the shared table, then restore the pending frontier in
+        its pop order. From here the normal steps continue the search as the
+        dead replica would have: the table dedups what its table did, and the
+        restored discoveries are not scanned again. One insert call per K
+        rows, through the step's insert route (the kernel on the card, the
+        plain version on the CPU), and one wait for the card after the last
+        — after each on a tiered store, which evicts between the batches as
+        it does between steps."""
+        g = self.group_of(job)
+        rz = job.resume
+        if rz.was_warm:
+            # A warm run's journal covers only what it re-expanded; without
+            # the corpus (ROADMAP A12) no replica can re-warm, so the job
+            # restarts cold: slower, never wrong.
+            self._tracer.instant("corpus.resume_restart", cat="store", job=job.id,
+                                 trace=job.trace)
+            job.resume = None
+            return self.admit(job)
+        job.state_count = rz.state_count
+        job.max_depth = rz.max_depth
+        job.discoveries = dict(rz.discoveries)
+        K, dev = self.batch_size, self.device
+        keys = _pack(rz.journal[0], rz.journal[1])
+        parents = _pack(rz.journal[2], rz.journal[3])
+        n_j = len(keys)
+        if n_j:
+            n_pad = -(-n_j // K) * K
+            key_up = np.zeros(n_pad, np.int64)
+            parent_up = np.zeros(n_pad, np.int64)
+            key_up[:n_j] = salt_keys(keys, job.salt)
+            # Parent 0 marks a root and must stay 0 (the path walk ends
+            # there); a real key's low word is never 0.
+            parent_up[:n_j] = np.where(parents == 0, 0, salt_keys(parents, job.salt))
+            key_t = torch.from_numpy(key_up).to(dev)
+            parent_t = torch.from_numpy(parent_up).to(dev)
+            active_t = (torch.arange(n_pad) < n_j).to(dev)
+            tiered = self._store is not None
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            n_new, ovf = zero, zero
+            for b0 in range(0, n_pad, K):
+                sl = slice(b0, b0 + K)
+                _, _, is_new, overflow = self._insert(
+                    self.table.t_key, self.table.t_parent, key_t[sl], parent_t[sl],
+                    active_t[sl], n_partitions=self.table.n_partitions)
+                n_new = n_new + is_new.sum()
+                ovf = ovf | overflow.to(torch.int64)
+                if tiered or b0 + K == n_pad:
+                    # One wait at the end; a tiered store settles each batch
+                    # and evicts between batches as between steps (a journal
+                    # holds every claim, evicted ones too, so it can exceed
+                    # the hot tier).
+                    n, o = (int(x) for x in _to_host(dev, torch.stack([n_new, ovf]))[0])
+                    if o:
+                        self._fail_all("shared hash table full; raise table_log2")
+                        raise ServiceError("shared hash table full; raise table_log2")
+                    self.hot_claims += n
+                    n_new, ovf = zero, zero
+                    if tiered:
+                        self._maybe_evict()
+        # The counters continue from the checkpoint (the journal's rows are
+        # distinct, so the claims above agree with it).
+        job.unique_count = rz.unique_count
+        job.journal = [(keys, parents)] if n_j else []
+        for states, lo, hi, ebits, depth in rz.chunks:
+            job.push(np.asarray(states).astype(np.int64), _pack(lo, hi),
+                     np.asarray(ebits, bool), np.asarray(depth).astype(np.int64))
+        job.resume = None
+        props = g.props
+        if not props or job.finish_when.matches(props, set(job.discoveries)):
+            job.early_exit = True
+            return job  # the finish policy held when the checkpoint was taken
+        g.jobs.append(job)
+        if job.pending_lanes == 0:
+            return job  # the frontier was empty when the checkpoint was taken
         return None
 
     def retire(self, job: Job) -> None:
@@ -501,6 +592,9 @@ class ServiceEngine:
                 job.push(o_states[rows], o_keys[rows],
                          ebits[pr] if P else np.zeros((len(rows), 0), dtype=bool),
                          depth[pr] + 1)
+                # The fleet's journal: the claims, unsalted, from the host
+                # copies above (no extra wait for the card).
+                job.journal_append(o_keys[rows], keys[pr])
 
         if self._store is not None:
             self._maybe_evict()

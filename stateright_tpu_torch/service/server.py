@@ -13,6 +13,8 @@ Endpoints:
   registry of builders.
 - ``GET /jobs/<id>``: poll one job.
 - ``POST /jobs/<id>/cancel`` or ``DELETE /jobs/<id>``: cancel.
+- ``POST /jobs/<id>/withdraw``: remove a still-queued job (the fleet's
+  work-stealing primitive) -> ``{"withdrawn": bool}``.
 - ``GET /jobs/<id>/discoveries``: a finished job's discovery paths
   (fingerprint, action labels, last state).
 - ``GET /jobs/<id>/events?since=N&wait=S``: the flight recorder's tail
@@ -280,6 +282,11 @@ def serve_service(
                     jid = self._job_id("/cancel")
                     if jid is not None:
                         self._json({"cancelled": service.cancel(jid)})
+                        return
+                if self.path.startswith("/jobs/") and self.path.endswith("/withdraw"):
+                    jid = self._job_id("/withdraw")
+                    if jid is not None:
+                        self._json({"withdrawn": service.withdraw(jid)})
                         return
                 self._json({"error": "not found"}, 404)
             except KeyError as e:

@@ -234,3 +234,81 @@ def test_the_check_service_runs_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_fleet_runs_without_jax():
+    """A foreground fleet of two replicas through a crash, with leases,
+    journals and the timeline CLI, loads neither jax nor the JAX package."""
+    code = (
+        "import os, sys, tempfile\n"
+        "from stateright_tpu_torch import faults\n"
+        "from stateright_tpu_torch.obs import timeline\n"
+        "from stateright_tpu_torch.service import ServiceFleet\n"
+        "from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys\n"
+        "m = TensorTwoPhaseSys(3)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    fleet = ServiceFleet(n_replicas=2, background=False,\n"
+        "        service_kwargs=dict(batch_size=64, table_log2=12, device='cpu'),\n"
+        "        lease_dir=os.path.join(d, 'leases'), journal_dir=os.path.join(d, 'j'))\n"
+        "    hs = [fleet.submit(m) for _ in range(2)]\n"
+        "    victim = hs[0]._job.replica\n"
+        "    plan = faults.FaultPlan().rule('fleet.replica_crash', 'crash', after=4,\n"
+        "        match={'replica': victim})\n"
+        "    with faults.active(plan):\n"
+        "        fleet.drain(timeout=120)\n"
+        "    assert all((h.result().state_count, h.result().unique_state_count)\n"
+        "               == (1146, 288) for h in hs)\n"
+        "    s = fleet.stats()\n"
+        "    assert s['replica_crashes'] == 1 and s['restored_jobs'] >= 1, s\n"
+        "    fleet.close()\n"
+        "    assert timeline.main([os.path.join(d, 'j'), '--json']) == 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_fleet_services_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default runs there")
+    from stateright_tpu_torch.service import ServiceFleet
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServiceFleet(n_replicas=1, background=False,
+                     service_kwargs=dict(batch_size=64, table_log2=12))
+
+
+def test_unported_fleet_surfaces_raise_naming_their_item(tmp_path):
+    from stateright_tpu_torch.faults.blobstore import blob_backend
+    from stateright_tpu_torch.faults.ckptio import atomic_savez, write_record
+    from stateright_tpu_torch.service import ServiceFleet
+
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ServiceFleet(remote=True)
+    with pytest.raises(NotImplementedError, match="A12"):
+        ServiceFleet(corpus_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ServiceFleet(lease_dir="blob://localhost:9/leases")
+    for uri in ("blob://localhost:9/r", "s3://bucket/r", "gs://bucket/r"):
+        with pytest.raises(NotImplementedError, match="item 3"):
+            blob_backend(uri)
+        with pytest.raises(NotImplementedError, match="item 3"):
+            atomic_savez(uri + "/x.npz", {})
+        with pytest.raises(NotImplementedError, match="item 3"):
+            write_record(uri + "/lease", b"{}", b"SRTPLSE1")
+    fleet = ServiceFleet(n_replicas=1, background=False,
+                         service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
+    try:
+        with pytest.raises(NotImplementedError, match="item 3"):
+            fleet.scale_out()
+        with pytest.raises(NotImplementedError, match="item 3"):
+            fleet.scale_in()
+    finally:
+        fleet.close()

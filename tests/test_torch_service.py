@@ -380,8 +380,9 @@ def test_submit_rejects_host_models_and_fleet_options(svcs):
     _j, p = svcs
     with pytest.raises(TypeError, match="TensorModel"):
         p.submit(object())
-    with pytest.raises(NotImplementedError, match="fleet"):
-        p.submit(P3, journal=True)
+    # The fleet's options are ported: a resume must be a JobResume payload.
+    with pytest.raises(TypeError, match="JobResume"):
+        p.submit(P3, resume={"not": "a checkpoint"})
     with pytest.raises(NotImplementedError, match="A12"):
         CheckService(device="cpu", background=False, corpus_dir="x")
 
@@ -391,3 +392,30 @@ def test_service_defaults_to_the_card():
         pytest.skip("a CUDA card is present: the default runs there")
     with pytest.raises(RuntimeError, match="cuda"):
         CheckService(table_log2=12, background=False)
+
+
+def test_trace_out_is_the_tracers_flush_target_as_in_jax(tmp_path):
+    """`trace_out=` is also the tracer's periodic flush target, as in the
+    JAX service: a flush before close() (a fleet replica that crashes never
+    reaches close) leaves the spans so far on disk, the same span names on
+    both sides."""
+    names = []
+    for side, svc_cls, model, kw in (
+        ("jax", JaxService, J3, {"insert_variant": "pallas"}),
+        ("port", CheckService, P3, {"device": "cpu"}),
+    ):
+        out = str(tmp_path / f"{side}.json")
+        svc = svc_cls(batch_size=K, table_log2=T, background=False, trace_out=out, **kw)
+        try:
+            h = svc.submit(model)
+            svc.drain()
+            assert (h.result().state_count, h.result().unique_state_count) == GOLD_2PC3
+            assert svc._tracer.out == out
+            assert svc._tracer.flush() == out
+            with open(out) as f:
+                events = json.load(f)["traceEvents"]
+            names.append(sorted({e["name"] for e in events if e.get("cat") == "service"}))
+        finally:
+            svc.close()
+    assert "service.admit" in names[1]
+    assert names[0] == names[1]
