@@ -174,7 +174,30 @@ seconds on a line of its own:
     two tiered replicas at phase 17 (d)'s sizes (2^20 slots, a 2^24-bit
     summary), two paxos-3 jobs, the holding replica crashed after its
     first spill: the survivor's first fused step after the re-seed held
-    against its plain version, both jobs at the golden.
+    against its plain version, both jobs at the golden;
+19. the warm-start corpus (stateright_tpu_torch/store/{corpus,warm,
+    specdelta}.py, the service's warm ladder, stateright_tpu_torch/ci/) at
+    phase 17 (d)'s widths (batch 8192, 2^20 slots, a 2^24-bit summary):
+    (a) paxos-3 on `CheckService(corpus_dir=, store="tiered")` cold, which
+    publishes, then again on a fresh service, served on the exact rung:
+    both at the golden with `{"value chosen"}`, the wall cold and warm, the
+    preload's seconds and states, and the warm job's first step (every
+    claim a suspect) with its fused insert held against the plain version;
+    (b) paxos-3 with "value chosen" edited (read back by client 1) through
+    `ci.check_models` over (a)'s corpus, on the delta rung
+    (properties-only), its verdicts equal to a cold card run of the edited
+    model through the same driver; (c) paxos-3 cut at 1 M generated states
+    publishes a partial entry, and an uncut job continues it on the partial
+    rung to the golden, its first re-seed insert and its widest fused step
+    held against the plain version; (d) a 2pc-4 entry published by a
+    `device="cpu"` service serves a card service on the exact rung (one
+    content key on both devices), and one service-published 2pc-7 entry
+    warm-starts `ResidentSearch`, `FrontierSearch` and a one-rank
+    `ShardedSearch` to 2pc-7's golden; (e) a salted shared-table
+    `DeviceSimulation` of 2pc-7 warm-started from that entry
+    (`warm.preload_table`), its first preload insert held against the
+    plain version, its walks equal to a CPU twin's, and its
+    `publish_coverage` entry read back.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -2259,6 +2282,40 @@ def capture_insert(eng, summary=False):
     return got, restore
 
 
+def compare_quietly(ph, chk, log2, got, **kw):
+    """chk.compare on captured operands; the comparison's own launch is not
+    the path's."""
+    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+    try:
+        return chk.compare(log2, got["key"], got["parent"], got["active"], tables=got["tables"],
+                           **kw)
+    finally:
+        ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+
+
+def capture_widest_fused(eng):
+    """Wrap the service engine's insert so that, of the fused (summary)
+    calls from now on, the operands of the one with the most active lanes
+    are kept, as `capture_insert` keeps them. Returns (captured dict,
+    restore function)."""
+    real, got = eng._insert, {}
+
+    def insert(t_key, t_parent, key, parent, active, **kw):
+        lanes = int(active.sum())
+        if kw.get("summary") is None or lanes <= got.get("lanes", 0):
+            return real(t_key, t_parent, key, parent, active, **kw)
+        got.update(lanes=lanes, tables=(t_key.clone(), t_parent.clone()), key=key.clone(),
+                   parent=parent.clone(), active=active.clone(), summary=kw["summary"].clone(),
+                   summary_cfg=kw["summary_cfg"])
+        return real(t_key, t_parent, key, parent, active, **kw)
+
+    eng._insert = insert
+
+    def restore():
+        eng._insert = real
+    return got, restore
+
+
 def step_jobs(eng, model):
     """The distinct jobs (by salt) among the lanes of the group's last step."""
     g = eng.groups[id(model)]
@@ -2473,12 +2530,9 @@ def service_tiered(ph, torch, chk):
         svc.pump(1)
         restore()
         n_jobs, _m = step_jobs(eng, model)
-        saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
-        _, is_new, suspect = chk.compare(
-            SERVICE_TIERED_TABLE, got["key"], got["parent"], got["active"],
-            tables=got["tables"], summary=got["summary"], summary_cfg=got["summary_cfg"])
-        # The comparison's own launch is not the path's.
-        ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+        _, is_new, suspect = compare_quietly(ph, chk, SERVICE_TIERED_TABLE, got,
+                                             summary=got["summary"],
+                                             summary_cfg=got["summary_cfg"])
         assert n_jobs == 2, n_jobs
         log(f"[service tiered] fused insert kernel vs plain after the first spill: "
             f"{got['key'].numel()} salted lanes from {n_jobs} jobs into 2^{SERVICE_TIERED_TABLE} "
@@ -2846,10 +2900,7 @@ def fleet_served(ph, torch, chk, refs, served17):
             fleet.close()
     got = probe.got
     assert got, "no re-seed insert was captured"
-    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
-    _, is_new, _ = chk.compare(SERVICE_TABLE, got["key"], got["parent"], got["active"],
-                               tables=got["tables"])
-    ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+    _, is_new, _ = compare_quietly(ph, chk, SERVICE_TABLE, got)
     valid = int(got["active"].sum())
     roots = int((got["active"] & (got["parent"] == 0)).sum())
     # The journal's rows are new to the survivor's table, roots included.
@@ -2932,11 +2983,9 @@ def fleet_tiered(ph, torch, chk):
     got = probe.got
     assert got and "summary" in got, (
         f"none of the {probe.after_steps} fused steps of the resumed jobs flagged a suspect")
-    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
-    _, is_new, suspect = chk.compare(
-        SERVICE_TIERED_TABLE, got["key"], got["parent"], got["active"], tables=got["tables"],
-        summary=got["summary"], summary_cfg=got["summary_cfg"])
-    ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+    _, is_new, suspect = compare_quietly(ph, chk, SERVICE_TIERED_TABLE, got,
+                                         summary=got["summary"],
+                                         summary_cfg=got["summary_cfg"])
     assert int(suspect.sum()) > 0, "the captured fused step met no suspect"
     log(f"[fleet tiered] (c) fused insert kernel vs plain on the survivor's first step after "
         f"the re-seed that met suspects (resumed step {probe.after_steps}): "
@@ -2960,6 +3009,384 @@ def phase_fleet(ph, torch, chk, service):
     tiered = fleet_tiered(ph, torch, chk)
     return dict(served=served, tiered=tiered, launches=served["launches"],
                 tiered_launches=tiered["launches"])
+
+
+# -- phase 19: the warm-start corpus -----------------------------------------------
+
+# (c)'s first job stops here: about half of paxos-3's generated states.
+CORPUS_CUT = 1_000_000
+GOLDEN_2PC4 = (8_258, 1_568)
+
+
+def corpus_service(corpus_dir, **kw):
+    """A foreground tiered service at phase 17 (d)'s widths over a corpus."""
+    from stateright_tpu_torch.service import CheckService
+
+    kw = dict(dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE, store="tiered",
+                   summary_log2=SERVICE_SUMMARY, background=False), **kw)
+    return CheckService(corpus_dir=corpus_dir, **kw)
+
+
+def paxos3_edited():
+    """Paxos-3 with one property's condition edited: "value chosen" holds
+    only once a value is read back by client 1 (a GetOk to client 1 in the
+    pool). The class keeps its name, so the edit stays in the spec family."""
+    import dataclasses
+
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    def chosen_by_client_1(m, s):
+        pool = s[:, m.pool_off:]
+        C = m.client_count
+        return ((pool >= m.GETOK0 + C) & (pool < m.GETOK0 + 2 * C)).any(1)
+
+    def properties(self):
+        ps = list(TensorPaxos.properties(self))
+        i = [p.name for p in ps].index("value chosen")
+        ps[i] = dataclasses.replace(ps[i], condition=chosen_by_client_1)
+        return ps
+
+    return type("TensorPaxos", (TensorPaxos,), {"properties": properties})(3)
+
+
+def paxos3_at_golden(r, what):
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, (what, r)
+    assert set(r.discoveries) == {"value chosen"}, (what, r.discoveries)
+
+
+def corpus_exact(ph, torch, chk, corpus_dir):
+    """(a): paxos-3 cold, publishing; the same job again on a fresh service,
+    served on the exact rung; its first step's fused insert held against the
+    plain version."""
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    model = TensorPaxos(3)
+    svc = corpus_service(corpus_dir)
+    spent = {"publish": 0.0}
+    real_publish = svc._engine.publish_payload
+
+    def publish(payload):
+        t = time.monotonic()
+        try:
+            return real_publish(payload)
+        finally:
+            spent["publish"] += time.monotonic() - t
+
+    svc._engine.publish_payload = publish
+    t0 = time.monotonic()
+    try:
+        cold = svc.submit(model)  # the model's first trace to a content key
+        trace_sec = time.monotonic() - t0
+        svc.drain(timeout=300)
+        cold_sec = time.monotonic() - t0
+        cold = cold.result()
+    finally:
+        svc.close()
+    paxos3_at_golden(cold, "cold")
+    assert cold.detail["corpus"]["published"] is True, cold.detail["corpus"]
+    entry = [p for p in os.listdir(corpus_dir) if p.startswith("corpus-") and "-" not in p[7:]]
+    entry_bytes = sum(os.path.getsize(os.path.join(corpus_dir, p)) for p in entry)
+
+    svc = corpus_service(corpus_dir)
+    eng = svc._engine
+    spent["preload"] = 0.0
+    real_preload = eng._store.preload
+
+    def preload(*a, **kw):
+        t = time.monotonic()
+        try:
+            return real_preload(*a, **kw)
+        finally:
+            spent["preload"] += time.monotonic() - t
+
+    eng._store.preload = preload
+    try:
+        got, restore = capture_insert(eng)
+        t0 = time.monotonic()
+        h = svc.submit(model)  # the content key and the entry's read, on this thread
+        submit_sec = time.monotonic() - t0
+        svc.pump(1)  # admission (the preload), then the first step
+        restore()
+        svc.drain(timeout=300)
+        warm_sec = time.monotonic() - t0
+        warm = h.result()
+        stats = svc.stats()["corpus"]
+    finally:
+        svc.close()
+    paxos3_at_golden(warm, "warm")
+    c = warm.detail["corpus"]
+    assert c["warm_kind"] == "exact" and c["preloaded_states"] == GOLDEN_PAXOS3[1], c
+    assert (warm.max_depth, warm.discoveries) == (cold.max_depth, cold.discoveries)
+    assert warm.steps < cold.steps, (warm.steps, cold.steps)
+    _, is_new, suspect = compare_quietly(ph, chk, SERVICE_TIERED_TABLE, got,
+                                         summary=got["summary"],
+                                         summary_cfg=got["summary_cfg"])
+    lanes = int(got["active"].sum())
+    assert int(suspect.sum()) == int(is_new.sum()) > 0, "a known successor was not a suspect"
+    log(f"[corpus] (a) paxos-3, batch {BATCH_PAXOS3}, table 2^{SERVICE_TIERED_TABLE}, summary "
+        f"2^{SERVICE_SUMMARY}: cold sec={cold_sec:.3f} steps={cold.steps} (of it the first "
+        f"trace to a content key {trace_sec:.3f} s, the publish {spent['publish']:.3f} s of an "
+        f"entry of {entry_bytes} B); warm sec={warm_sec:.3f} steps={warm.steps} on the exact rung "
+        f"(submit, i.e. key + read + decode, {submit_sec:.3f} s; preload {spent['preload']:.3f} "
+        f"s of {c['preloaded_states']} states); first warm step: {lanes} lanes, "
+        f"{int(is_new.sum())} claims, {int(suspect.sum())} suspects, the fused kernel equal to "
+        f"its plain version; counters " + " ".join(f"{k}={v}" for k, v in stats.items() if v))
+    return dict(cold_sec=cold_sec, trace_sec=trace_sec, publish_sec=spent["publish"],
+                warm_sec=warm_sec, submit_sec=submit_sec,
+                preload_sec=spent["preload"], preloaded=c["preloaded_states"],
+                first_suspects=int(suspect.sum()), cold_steps=cold.steps, warm_steps=warm.steps,
+                entry_bytes=entry_bytes)
+
+
+def corpus_delta(torch, corpus_dir, fresh_dir):
+    """(b): the edited paxos-3 through `ci.check_models` over (a)'s corpus,
+    on the delta rung, against a cold card run of it through the same
+    driver over an empty corpus."""
+    from stateright_tpu_torch import ci
+
+    svc_kw = dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE,
+                  summary_log2=SERVICE_SUMMARY, high_water=0.85)
+    (delta,), stats = ci.check_models([("paxos3-edited", paxos3_edited())], corpus_dir,
+                                      svc_kw=svc_kw)
+    (cold,), _ = ci.check_models([("paxos3-edited", paxos3_edited())], fresh_dir, svc_kw=svc_kw)
+    assert delta["rung"] == "delta" and delta["delta_class"] == "properties-only", delta
+    assert cold["rung"] == "cold", cold
+    for rep in (delta, cold):
+        assert (rep["states"], rep["unique"]) == GOLDEN_PAXOS3 and rep["complete"], rep
+    assert delta["verdicts"] == cold["verdicts"], (delta["verdicts"], cold["verdicts"])
+    assert stats["delta_hits"] == 1, stats
+    log(f"[corpus] (b) edited paxos-3 (\"value chosen\" read back by client 1) through "
+        f"ci.check_models: delta rung ({delta['delta_class']}) sec={delta['seconds']:.3f}, "
+        f"cold sec={cold['seconds']:.3f}; verdicts equal: "
+        + "; ".join(f"{n} {k} {note}" for n, k, _ok, note in delta["verdicts"])
+        + f"; component_reuse={stats['component_reuse']}")
+    return dict(delta_sec=delta["seconds"], cold_sec=cold["seconds"])
+
+
+def corpus_partial(ph, torch, chk, corpus_dir):
+    """(c): paxos-3 cut at CORPUS_CUT states publishes a partial entry; an
+    uncut job continues it on the partial rung to the golden; the first
+    re-seed insert, and the continuation's widest fused step, held against
+    the plain version."""
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    model = TensorPaxos(3)
+    svc = corpus_service(corpus_dir)
+    try:
+        t0 = time.monotonic()
+        cut = svc.submit(model, target_state_count=CORPUS_CUT)
+        svc.drain(timeout=300)
+        cut_sec = time.monotonic() - t0
+        cut = cut.result()
+        assert not cut.complete and cut.state_count >= CORPUS_CUT, cut
+        assert cut.detail["corpus"]["published"] is True, cut.detail["corpus"]
+        eng = svc._engine
+        got, restore = capture_insert(eng)
+        wide, restore_wide = capture_widest_fused(eng)
+        t0 = time.monotonic()
+        h = svc.submit(model)
+        svc.drain(timeout=300)
+        sec = time.monotonic() - t0
+        restore_wide()
+        restore()
+        r = h.result()
+    finally:
+        svc.close()
+    paxos3_at_golden(r, "continued")
+    c = r.detail["corpus"]
+    assert c["warm_kind"] == "partial" and c["preloaded_states"] == cut.unique_state_count, c
+    assert c["published"] is True, c  # the complete entry, superseding the partial
+    _, is_new, _ = compare_quietly(ph, chk, SERVICE_TIERED_TABLE, got)
+    valid = int(got["active"].sum())
+    assert int(is_new.sum()) == valid, (int(is_new.sum()), valid)
+    _, w_new, w_sus = compare_quietly(ph, chk, SERVICE_TIERED_TABLE, wide,
+                                      summary=wide["summary"], summary_cfg=wide["summary_cfg"])
+    assert wide["lanes"] > BATCH_PAXOS3 // 2, wide["lanes"]
+    log(f"[corpus] (c) paxos-3 cut at {cut.state_count} generated / {cut.unique_state_count} "
+        f"unique in {cut_sec:.3f} s (a partial entry); the uncut job continued it on the partial "
+        f"rung to the golden in {sec:.3f} s ({r.steps} steps, published complete; the widest-"
+        f"step capture syncs once a step); first re-seed call: {int(is_new.sum())} new of "
+        f"{valid} valid lanes; the continuation's widest fused step: {wide['lanes']} lanes, "
+        f"{int(w_new.sum())} claims, {int(w_sus.sum())} suspects; both equal to the plain "
+        "version")
+    return dict(cut_sec=cut_sec, sec=sec, reseed_new=int(is_new.sum()),
+                wide_lanes=wide["lanes"], wide_suspects=int(w_sus.sum()))
+
+
+def corpus_devices(torch, tmp):
+    """(d): a 2pc-4 entry published on the CPU warms a card service on the
+    exact rung (one key on both devices); then one card-published 2pc-7
+    entry warm-starts ResidentSearch, FrontierSearch and a one-rank
+    ShardedSearch to 2pc-7's golden."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.store.corpus import CorpusStore
+    from stateright_tpu_torch.tensor.frontier import FrontierSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    small = dict(batch_size=256, table_log2=16, summary_log2=16)
+    d4 = os.path.join(tmp, "2pc4")
+    keys, outs = [], []
+    for device in ("cpu", "cuda"):
+        svc = corpus_service(d4, device=device, **small)
+        try:
+            h = svc.submit(TensorTwoPhaseSys(4))
+            svc.drain(timeout=300)
+            r = h.result()
+            keys.append(h._job.content_key)
+        finally:
+            svc.close()
+        assert (r.state_count, r.unique_state_count) == GOLDEN_2PC4, (device, r)
+        outs.append(r)
+    assert keys[0] == keys[1], keys
+    assert outs[0].detail["corpus"]["published"] and outs[1].detail["corpus"]["warm_kind"] == "exact"
+    assert outs[0].discoveries == outs[1].discoveries
+
+    d7 = os.path.join(tmp, "2pc7")
+    model = TensorTwoPhaseSys(7)
+    svc = corpus_service(d7)
+    try:
+        h = svc.submit(model)
+        svc.drain(timeout=300)
+        pub = h.result()
+        key = h._job.content_key
+    finally:
+        svc.close()
+    assert (pub.state_count, pub.unique_state_count) == GOLDEN_2PC7 and pub.complete, pub
+    entry = CorpusStore(d7).lookup(key)
+    assert entry is not None and entry.states == GOLDEN_2PC7[1]
+    kw = dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE, store="tiered",
+              summary_log2=SERVICE_SUMMARY)
+    secs = {}
+    for name, build in (("resident", lambda: ResidentSearch(model, **kw)),
+                        ("frontier", lambda: FrontierSearch(model, **kw))):
+        t0 = time.monotonic()
+        eng = build()
+        assert eng.warm_start(entry) == GOLDEN_2PC7[1]
+        r = eng.run()
+        secs[name] = time.monotonic() - t0
+        assert (r.state_count, r.unique_state_count, r.max_depth, r.discoveries) == (
+            pub.state_count, pub.unique_state_count, pub.max_depth, pub.discoveries), (name, r)
+        assert r.detail["corpus"]["warm_kind"] == "exact", r.detail["corpus"]
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as gtmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(gtmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            t0 = time.monotonic()
+            ss = ShardedSearch(model, **kw)
+            ss.warm_start(entry)
+            r = ss.run()
+            secs["sharded"] = time.monotonic() - t0
+        finally:
+            dist.destroy_process_group()
+    assert (r.state_count, r.unique_state_count, r.max_depth, r.discoveries) == (
+        pub.state_count, pub.unique_state_count, pub.max_depth, pub.discoveries), r
+    log(f"[corpus] (d) 2pc-4 published by a CPU service, served to a card service on the exact "
+        f"rung (one key: {keys[0][:16]}); 2pc-7 published by a card service (the job "
+        f"{pub.duration:.3f} s from admission), "
+        "warm-started to its golden by " + ", ".join(f"{k} in {v:.3f} s" for k, v in secs.items()))
+    return secs, entry
+
+
+def corpus_simulation(ph, torch, chk, entry, tmp):
+    """(e): a salted shared-table DeviceSimulation of 2pc-7 on the card,
+    warm-started from (d)'s complete entry (`warm.preload_table`, one insert
+    call per 4096 rows), its first preload call held against the plain
+    version; its walks, which can find nothing new, equal to a CPU twin's,
+    walk for walk and pair for pair; then `publish_coverage`, read back."""
+    import numpy as np
+
+    from stateright_tpu_torch.store.corpus import CorpusStore, key_components
+    from stateright_tpu_torch.tensor.fingerprint import salt_keys
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.simulation import DeviceSimulation
+
+    model = TensorTwoPhaseSys(7)
+    kw = dict(seed=3, traces=2048, max_depth=64, dedup="shared", table_log2=SERVICE_TIERED_TABLE,
+              walks=8192, salt=7)
+    sim = DeviceSimulation(model, **kw)
+    table, got = sim.table, {}
+    real_insert = table.insert
+
+    def insert(key, parent, active):
+        if not got:
+            got.update(tables=(table.t_key.clone(), table.t_parent.clone()),
+                       key=key.to(table.device), parent=parent.to(table.device),
+                       active=active.to(table.device))
+        return real_insert(key, parent, active)
+
+    table.insert = insert
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    t0 = time.monotonic()
+    try:
+        preloaded = sim.warm_start(entry)
+    finally:
+        table.insert = real_insert
+    preload_sec = time.monotonic() - t0
+    preload_calls = ph.insert_kernel.launches
+    r = sim.run()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    keys = table.t_key[table.t_key != 0].cpu().numpy()
+    unsalted = np.sort(salt_keys(keys, np.int64(sim._salt_key)).view(np.uint64))
+    assert preloaded == entry.states and np.array_equal(unsalted, np.sort(entry.fps)), preloaded
+    # A complete visited set: every walk re-enters it.
+    met = sim.metrics()
+    assert met["unique"] == 0 and met["dedup_hits"] == met["states"] > 0, met
+    twin = DeviceSimulation(model, device="cpu", **kw)
+    assert twin.warm_start(entry) == preloaded
+    assert sim_outcome(twin, twin.run()) == sim_outcome(sim, r)
+    pairs, tpairs = (stored_pairs(torch, s.table.t_key, s.table.t_parent) for s in (sim, twin))
+    assert all(torch.equal(a.cpu(), b.cpu()) for a, b in zip(pairs, tpairs))
+    _, is_new, _ = compare_quietly(ph, chk, kw["table_log2"], got,
+                                   n_partitions=table.n_partitions)
+    lanes = int(got["active"].sum())
+    assert int(is_new.sum()) == lanes, (int(is_new.sum()), lanes)
+    cov = CorpusStore(os.path.join(tmp, "coverage"))
+    assert sim.publish_coverage(cov)
+    lowering = {"engine": "simulation", "dedup": "shared", "table_log2": kw["table_log2"],
+                "insert_variant": "pallas", "batch_size": 0, "finish": None}
+    back = cov.lookup_family(key_components(model, lowering)["def"])
+    assert back is not None and not back.complete and back.frontier is None, back
+    assert np.array_equal(np.sort(back.fps), np.sort(entry.fps)), back.fps.size
+    assert back.meta["state_count"] == met["states"], back.meta
+    log(f"[corpus] (e) 2pc-7 DeviceSimulation (salt 7, shared table 2^{kw['table_log2']}, "
+        f"{kw['traces']} walks at once): warm_start preloaded {preloaded} states in "
+        f"{preload_sec:.3f} s ({preload_calls} insert launches; the first, {lanes} lanes, equal "
+        f"to the plain version); a round of {met['walks']} walks in {sec - preload_sec:.3f} s: "
+        f"{met['states']} states, all dedup hits, equal to the CPU twin walk for walk and pair "
+        f"for pair; publish_coverage read back: {back.fps.size} states; {launches} insert launches "
+        "in all")
+    return dict(preload_sec=preload_sec, preloaded=preloaded, preload_calls=preload_calls,
+                launches=launches, sec=sec)
+
+
+def phase_corpus(ph, torch, chk):
+    """The warm-start corpus (see the module docstring, phase 19). The launch
+    counts are those of (a), (b) and (c), the service paths, and of (e),
+    the simulation's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        dirs = {k: os.path.join(tmp, k) for k in ("a", "fresh", "c")}
+        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        exact = corpus_exact(ph, torch, chk, dirs["a"])
+        delta = corpus_delta(torch, dirs["a"], dirs["fresh"])
+        partial = corpus_partial(ph, torch, chk, dirs["c"])
+        launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        assert launches > 0 and bloom > 0, (launches, bloom)
+        log(f"[corpus] insert launches over (a)-(c): {launches} plain-form, {bloom} fused")
+        devices, entry = corpus_devices(torch, tmp)
+        sim = corpus_simulation(ph, torch, chk, entry, tmp)
+        assert sim["launches"] > 0, sim
+    torch.cuda.empty_cache()
+    return dict(exact=exact, delta=delta, partial=partial, devices=devices, sim=sim,
+                launches=launches, bloom_launches=bloom)
 
 
 def main() -> int:
@@ -3029,6 +3456,7 @@ def main() -> int:
                     profile2pc10, paxos3)
     service = phase(17, "check service", phase_service, ph, torch, chk)
     fleet = phase(18, "service fleet", phase_fleet, ph, torch, chk, service)
+    corpus = phase(19, "corpus warm start", phase_corpus, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -3049,6 +3477,8 @@ def main() -> int:
         "launches_sharded": sharded["launches"],
         "launches_service": service["launches"],
         "launches_fleet": fleet["launches"],
+        "launches_corpus": corpus["launches"],
+        "launches_corpus_sim": corpus["sim"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3068,6 +3498,7 @@ def main() -> int:
         "launches_sharded_tiered": sharded["tiered"]["launches"],
         "launches_service_tiered": service["tiered_launches"],
         "launches_fleet_tiered": fleet["tiered_launches"],
+        "launches_corpus_tiered": corpus["bloom_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

@@ -11,6 +11,9 @@ generation (the JAX package's `faults/ckptio.py`, local files only).
   `np.load`; a mismatch raises `CheckpointCorrupt`. A file without the
   footer loads unverified.
 - `load_latest` serves `path`, else ``path + ".prev"``.
+- `content_path` names a generation by what it holds (store/corpus.py's
+  entries), and `atomic_savez(if_absent=True)` writes one only once, so
+  fleet replicas share it.
 
 The fence and record half (the check-service fleet, service/lease.py): a
 fleet replica writes each checkpoint generation through `fenced_savez`,
@@ -69,14 +72,36 @@ def normalize_ckpt_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def atomic_savez(path: str, arrays: dict, keep_prev: bool = True) -> str:
+def content_path(root: str, key: str, kind: str = "corpus") -> str:
+    """The content-addressed generation name under `root`: the one path of
+    a file addressed by what it holds, not by who wrote it (store/corpus.py
+    entries). Every process that derives the same key names the same file,
+    which is what lets fleet replicas share one generation. A key that is
+    not lowercase hex (content keys are blake2b hex digests) is hashed to
+    one, so no key escapes `root`. A wire-store root raises
+    `NotImplementedError` naming ROADMAP A item 3."""
+    refuse_wire(root, "a corpus root")
+    key = str(key)
+    if not key or any(c not in "0123456789abcdef" for c in key):
+        import hashlib
+
+        key = hashlib.blake2b(key.encode(), digest_size=16).hexdigest()
+    return os.path.join(root, f"{kind}-{key}.npz")
+
+
+def atomic_savez(path: str, arrays: dict, keep_prev: bool = True,
+                 if_absent: bool = False) -> Optional[str]:
     """Write `arrays` as an npz (stored entries) with a CRC32 footer at
     `path`, crash-atomically; an existing verified generation moves to
     ``path + ".prev"`` first, a torn one is deleted. With `keep_prev=False`
     (a check-service preemption spill, read back once) the new file simply
-    replaces the old one. Returns the path."""
+    replaces the old one. With `if_absent=True` (a corpus entry, shared by
+    content address) nothing is written when `path` already exists, and
+    None is returned. Returns the path."""
     path = normalize_ckpt_path(path)
     refuse_wire(path, "a checkpoint write")
+    if if_absent and os.path.exists(path):
+        return None
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     payload = buf.getbuffer()
@@ -94,6 +119,9 @@ def atomic_savez(path: str, arrays: dict, keep_prev: bool = True) -> str:
             os.unlink(tmp)
         raise
     del payload
+    if if_absent and os.path.exists(path):
+        os.unlink(tmp)  # another writer published it meanwhile
+        return None
     if keep_prev and os.path.exists(path):
         # Only a verified generation may become the fallback: rotating a
         # torn file into .prev would evict the last good one. (The JAX
@@ -228,7 +256,8 @@ def lease_stamp(data) -> Optional[tuple]:
         return None
 
 
-def fenced_savez(path: str, arrays: dict, lease=None) -> str:
+def fenced_savez(path: str, arrays: dict, lease=None,
+                 if_absent: bool = False) -> Optional[str]:
     """`atomic_savez` behind the epoch fence. With a `lease` (`.member`,
     `.epoch`, and a `.check()` that raises once it is revoked:
     service/lease.py `Lease`) the write re-validates the lease first and
@@ -238,7 +267,7 @@ def fenced_savez(path: str, arrays: dict, lease=None) -> str:
     The ``fleet.zombie_write`` chaos point is consumed here: an injected
     bypass skips the lease check, as a hung writer that passed the check
     before the revocation and wrote after it would — the stale generation
-    the read-side fence must catch."""
+    the read-side fence must catch. `if_absent` is `atomic_savez`'s."""
     if lease is not None:
         plan = active_plan()
         bypassed = plan is not None and plan.consume_bypass("fleet.zombie_write")
@@ -247,7 +276,7 @@ def fenced_savez(path: str, arrays: dict, lease=None) -> str:
         arrays = dict(arrays)
         arrays["lease_member"] = np.asarray([str(lease.member)], dtype=np.str_)
         arrays["lease_epoch"] = np.asarray([int(lease.epoch)], np.int64)
-    return atomic_savez(path, arrays)
+    return atomic_savez(path, arrays, if_absent=if_absent)
 
 
 def fenced_load_latest(path: str, validator=None, on_reject=None):

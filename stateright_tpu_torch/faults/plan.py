@@ -39,11 +39,15 @@ for `maybe_fault(`):
   granted and the router's death handling runs again next tick.
 - ``blob.list`` — the ``stale`` kind, consumed by the local store's listing
   (faults/blobstore.py), serves the previous listing.
+- ``corpus.load`` / ``corpus.publish`` / ``corpus.gc`` — the warm-start
+  corpus (store/corpus.py; ctx ``key=<prefix>``), before any file is read,
+  written or removed: a faulted load is a miss (the job runs cold), a
+  faulted publish leaves no entry, a faulted sweep removes nothing.
 
 The JAX package's other points (engine steps and chunks, the tiered
 store's spill and resolve, checkpoint writes, the wire blob stores, the
-corpus, the autoscaler) fire there; here they wait for the supervisor
-(ROADMAP A15), the fleet across processes (A item 3) and the corpus (A12).
+autoscaler) fire there; here they wait for the supervisor (ROADMAP A15)
+and the fleet across processes (A item 3).
 The plan machinery is whole: the ``SR_TPU_FAULTS`` grammar, the raising
 kinds, and the consumed kinds (``hang`` parks on a cancel gate, ``torn`` /
 ``bypass`` / ``stale`` / ``slow`` are acted out by the boundary that pulls

@@ -29,9 +29,50 @@ CHECKER_MODES = ("search", "simulation")
 #: short cycles.
 SIM_DEDUP_KINDS = ("trace", "shared")
 
+#: Corpus warm-start rungs (store/warm.py, the one warm-start seam):
+#: "exact" replays a complete entry published under this run's own content
+#: key; "near" replays a complete entry of the same definition under another
+#: table packing (membership and pop order do not depend on it); "partial"
+#: continues an incomplete entry's frontier snapshot; "delta" is the
+#: Spec-CI rung (store/specdelta.py): the definition changed, but its
+#: component digests prove the edit salvageable (a properties-only edit
+#: replays with its verdicts re-evaluated, a boundary edit continues from
+#: the whole visited set); an expand or init edit is refused and runs cold.
+#: `check_registry()` pins every engine's alias of this tuple.
+WARM_KINDS = ("exact", "near", "partial", "delta")
+
 #: Store-root backends, chosen by the root's URI scheme
 #: (faults/blobstore.py `backend_of`): a plain path or ``file://`` is the
 #: local file system; ``blob://``, ``s3://`` and ``gs://`` are wire stores,
 #: which the port refuses until ROADMAP A item 3 (the fleet across
 #: processes) brings their clients.
 BLOB_BACKENDS = ("file", "blob", "s3", "gs")
+
+
+def check_registry() -> list:
+    """The warm seam's drift probe: every engine, and the service
+    scheduler, must alias THE `WARM_KINDS` tuple and the one preload seam
+    (store/warm.py), not a restated copy. Returns the problems found (an
+    empty list: no drift). Imports are local, so reading a knob never
+    imports torch."""
+    from .store import warm
+
+    problems: list[str] = []
+    if warm.WARM_KINDS is not WARM_KINDS:
+        problems.append("store.warm.WARM_KINDS is a restated copy, not the "
+                        "knobs.WARM_KINDS alias")
+    from .parallel.sharded import ShardedSearch
+    from .service.scheduler import ServiceEngine
+    from .tensor.frontier import FrontierSearch
+    from .tensor.resident import ResidentSearch
+    from .tensor.simulation import DeviceSimulation
+
+    for cls in (FrontierSearch, ResidentSearch, ShardedSearch, DeviceSimulation,
+                ServiceEngine):
+        if getattr(cls, "WARM_KINDS", None) is not WARM_KINDS:
+            problems.append(f"{cls.__name__}.WARM_KINDS is a restated copy, not the "
+                            "knobs.WARM_KINDS alias")
+        if getattr(cls, "WARM_SEAM", None) is not warm:
+            problems.append(f"{cls.__name__}.WARM_SEAM is not the store.warm module "
+                            "(the one warm-start seam)")
+    return problems

@@ -41,7 +41,33 @@ DETAIL_KEYS = {
               "(FAULTS_DETAIL_KEYS)",
     "trace": "job-scoped trace correlation id (service jobs)",
     "tenant": "per-tenant accounting sub-dict (TENANT_DETAIL_KEYS)",
+    # the warm-start corpus (store/corpus.py)
+    "corpus": "cross-job warm-start sub-dict (CORPUS_DETAIL_KEYS)",
 }
+
+#: Keys of `detail["corpus"]` (service/scheduler.py `build_result`, the
+#: engines' `warm_start`): present only on corpus-enabled runs.
+CORPUS_DETAIL_KEYS = {
+    "warm_start": "True when the job preloaded a published visited set",
+    "warm_kind": "the warm-ladder rung that served the preload: 'exact' | "
+                 "'near' | 'delta' | 'partial' (knobs.WARM_KINDS; absent on "
+                 "cold runs)",
+    "preloaded_states": "states preloaded into the spill tier and summary",
+    "verdict_preloads": "semantics verdict bits the warm preload seeded into "
+                        "the canonical cache",
+    "published": "True when this job published a new corpus entry "
+                 "(complete or partial)",
+    "key": "content-key prefix (model definition + lowering + finish hash)",
+    "delta_class": "the Spec-CI edit class the delta rung salvaged: "
+                   "'properties-only' | 'boundary-only' (store/specdelta.py; "
+                   "absent off the delta rung)",
+}
+
+#: The corpus's REGISTRY counters of the warm ladder and of Spec-CI
+#: (store/corpus.py `metrics()`, the "corpus" source).
+CORPUS_V2_COUNTERS = ("partial_publishes", "partial_preloads", "near_match_hits",
+                      "superseded_entries")
+CORPUS_DELTA_COUNTERS = ("delta_hits", "delta_refusals", "component_reuse")
 
 #: Keys of `detail["service"]` (service/metrics.py JobMetrics.to_dict).
 SERVICE_DETAIL_KEYS = {
@@ -179,6 +205,7 @@ DETAIL_SUBSCHEMAS = (
     ("service", SERVICE_DETAIL_KEYS),
     ("telemetry", TELEMETRY_KEYS),
     ("faults", FAULTS_DETAIL_KEYS),
+    ("corpus", CORPUS_DETAIL_KEYS),
     ("tenant", TENANT_DETAIL_KEYS),
 )
 
@@ -203,6 +230,7 @@ REGISTRY_SOURCES = {
     "fleet": "multi-replica fleet router (service/router.py; "
              "FLEET_COUNTER_KEYS)",
     "lease": "epoch-fenced checkpoint leases (service/lease.py)",
+    "corpus": "cross-job warm-start corpus store (store/corpus.py)",
 }
 
 

@@ -65,7 +65,12 @@ rows, so checkpoints load slot for slot in either package, plus the
 resident engine's scratch rows for the no-op steps after an abort or a
 service exit (one row; tiered, one more receive block).
 
-Left out of the port (ROADMAP): `warm_start` (A12), `audit_step` (A16),
+`warm_start` seeds the search from a published corpus entry (store/warm.py):
+each rank preloads the entry's rows it owns into its spill tier (the whole
+Bloom summary OR-ed in: a superset is sound), and a partial entry's frontier
+rows go to their owners' queues.
+
+Left out of the port (ROADMAP): `audit_step` (A16),
 the calibration comparator and `maybe_fault` (A15), `donate_chunks` and
 the `append` variants.
 """
@@ -84,8 +89,9 @@ import torch.distributed as dist
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..faults.ckptio import atomic_savez, load_latest, normalize_ckpt_path
-from ..knobs import STORE_KINDS
+from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import N_COLS, REGISTRY, StepRing, as_tracer
+from ..store import warm as warm_seam
 from ..tensor.fingerprint import MASK32, from_host_fp, to_host_fp
 from ..tensor.frontier import (
     SearchResult,
@@ -195,6 +201,10 @@ class ShardedSearch:
     """Multi-device search engine for a `TensorModel`: one shard per rank
     of a `torch.distributed` group."""
 
+    # The warm ladder's vocabulary and seam, aliased (knobs.check_registry).
+    WARM_KINDS = WARM_KINDS
+    WARM_SEAM = warm_seam
+
     def __init__(
         self,
         model: TensorModel,
@@ -284,6 +294,11 @@ class ShardedSearch:
         self._tm_host = np.zeros((N, self._TMR, N_COLS), np.uint32)
         self._tracer = as_tracer(tracer)
         self._metrics_name = REGISTRY.register("sharded", self.metrics)
+        # The corpus payload (see warm_start): the publisher's result to
+        # replay, the states preloaded and the rung served.
+        self._warm: Optional[dict] = None
+        self._warm_states = 0
+        self._warm_kind: Optional[str] = None
         dev = self.device
         self._zero = torch.zeros((), dtype=torch.int64, device=dev)
         self._arange_k = torch.arange(batch_size, device=dev)
@@ -405,6 +420,82 @@ class ShardedSearch:
         self._q_compacted = False
         self.service_seconds = {}
         return n0, n_raw
+
+    # -- the corpus -------------------------------------------------------------------
+
+    def warm_start(self, entry, kind: Optional[str] = None) -> int:
+        """Seed this search from a published `CorpusEntry` (store/warm.py),
+        on every rank (each calls it with the same entry; no collective).
+        The entry's rows are split by owner (`lo % N`, the exchange's
+        routing) and this rank's preload its spill tier; the entry's whole
+        Bloom summary is OR-ed in (a superset is sound: a rank probes only
+        the keys it owns). A complete entry replays (the caller gates it
+        with `warm.can_replay`); a partial one continues, its frontier rows
+        in their owners' queues (`warm.can_continue`); the Spec-CI rung
+        passes `warm.salvage_delta`'s entry with kind="delta". Returns the
+        states preloaded over all ranks."""
+        if self._store is None:
+            raise ValueError("warm_start requires store='tiered' (the preloaded set "
+                             "lives in the per-shard spill tiers)")
+        if self._c is not None:
+            raise RuntimeError("cannot warm-start a suspended search; reset() first")
+        lo, _hi = warm_seam.split_fps(entry.fps)
+        owners = lo % np.uint32(self.n_chips)
+        warm_seam.preload_store(self._store, entry, mask=(owners == self.rank))
+        n = int(lo.size)  # every rank's share, summed
+        self._warm_states = n
+        if getattr(entry, "complete", True):
+            self._warm = dict(entry.meta)
+            self._warm_kind = kind or "exact"
+            return n
+        if getattr(entry, "frontier", None) is None:
+            raise ValueError("partial corpus entry has no frontier snapshot (coverage-only "
+                             "entries cannot seed a continuation)")
+        self._warm_kind = kind if kind == "delta" else "partial"
+        self._seed_partial_carry(entry)
+        return n
+
+    def _seed_partial_carry(self, entry) -> None:
+        """This rank's carry for a partial entry's continuation (the
+        `load_checkpoint` recipe, from a frontier snapshot): its frontier
+        rows in FIFO order, the prefix's counters (its unique count on rank
+        0, where the result's sum lands on it), and each discovery's witness
+        on the witness's owner."""
+        N, dev, meta, f = self.n_chips, self.device, entry.meta, entry.frontier
+        f_lo = np.asarray(f["lo"], np.uint32)
+        rows = np.flatnonzero(f_lo % np.uint32(N) == self.rank)
+        m = int(rows.size)
+        if m > self._Q - self.batch_size:
+            raise ValueError(f"frontier snapshot too large for a shard's queue (shard "
+                             f"{self.rank}: {m} rows, capacity {self._Q}); raise table_log2")
+        c = self._alloc()
+        c["q_states"][:m] = from_u32(np.asarray(f["states"], np.uint32)[rows], dev)
+        c["q_keys"][:m] = (from_u32(np.asarray(f["hi"], np.uint32)[rows], dev) << 32) | from_u32(
+            f_lo[rows], dev)
+        c["q_ebits"][:m] = from_u32(warm_seam.pack_ebits(f["ebits"])[rows], dev)
+        c["q_depth"][:m] = from_u32(np.asarray(f["depths"], np.uint32)[rows], dev)
+        discovered = 0
+        names = [p.name for p in self.props]
+        for name, fp in dict(meta.get("discoveries", {})).items():
+            if name in names:
+                j = names.index(name)
+                discovered |= 1 << j
+                if (int(fp) & MASK32) % N == self.rank:
+                    c["disc_keys"][j] = from_host_fp(int(fp))
+        i64 = dict(dtype=torch.int64, device=dev)
+        c.update(
+            tail=torch.tensor(m, **i64),
+            gen=torch.tensor(int(meta.get("state_count", 0)), **i64),
+            unique=torch.tensor(int(meta.get("unique_count", 0)) if self.rank == 0 else 0,
+                                **i64),
+            max_depth=torch.tensor(int(meta.get("max_depth", 0)), **i64),
+            discovered=torch.tensor(discovered, **i64),
+        )
+        self._c = c
+        self._steps = 0
+        # The queue no longer covers every unique state (the prefix is in
+        # the spill tiers): dump_states declines.
+        self._q_compacted = True
 
     # -- the step -------------------------------------------------------------------
 
@@ -661,15 +752,28 @@ class ShardedSearch:
                 w = disc[:, i][disc[:, i] != 0]
                 discoveries[p.name] = int(to_host_fp(w[:1])[0])
         per_chip = [int(x) for x in col["unique"]]
-        detail = {"per_chip_unique": per_chip, **(self.store_stats() or {})}
+        state_count, unique = int(col["gen"][0]), sum(per_chip)
+        max_depth = int(col["max_depth"].max())
+        complete = bool((col["head"] >= col["tail"]).all()) and not timed_out
+        if self._warm is not None and complete:
+            # The replay: the run only re-closed the seed against the
+            # preloaded set; the published result is the result.
+            w = self._warm
+            state_count, unique, max_depth = w["state_count"], w["unique_count"], w["max_depth"]
+            discoveries = {k: int(v) for k, v in w.get("discoveries", {}).items()}
+        detail = {"per_chip_unique": per_chip}
+        if self._warm_kind is not None:
+            detail["corpus"] = {"warm_start": True, "preloaded_states": self._warm_states,
+                                "warm_kind": self._warm_kind}
+        detail.update(self.store_stats() or {})
         if self._ring is not None:
             detail["telemetry"] = self.telemetry_summary()
         return SearchResult(
-            state_count=int(col["gen"][0]),
-            unique_state_count=sum(per_chip),
-            max_depth=int(col["max_depth"].max()),
+            state_count=state_count,
+            unique_state_count=unique,
+            max_depth=max_depth,
             discoveries=discoveries,
-            complete=bool((col["head"] >= col["tail"]).all()) and not timed_out,
+            complete=complete,
             duration=time.monotonic() - start,
             steps=self._steps,
             detail=detail,

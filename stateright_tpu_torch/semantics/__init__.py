@@ -98,3 +98,14 @@ __all__ = [
     "LinearizabilityTester",
     "SequentialConsistencyTester",
 ]
+
+
+def clear_serialization_caches() -> None:
+    """Drop the memoized serialization verdicts: the per-identity lru memos
+    and the canonical verdict cache, witnesses included (they pin tester
+    histories for the process's life otherwise)."""
+    from . import canonical, linearizability, sequential_consistency
+
+    linearizability._serialized_cached.cache_clear()
+    sequential_consistency._serialized_cached.cache_clear()
+    canonical.CACHE.clear()

@@ -15,7 +15,9 @@ Given a batch of consistency testers in one call, the plane:
    verdicts are order-independent pure functions of the canonical class, so
    the results are the same.)
 
-The corpus round-trip of the verdict table is not part of the port yet.
+The corpus round-trip: `export_verdicts` is the table a corpus entry
+publishes, `preload_verdicts` seeds the cache from one
+(store/corpus.py `CorpusStore.preload_verdicts`).
 """
 
 from __future__ import annotations
@@ -159,3 +161,23 @@ def prefetch_verdicts(testers: Iterable) -> int:
         return 0
     evaluate_batch(batch)
     return len(batch)
+
+
+# -- the corpus round-trip -------------------------------------------------------
+
+
+def export_verdicts():
+    """(uint64 fingerprints, uint8 verdict bits): the packed table a corpus
+    entry publishes (store/corpus.py)."""
+    return CACHE.export()
+
+
+def preload_verdicts(fps, verdicts) -> int:
+    """Seed the cache from a corpus table; returns the new entries."""
+    import numpy as np
+
+    fps = np.asarray(fps, dtype=np.uint64)
+    verdicts = np.asarray(verdicts, dtype=np.uint8)
+    if fps.size == 0 or fps.shape != verdicts.shape:
+        return 0
+    return CACHE.preload(fps, verdicts)

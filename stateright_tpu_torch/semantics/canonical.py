@@ -75,6 +75,9 @@ from ..core.fingerprint import fingerprint_bytes, stable_encode
 #: first out).
 CACHE_MAX_ENTRIES = 1 << 16
 
+#: Entries a corpus entry's verdict table carries at most (`export`).
+EXPORT_MAX_ENTRIES = 1 << 15
+
 class CanonForm:
     """A tester's canonical (label-free) form: threads reordered by content,
     prerequisite references remapped, both tester kinds normalized to one
@@ -465,6 +468,38 @@ class VerdictCache:
             self._entries.move_to_end(fp)
             if len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
+
+    def preload(self, fps, verdicts) -> int:
+        """Insert (fingerprint, verdict bit) pairs of a corpus table; an
+        entry already present wins (it may carry a witness). Returns the new
+        entries."""
+        new = 0
+        with self._lock:
+            for fp, bit in zip(fps, verdicts):
+                fp = int(fp)
+                if fp not in self._entries:
+                    self._entries[fp] = (bool(bit), None)
+                    new += 1
+            while len(self._entries) > self.max_entries:
+                self._entries.popitem(last=False)
+            self.counters["preloaded_verdicts"] += new
+        return new
+
+    def export(self, max_entries: Optional[int] = None):
+        """The packed (canonical fingerprint, verdict bit) table a corpus
+        entry carries: the `max_entries` (default EXPORT_MAX_ENTRIES) most
+        recently used entries. Verdicts are addressed by canonical class, so
+        the table is valid for any job."""
+        import numpy as np
+
+        if max_entries is None:
+            max_entries = EXPORT_MAX_ENTRIES
+        with self._lock:
+            items = list(self._entries.items())[-max_entries:]
+            self.counters["exported_verdicts"] += len(items)
+        fps = np.asarray([fp for fp, _ in items], dtype=np.uint64)
+        bits = np.asarray([v for _, (v, _s) in items], dtype=np.uint8)
+        return fps, bits
 
     def clear(self) -> None:
         with self._lock:

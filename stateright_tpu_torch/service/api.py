@@ -145,10 +145,16 @@ class CheckService:
         past the budget each job of the group is probed alone and only the
         jobs whose step fails alone are quarantined.
 
-        `corpus_dir` (the warm-start corpus) is ROADMAP A12 and raises."""
-        if corpus_dir is not None:
-            raise NotImplementedError(
-                "the warm-start corpus (corpus_dir=) is not ported yet (ROADMAP A12)")
+        `corpus_dir=<path>` turns on the cross-job warm-start corpus
+        (store/corpus.py; it needs `store="tiered"`, else ValueError): a job
+        that runs to exhaustion publishes its visited set as a
+        content-addressed, CRC-checked entry, and a later job with the same
+        model definition, lowering and finish policy preloads it and
+        replays the result, bit for bit, after re-expanding only its init
+        states. An interrupted job publishes a partial entry a successor
+        continues from; a one-property edit is served on the "delta" rung
+        (store/specdelta.py). Services of a fleet share one directory. A
+        corrupt entry or an injected fault only means a cold run."""
         self._trace_out = trace_out
         self._tracer = as_tracer(
             Tracer(annotate=True, out=trace_out) if trace_out else None
@@ -162,7 +168,7 @@ class CheckService:
             store=store, high_water=high_water, low_water=low_water,
             summary_log2=summary_log2, telemetry=telemetry, telemetry_log2=telemetry_log2,
             tracer=self._tracer if trace_out else None, events=events, quotas=quotas,
-            device=device,
+            corpus_dir=corpus_dir, device=device,
         )
         self.device = self._engine.device
         # The card the scheduler thread works on: this thread's, unless the
@@ -186,9 +192,13 @@ class CheckService:
         self.retry_limit = retry_limit
         self._adm = AdmissionQueue()
         self._jobs: dict[int, Job] = {}
-        # Jobs finished but not yet completed: (job, status) pairs whose
-        # result, event and wake-up `_drain_finalizers` still owes.
+        # Jobs finished but not yet completed: (job, status, publish payload)
+        # whose publish, result, event and wake-up `_drain_finalizers` still
+        # owes, off the lock.
         self._finalizing: list = []
+        # Partial-publish payloads of cuts (cancel, preemption, shutdown),
+        # written off the lock by `_drain_publishes`.
+        self._publishing: list = []
         self._next_id = 1
         # Every touch of the table, the staging and the jobs is under this
         # lock: the scheduler's steps and the HTTP threads' polls and path
@@ -228,7 +238,12 @@ class CheckService:
         claimed (key, parent key) pairs on the host so a fleet replica can
         checkpoint it (`Job.fleet_snapshot`); `resume` (a queue.JobResume)
         continues a checkpointed job, its whole visited set re-seeded into
-        this service's table under this job's salt."""
+        this service's table under this job's salt.
+
+        With a corpus, the content key (the model's traced definition) and
+        the corpus read happen here, on the caller's thread, before the
+        service lock is taken: a slow read never stalls another job's
+        poll."""
         from ..tensor.model import TensorModel
 
         if resume is not None and not isinstance(resume, JobResume):
@@ -238,6 +253,15 @@ class CheckService:
                 "CheckService.submit requires a stateright_tpu_torch.tensor."
                 f"TensorModel; got {type(model).__name__}"
             )
+        prefetch: Optional[Job] = None
+        if self._engine.has_corpus:
+            prefetch = Job(0, model, finish_when=finish_when,
+                           target_state_count=target_state_count,
+                           target_max_depth=target_max_depth, tenant=tenant)
+            try:
+                self._engine.prefetch_warm(prefetch)
+            except Exception:  # noqa: BLE001 — warm start is an optimisation
+                prefetch = None
         with self._work:
             if self._closed:
                 raise RuntimeError("service is closed")
@@ -255,9 +279,16 @@ class CheckService:
             job = Job(
                 self._next_id, model, finish_when=finish_when,
                 target_state_count=target_state_count, target_max_depth=target_max_depth,
-                timeout=timeout, priority=priority, journal=journal, resume=resume,
+                timeout=timeout, priority=priority,
+                # A corpus publishes from the journal: every job keeps one.
+                journal=journal or self._engine.has_corpus, resume=resume,
                 trace=trace or mint_trace_id(), tenant=tenant,
             )
+            if prefetch is not None:
+                for attr in ("content_key", "warm_entry", "warm_entry_kind", "warm_checked",
+                             "verdict_preloads", "delta_class", "partial_kind",
+                             "no_publish"):
+                    setattr(job, attr, getattr(prefetch, attr))
             self._next_id += 1
             self._jobs[job.id] = job
             self._adm.push(job)
@@ -324,13 +355,17 @@ class CheckService:
                 return False
             self._adm.remove(job)
             job.status = JobStatus.CANCELLED
+            # Publish the cut's prefix before retire drops the frontier: a
+            # successor continues from it.
+            self._queue_publish(job)
             self._engine.retire(job)
             job.metrics.finished_at = time.monotonic()
-            job.journal = None  # finished: no checkpoint reads it again
+            job.journal = job.state_journal = None  # finished: nothing reads them again
             self._events.emit("job.cancelled", job=job.id, trace=job.trace)
             job.event.set()
             self._work.notify_all()
             self._idle.notify_all()
+        self._drain_publishes()
         return True
 
     def discovery_paths(self, job_id: int) -> dict:
@@ -364,6 +399,9 @@ class CheckService:
             if self.quotas is not None:
                 out["tenants"] = self.quotas.snapshot()
                 out["quota_rejected"] = self._quota_rejected
+            corpus = self._engine.corpus_stats()
+            if corpus is not None:
+                out["corpus"] = corpus
             return out
 
     def lane_util(self) -> float:
@@ -429,25 +467,54 @@ class CheckService:
         return self.max_resident is None or len(self._resident()) < self.max_resident
 
     def _finalize(self, job: Job, status: str = JobStatus.DONE) -> None:
-        """Mark a job finished (under the lock); its result, terminal event
-        and wake-up follow in `_drain_finalizers`."""
+        """Mark a job finished (under the lock); its publish, result,
+        terminal event and wake-up follow in `_drain_finalizers`. The
+        publish's gate and journal snapshot happen here, before retire
+        drops the frontier."""
         self._tracer.instant("service.finalize", cat="service", job=job.id, status=status,
                              trace=job.trace)
         job.status = status
         job.metrics.finished_at = time.monotonic()
+        payload = self._engine.prepare_publish(job)
         self._engine.retire(job)
-        self._finalizing.append((job, status))
+        self._finalizing.append((job, status, payload))
+
+    def _queue_publish(self, job: Job) -> None:
+        """Queue a cut's partial publish (written by `_drain_publishes`)."""
+        payload = self._engine.prepare_publish(job)
+        if payload is not None:
+            self._publishing.append(payload)
+
+    def _drain_publishes(self) -> None:
+        """Write the queued partial publishes off the lock. A failed write
+        leaves no entry, never a wrong one."""
+        while True:
+            with self._lock:
+                if not self._publishing:
+                    return
+                payload = self._publishing.pop(0)
+            self._engine.publish_payload(payload)  # never raises
 
     def _drain_finalizers(self) -> None:
-        """Complete every deferred finalisation: build the result, emit the
-        terminal event, wake the waiters."""
-        with self._lock:
-            while self._finalizing:
-                job, status = self._finalizing.pop(0)
+        """Complete every deferred finalisation: the corpus publish off the
+        lock, then, under it, the result, the terminal event and the
+        wake-up (the result after the publish, so that
+        `detail["corpus"]["published"]` is true to it)."""
+        self._drain_publishes()
+        while True:
+            with self._lock:
+                if not self._finalizing:
+                    return
+                job, status, payload = self._finalizing.pop(0)
+            published = payload is not None and self._engine.publish_payload(payload)
+            with self._lock:
+                if payload is not None:
+                    job.published = published
                 job.result = self._engine.build_result(job)
                 # A finished job is never checkpointed or resumed: release
-                # its journal (16 B a state) while the Job stays listed.
-                job.journal = None
+                # its journals (16 B a state, and the rows) while the Job
+                # stays listed.
+                job.journal = job.state_journal = None
                 self._events.emit(
                     TERMINAL_EVENT_BY_STATUS[status], job=job.id, trace=job.trace,
                     states=job.state_count, unique=job.unique_count,
@@ -534,6 +601,10 @@ class CheckService:
             g.jobs.remove(job)
         job.status = JobStatus.PREEMPTED
         job.metrics.preemptions += 1
+        # Publish the cut (with its frontier) before the spill drops it: if
+        # this replica dies while the job is parked, a successor continues
+        # from the prefix.
+        self._queue_publish(job)
         if self.spill_dir is not None and job.pending_lanes:
             job.spill_frontier(os.path.join(self.spill_dir, f"job{job.id}.frontier.npz"))
         self._adm.push(job)
@@ -696,6 +767,9 @@ class CheckService:
                 if job.status not in JobStatus.FINISHED:
                     self._adm.remove(job)
                     job.status = JobStatus.CANCELLED
+                    # The shutdown cut publishes its prefix (off the lock,
+                    # below), so that a fresh process continues warm.
+                    self._queue_publish(job)
                     self._engine.retire(job)
                     self._events.emit("job.cancelled", job=job.id, trace=job.trace,
                                       shutdown=True)

@@ -25,10 +25,14 @@ deterministically with `pump()` / `drain()`.
     r = h.result()          # survives any single replica's death
     serve_fleet(fleet)      # HTTP: POST /jobs, /.status, /metrics
 
+`corpus_dir=` gives every replica the warm-start corpus over one shared
+directory (store/corpus.py): the first replica to finish a content key
+publishes it, and every replica warm-starts from that one generation; a
+requeued job looks in the corpus again on its survivor.
+
 Not ported yet, and refused with `NotImplementedError`: replicas in other
 processes (`remote=True`, `store_root=`) and the autoscaler's `scale_out` /
-`scale_in` (ROADMAP A item 3), and the warm-start corpus (`corpus_dir=`,
-ROADMAP A12).
+`scale_in` (ROADMAP A item 3).
 """
 
 from __future__ import annotations
@@ -75,6 +79,13 @@ class Replica:
         # this runner writes is re-validated against and stamped with this
         # lease, so a replica the router fenced out refuses its own writes.
         self.lease = lease
+        if lease is not None:
+            corpus = getattr(self.service._engine, "_corpus", None)
+            if corpus is not None:
+                # The corpus's publishes are fenced by the same lease: a
+                # fenced-out replica never publishes, and an entry stamped by
+                # a revoked epoch is never read.
+                corpus.set_lease(lease)
         self.error: Optional[str] = None
         self._dead = False
         self._spins = 0
@@ -328,21 +339,24 @@ class ServiceFleet:
         `quotas` (service/tenancy.py `TenantQuotas`) gates submissions at
         the router; the replicas share the ledger for charging, ungated.
 
+        `corpus_dir` turns on the warm-start corpus on every replica over
+        the one shared directory (store/corpus.py; the replicas' services
+        need `store="tiered"`, which the fleet sets unless `service_kwargs`
+        names a store); with a lease plane, each replica's publishes are
+        fenced by its lease.
+
         `remote=True` and `store_root=` (replicas in other processes) raise
-        `NotImplementedError` naming ROADMAP A item 3, `corpus_dir=` naming
-        A12. The dirs are local paths: a wire-store URI raises too."""
+        `NotImplementedError` naming ROADMAP A item 3. The dirs are local
+        paths: a wire-store URI raises too."""
         if remote or store_root is not None:
             raise NotImplementedError(
                 f"fleet replicas in other processes (remote=True, store_root=) are {WIRE_ITEM}")
-        if corpus_dir is not None:
-            raise NotImplementedError(
-                "the warm-start corpus (corpus_dir=) is not ported yet (ROADMAP A12)")
         if n_replicas < 1:
             raise ValueError("a fleet needs at least one replica")
-        ckpt_dir, journal_dir, lease_dir = (
-            normalize_root(d) for d in (ckpt_dir, journal_dir, lease_dir))
+        ckpt_dir, journal_dir, lease_dir, corpus_dir = (
+            normalize_root(d) for d in (ckpt_dir, journal_dir, lease_dir, corpus_dir))
         for what, d in (("ckpt_dir", ckpt_dir), ("journal_dir", journal_dir),
-                        ("lease_dir", lease_dir)):
+                        ("lease_dir", lease_dir), ("corpus_dir", corpus_dir)):
             if d is not None:
                 refuse_wire(d, what)
         self._tracer = as_tracer(tracer)
@@ -375,6 +389,11 @@ class ServiceFleet:
             # off a budget its first admission passed).
             kw["quotas"] = quotas
             kw["quota_gate"] = False
+        if corpus_dir is not None:
+            os.makedirs(corpus_dir, exist_ok=True)
+            kw["corpus_dir"] = corpus_dir
+            kw.setdefault("store", "tiered")
+        self.corpus_dir = corpus_dir
         kw["background"] = False  # the Replica runner pumps
         self._service_kw = kw
         self._ckpt_every_spins = ckpt_every_spins

@@ -23,7 +23,9 @@ like every key of the port, so a fleet replica can checkpoint it
 (`JobResume`) after the replica dies. The snapshot speaks the JAX format —
 `j_lo / j_hi / jp_lo / jp_hi` uint32, the frontier's queue arrays,
 `c_counts`, `w_warm`, `d_names / d_fps` — converted at this boundary only,
-so either package resumes the other's checkpoint.
+so either package resumes the other's checkpoint. With a corpus the job
+also journals each claimed row and its depth (`state_journal`, the Spec-CI
+plane a complete publish records), and carries its warm-ladder state.
 """
 
 from __future__ import annotations
@@ -97,9 +99,9 @@ class JobResume:
         self.unique_count = unique_count
         self.max_depth = max_depth
         self.discoveries = discoveries  # {property name: unsalted host fingerprint}
-        # The checkpoint came from a warm-started run (the corpus, ROADMAP
-        # A12): its journal covers only the re-expanded slice, so only a
-        # replica that re-warms from the same entry may resume it.
+        # The checkpoint came from a warm-started run (store/corpus.py): its
+        # journal covers only the re-expanded slice, so only a replica that
+        # re-warms from the same entry may resume it.
         self.was_warm = was_warm
 
     @classmethod
@@ -171,12 +173,48 @@ class Job:
         self.error: Optional[str] = None
         self.event = threading.Event()
 
+        # The warm-start corpus (store/corpus.py): the job's content key; the
+        # publisher's result once an entry was preloaded (replayed at a
+        # natural finish); a prefetched entry and its rung, parked off the
+        # service lock by `ServiceEngine.prefetch_warm` and consumed at
+        # admission (`warm_checked`: a prefetch ran, so a miss or an
+        # injected fault is not retried); the states preloaded; whether this
+        # job published.
+        self.content_key: Optional[str] = None
+        self.warm: Optional[dict] = None
+        self.warm_entry = None
+        self.warm_entry_kind = None
+        self.warm_checked = False
+        self.warm_states = 0
+        self.published = False
+        # The rung that served (knobs.WARM_KINDS; None cold), a continuable
+        # partial entry parked for `admit`, and the key of the GC pin taken
+        # (the served entry's: another key on the near rung).
+        self.warm_kind = None
+        self.partial_entry = None
+        self.corpus_pin_key = None
+        self.corpus_pinned = False
+        # The Spec-CI rung (store/specdelta.py): the edit class it salvaged,
+        # the rung a parked partial admits under ("delta" for a widened
+        # boundary's continuation) and the publish veto of such a
+        # continuation, whose depths are not a cold run's.
+        self.delta_class = None
+        self.partial_kind = "partial"
+        self.no_publish = False
+        # Verdict bits the preload seeded into the semantics cache.
+        self.verdict_preloads = 0
+
         self._chunks: deque[_Chunk] = deque()
         self._pending = 0
         self._spill_path: Optional[str] = None
         # The fleet's requeue journal: (unsalted keys, unsalted parent keys)
         # int64 pairs, one per batch of claims; a root's parent is 0.
         self.journal: Optional[list] = [] if journal or resume else None
+        # The Spec-CI plane beside it: the claimed state rows and their pop
+        # depths, row for row. Appending keys without rows (a fleet-only
+        # journal, a resumed payload) drops the plane for good, so a plane
+        # that is not None is always aligned with the journal.
+        self.state_journal: Optional[list] = [] if journal or resume else None
         self.resume = resume
 
     # -- frontier --------------------------------------------------------------
@@ -229,12 +267,20 @@ class Job:
         self._chunks.clear()
         self._pending = 0
 
-    def journal_append(self, keys, parents) -> None:
+    def journal_append(self, keys, parents, states=None, depths=None) -> None:
         """Record freshly claimed unique states: unsalted keys and their
-        unsalted parent keys (0 for an initial state)."""
+        unsalted parent keys (0 for an initial state), and, for the Spec-CI
+        plane, their rows and pop depths (without them the plane is
+        dropped)."""
         if self.journal is None or len(keys) == 0:
             return
         self.journal.append((np.asarray(keys, np.int64), np.asarray(parents, np.int64)))
+        if self.state_journal is None:
+            return
+        if states is None or depths is None:
+            self.state_journal = None
+            return
+        self.state_journal.append((np.asarray(states, np.int64), np.asarray(depths, np.int64)))
 
     # -- preemption spill (the checkpoint queue schema) --------------------------
 
@@ -300,8 +346,9 @@ class Job:
             j_lo=j_lo, j_hi=j_hi, jp_lo=jp_lo, jp_hi=jp_hi,
             c_counts=np.asarray([self.state_count, self.unique_count, self.max_depth],
                                 np.int64),
-            # No warm starts before the corpus (ROADMAP A12): never warm.
-            w_warm=np.asarray([0], np.int64),
+            # A warm run's journal covers only what it re-expanded: the mark
+            # makes a resuming replica re-warm or restart (JobResume.was_warm).
+            w_warm=np.asarray([1 if self.warm is not None else 0], np.int64),
             d_names=np.asarray(names, dtype=np.str_),
             d_fps=np.asarray([self.discoveries[n] for n in names], np.uint64),
         )

@@ -1,5 +1,5 @@
 """The continuous-batching engine of the check service (the JAX package's
-`service/scheduler.py`, without its warm-start corpus and calibration).
+`service/scheduler.py`, without its calibration).
 
 One visited table on the device (and, with `store="tiered"`, one spill
 tier on the host) is shared by every co-resident job, and each fused step
@@ -34,12 +34,22 @@ requeued job's whole journal into its own table under the job's new salt
 (`_admit_resumed`), one insert call per batch of K rows through the same
 insert route as a step, and the search continues where the checkpoint left
 it, bit for bit.
+
+With a corpus (store/corpus.py), a job's admission walks the warm ladder
+(`_warm_lookup`: exact, partial, near, delta; the gates in store/warm.py):
+a complete entry is preloaded into the spill tier and the summary under the
+job's salt and its result replayed at the finish; a partial one becomes a
+resume payload and takes the requeue path (`_admit_partial`). Every job
+journals its claimed rows too (the Spec-CI plane), and a finished or cut
+job publishes (`prepare_publish` under the service lock, `publish_payload`
+off it).
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -47,8 +57,9 @@ import torch
 
 from ..core.model import Expectation
 from ..faults.plan import maybe_fault
-from ..knobs import STORE_KINDS
+from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import StepRing, as_events, as_tracer
+from ..store import warm as warm_seam
 from ..tensor.fingerprint import from_host_fp, salt_keys, to_host_fp
 from ..tensor.frontier import (
     SearchResult,
@@ -60,7 +71,7 @@ from ..tensor.frontier import (
 )
 from ..tensor.inserts import resolve_insert
 from ..tensor.pallas_hashtable import PallasHashTable
-from .queue import Job, JobStatus, _pack
+from .queue import Job, JobResume, JobStatus, _pack
 
 
 def _salt_host(fp: int, salt: int) -> int:
@@ -123,6 +134,11 @@ class ServiceEngine:
     """The shared device state and the steps. Not thread-safe by itself:
     the owning CheckService serialises access."""
 
+    # The warm ladder's rung vocabulary and its one seam (store/warm.py),
+    # aliased, not restated: knobs.check_registry pins both.
+    WARM_KINDS = WARM_KINDS
+    WARM_SEAM = warm_seam
+
     def __init__(
         self,
         batch_size: int = 1024,
@@ -137,10 +153,13 @@ class ServiceEngine:
         tracer=None,
         events=None,
         quotas=None,
+        corpus_dir: Optional[str] = None,
         device="cuda",
     ):
         """The table lives on `device`: the CUDA card unless `device="cpu"`
-        is passed; with no CUDA device the default raises."""
+        is passed; with no CUDA device the default raises. `corpus_dir`
+        attaches the warm-start corpus (store/corpus.py), which needs the
+        tiered store: a known state is filtered through its spill tier."""
         self.batch_size = batch_size
         self._insert = resolve_insert(insert_variant)  # raises on an unknown name
         self.table = PallasHashTable(table_log2, device=device)
@@ -168,6 +187,23 @@ class ServiceEngine:
             # batch x max_actions slots: each group lowers the trigger by
             # its own bound (group_of).
             self._spill_trigger = self._store.high_slots
+        # The warm-start corpus: finished jobs publish their visited sets,
+        # and a later job with the same content key (or a near, partial or
+        # delta match) preloads one into the tiered store at admission.
+        self._corpus = None
+        self._corpus_keys: dict = {}
+        if corpus_dir is not None:
+            if self._store is None:
+                raise ValueError(
+                    "corpus_dir warm-start requires store='tiered' (known "
+                    "states are dedup-filtered through the spill tier's "
+                    "Bloom suspect path)"
+                )
+            from ..store.corpus import CorpusStore
+
+            self._corpus = CorpusStore(corpus_dir,
+                                       summary_log2=self._store.config.summary_log2,
+                                       summary_hashes=self._store.summary_cfg[1])
         self.hot_claims = 0  # occupied table slots (claims - evictions)
         self.groups: dict[int, _Group] = {}
         self._group_rr: list[int] = []
@@ -202,6 +238,280 @@ class ServiceEngine:
             self._group_rr.append(key)
         return g
 
+    # -- the warm-start corpus -------------------------------------------------
+
+    @property
+    def has_corpus(self) -> bool:
+        return self._corpus is not None
+
+    def corpus_stats(self) -> Optional[dict]:
+        return None if self._corpus is None else self._corpus.metrics()
+
+    def _key_and_components_for(self, job: Job) -> tuple:
+        """The job's content key (the model definition, the lowering and
+        table configuration, the job's finish policy and tenant) and the
+        same address factored for the near and delta rungs
+        (store/corpus.py `key_components`). Cached per (model instance,
+        finish signature, tenant): the first trace of a model costs seconds.
+        Raises `specdelta.Untraceable`."""
+        from ..store.corpus import content_key, finish_signature, key_components
+        from .tenancy import tenant_salt
+
+        fin = finish_signature(job.finish_when, job.target_state_count, job.target_max_depth)
+        salt = tenant_salt(getattr(job, "tenant", None))
+        sig = (id(job.model), fin, salt)
+        hit = self._corpus_keys.get(sig)
+        # A recycled id() never serves: the model is held weakly and
+        # compared by identity.
+        if hit is not None and hit[0]() is job.model:
+            return hit[1], hit[2]
+        lowering = {
+            "batch_size": self.batch_size,
+            "table_log2": self.table.log2_size,
+            "insert_variant": "pallas",
+            "store": self.store,
+            "summary_log2": self._store.config.summary_log2,
+            "summary_hashes": self._store.summary_cfg[1],
+            "finish": fin,
+        }
+        key = content_key(job.model, lowering, tenant=salt)
+        comp = key_components(job.model, lowering, tenant=salt)
+        try:
+            self._corpus_keys[sig] = (weakref.ref(job.model), key, comp)
+        except TypeError:
+            pass  # a model without weak references: derived again next time
+        return key, comp
+
+    def _ensure_key(self, job: Job) -> bool:
+        """Give the job its content key; False when its model cannot be
+        traced (store/specdelta.py `Untraceable`): the job then runs cold
+        and does not publish, and the case is counted."""
+        if job.content_key is not None:
+            return True
+        if job.warm_checked:
+            return False  # traced before, and refused
+        from ..store.specdelta import Untraceable
+
+        try:
+            job.content_key = self._key_and_components_for(job)[0]
+        except Untraceable:
+            job.warm_checked = True
+            job.no_publish = True
+            self._corpus.note_untraceable()
+            return False
+        return True
+
+    def prefetch_warm(self, job: Job) -> None:
+        """The half of a warm start that runs off the service lock
+        (`CheckService.submit` calls it on the client's thread): the content
+        key, the ladder walk and the entry's read and decode, and the seeding
+        of the semantics verdict cache. The entry parks on the job; the
+        preload itself happens at admission (`_maybe_warm`)."""
+        if self._corpus is None or job.warm is not None:
+            return
+        if not self._ensure_key(job):
+            return
+        job.warm_checked = True
+        entry, kind = self._warm_lookup(job)
+        job.warm_entry = entry
+        job.warm_entry_kind = kind
+        if entry is not None and entry.complete:
+            job.verdict_preloads = self._corpus.preload_verdicts(entry)
+
+    def _warm_lookup(self, job: Job):
+        """The warm ladder, best rung first (knobs.WARM_KINDS; the gates in
+        store/warm.py): (1) "exact", a complete entry of the job's own key;
+        (2) "partial", the key's own partial entry, continuable; (3) "near",
+        a family entry of the same definition under another table packing,
+        replayed when complete or continued when partial; (4) "delta", an
+        entry of another definition of the same geometry, salvaged when the
+        component digests prove the edit properties-only or boundary-only.
+        Returns (entry, kind) or (None, None): every miss, refusal, corrupt
+        entry or injected fault means cold."""
+        from ..store.corpus import finish_signature
+
+        entry = self._corpus.lookup(job.content_key)
+        if entry is not None and entry.complete:
+            return entry, "exact"
+        props = list(job.model.properties())
+        entry = self._corpus.lookup_partial(job.content_key)
+        if entry is not None and warm_seam.can_continue(
+                entry, self.batch_size, job.finish_when, props,
+                job.target_state_count, job.target_max_depth):
+            return entry, "partial"
+        comp = self._key_and_components_for(job)[1]
+        entry = self._corpus.lookup_near(comp, exclude=(job.content_key,))
+        if entry is not None:
+            fin = finish_signature(job.finish_when, job.target_state_count,
+                                   job.target_max_depth)
+            if entry.complete and warm_seam.can_replay(entry, self.batch_size, fin):
+                return entry, "near"
+            if not entry.complete and warm_seam.can_continue(
+                    entry, self.batch_size, job.finish_when, props,
+                    job.target_state_count, job.target_max_depth):
+                return entry, "partial"
+        if comp.get("core"):
+            entry, kind = self._delta_lookup(job, comp)
+            if entry is not None:
+                return entry, kind
+        return None, None
+
+    def _delta_lookup(self, job: Job, comp: dict):
+        """The "delta" rung: the spec index's complete entries of other
+        definitions at this batch size, largest first (at most 8), each
+        classified from its index row before its file is read; the first
+        that `warm.salvage_delta` serves wins. Refused candidates are
+        counted (`delta_refusals`). A salvaged partial (a widened boundary's
+        continuation) marks the job no-publish."""
+        new_comps = comp.get("comps")
+        if not isinstance(new_comps, dict):
+            return None, None
+        from ..store import specdelta
+
+        refusals = 0
+        members = [m for m in self._corpus.spec_members(comp["core"])
+                   if m.get("def") != comp.get("def") and m.get("complete")
+                   and int(m.get("batch_size", -1)) == self.batch_size]
+        members.sort(key=lambda m: int(m.get("states", 0)), reverse=True)
+        for m in members[:8]:
+            cls = specdelta.classify(new_comps, m.get("comps"))
+            if cls not in ("properties-only", "boundary-only"):
+                refusals += 1
+                continue
+            entry = self._corpus.lookup(m.get("key"))
+            if entry is None:
+                continue  # a corrupt or collected file: not a refusal
+            cls, served = warm_seam.salvage_delta(
+                entry, job.model, new_comps, self.batch_size, job.finish_when,
+                job.target_state_count, job.target_max_depth, device=self.device)
+            if served is None:
+                refusals += 1
+                continue
+            job.delta_class = cls
+            if not served.complete:
+                job.partial_kind = "delta"
+                job.no_publish = True
+            self._corpus.note_delta_hit(specdelta.component_reuse(new_comps, m.get("comps")))
+            self._corpus.note_delta_refusal(refusals)
+            return served, "delta"
+        self._corpus.note_delta_refusal(refusals)
+        return None, None
+
+    def _maybe_warm(self, job: Job) -> None:
+        """The preload at admission. A complete entry's visited set lands in
+        the spill tier and the summary salted with this job's salt (so that
+        co-resident jobs never see it), and the publisher's result waits on
+        the job for the replay; a continuable partial entry parks on
+        `job.partial_entry`, which `admit` turns into a resume payload. The
+        entry was read off the lock (`prefetch_warm`) unless no prefetch ran
+        (direct engine use), in which case the ladder is walked here once; a
+        prefetch that missed, or was faulted, is not retried."""
+        if self._corpus is None or job.warm is not None:
+            return
+        if job.content_key is None and job.warm_checked:
+            return  # no key: cold
+        prefetched = job.warm_checked
+        entry, kind = job.warm_entry, job.warm_entry_kind
+        job.warm_entry = job.warm_entry_kind = None
+        if entry is None and not job.warm_checked:
+            if not self._ensure_key(job):
+                return
+            entry, kind = self._warm_lookup(job)
+            job.warm_checked = True
+        if entry is None:
+            return
+        if not entry.complete:
+            job.partial_entry = entry
+            return
+        with self._tracer.span("corpus.preload", cat="store", job=job.id, trace=job.trace,
+                               states=entry.states):
+            n = self._store.preload(entry.fps, entry.parents, salt=job.salt)
+        self._corpus.note_preload(n)
+        job.warm = entry.meta
+        job.warm_kind = kind or "exact"
+        job.warm_states = n
+        if not prefetched:
+            job.verdict_preloads = self._corpus.preload_verdicts(entry)
+        # Pin the served entry (the near rung's is another key's) until
+        # the job retires.
+        self._corpus.pin(entry.key)
+        job.corpus_pinned = True
+        job.corpus_pin_key = entry.key
+        self._events.emit("job.warm_start", job=job.id, trace=job.trace, states=n,
+                          key=job.content_key[:16], kind=job.warm_kind)
+
+    def prepare_publish(self, job: Job) -> Optional[tuple]:
+        """The half of a publish that runs under the lock: the gate, and the
+        journal as packed arrays. A complete cold run (done, never stopped
+        early, timed out or cancelled: its journal is the whole reachable
+        set) publishes a complete entry with its Spec-CI planes; every other
+        end with a journal (an early exit, a timeout, a cancel, a count cap,
+        a preemption) publishes a partial one, with the frontier when the
+        cut is a step boundary (a pending frontier). Returns the payload for
+        `publish_payload`, or None. Must run before `retire`, which drops
+        the frontier."""
+        if (self._corpus is None or job.content_key is None or job.warm is not None
+                or job.no_publish or not job.journal or job.quarantined
+                or job.error is not None or job.status == JobStatus.ERROR):
+            return None
+        if job._spill_path is not None:
+            # Parked with its frontier on disk: the preemption cut already
+            # published this prefix, with its frontier.
+            return None
+        complete = (job.status == JobStatus.DONE and not job.early_exit
+                    and not job.timed_out and job.pending_lanes == 0)
+        frontier = None
+        if not complete and job.pending_lanes:
+            f = job._frontier_arrays()
+            frontier = {"states": f["q_states"], "lo": f["q_lo"], "hi": f["q_hi"],
+                        "ebits": f["q_ebits"], "depths": f["q_depths"]}
+        keys = np.concatenate([c[0] for c in job.journal])
+        parents = np.concatenate([c[1] for c in job.journal])
+        j_states = j_depths = None
+        if complete and job.state_journal:
+            j_states = np.concatenate([c[0] for c in job.state_journal])
+            j_depths = np.concatenate([c[1] for c in job.state_journal])
+            if len(j_states) != len(keys) or len(j_depths) != len(keys):
+                j_states = j_depths = None
+        return (
+            job.content_key,
+            keys.view(np.uint64),
+            parents.view(np.uint64),
+            {"state_count": job.state_count, "unique_count": job.unique_count,
+             "max_depth": job.max_depth, "discoveries": dict(job.discoveries)},
+            complete,
+            frontier,
+            self._key_and_components_for(job)[1],
+            None if j_states is None else j_states.astype(np.uint32),
+            None if j_depths is None else j_depths.astype(np.uint32),
+            job.model,
+        )
+
+    def publish_payload(self, payload: tuple) -> bool:
+        """The half of a publish that runs off the lock: the semantics
+        verdict table (complete entries), the boundary plane of the Spec-CI
+        journal, the summary hash and the crash-atomic write. Never
+        raises."""
+        (key, fps, parents, meta, complete, frontier, components,
+         j_states, j_depths, model) = payload
+        sem_fps = sem_verdicts = None
+        if complete:
+            from ..semantics.batch import export_verdicts
+
+            sem_fps, sem_verdicts = export_verdicts()
+        j_bound = None
+        if j_states is not None:
+            try:
+                from ..store import specdelta
+
+                j_bound = specdelta.eval_boundary(model, j_states, self.device)
+            except Exception:  # noqa: BLE001 — best-effort, like the write
+                j_states = j_depths = None
+        return self._corpus.publish(
+            key, fps, parents, meta, sem_fps=sem_fps, sem_verdicts=sem_verdicts,
+            complete=complete, frontier=frontier, components=components,
+            journal_states=j_states, journal_depths=j_depths, journal_bound=j_bound)
+
     def admit(self, job: Job) -> Optional[Job]:
         """Seed a job's init states into the shared table (salted, with no
         parent) and hand its frontier to the scheduler. Returns the job if
@@ -221,6 +531,13 @@ class ServiceEngine:
             job.max_depth = 1 if n0 else 0
             job.early_exit = True
             return job
+        # Preload a published visited set before seeding, so that the first
+        # step's successors are already filtered against it.
+        self._maybe_warm(job)
+        if job.partial_entry is not None:
+            # The partial rung: the entry's prefix and frontier are a resume
+            # payload, re-seeded and continued under this job's policy.
+            return self._admit_partial(job)
         K, dev = self.batch_size, self.device
         salted = salt_keys(keys, job.salt)
         for b0 in range(0, max(n0, 1), K):
@@ -239,11 +556,48 @@ class ServiceEngine:
         ebits0 = np.zeros((n0, len(props)), dtype=bool)
         ebits0[:, g.prop_is["eventually"]] = True
         job.push(init.numpy(), keys.numpy(), ebits0, np.ones(n0, np.int64))
-        job.journal_append(keys.numpy(), np.zeros(n0, np.int64))
+        # With a corpus, the Spec-CI plane journals the init rows too.
+        job.journal_append(keys.numpy(), np.zeros(n0, np.int64),
+                           *((init.numpy(), np.ones(n0, np.int64)) if self._corpus else ()))
         g.jobs.append(job)
         if job.pending_lanes == 0:
             return job  # empty reachable space: complete at once
         return None
+
+    def _admit_partial(self, job: Job) -> Optional[Job]:
+        """The partial rung's admission: the parked entry becomes a
+        `JobResume` (its prefix as the journal, its frontier snapshot as the
+        chunks, its counters and discoveries) and takes the requeue path,
+        one insert call per K rows. The job's journal grows on from the
+        prefix, so its natural finish publishes the complete set and
+        supersedes the partial entry."""
+        entry = job.partial_entry
+        job.partial_entry = None
+        j_lo, j_hi = warm_seam.split_fps(entry.fps)
+        jp_lo, jp_hi = warm_seam.split_fps(entry.parents)
+        f = entry.frontier
+        chunks = []
+        if f is not None and f["lo"].size:
+            # One chunk: `Job.take` pops FIFO across chunks and depth is per
+            # row.
+            chunks.append((np.asarray(f["states"], np.uint32), np.asarray(f["lo"], np.uint32),
+                           np.asarray(f["hi"], np.uint32), np.asarray(f["ebits"], bool),
+                           np.asarray(f["depths"], np.uint32)))
+        meta = entry.meta
+        job.resume = JobResume(
+            chunks=chunks, journal=(j_lo, j_hi, jp_lo, jp_hi),
+            state_count=meta["state_count"], unique_count=meta["unique_count"],
+            max_depth=meta["max_depth"], discoveries=dict(meta.get("discoveries", {})))
+        job.warm_kind = job.partial_kind
+        job.warm_states = entry.states
+        self._corpus.note_partial_preload()
+        self._corpus.note_preload(entry.states)
+        self._corpus.pin(entry.key)
+        job.corpus_pinned = True
+        job.corpus_pin_key = entry.key
+        self._events.emit("job.warm_start", job=job.id, trace=job.trace, states=entry.states,
+                          key=job.content_key[:16], kind=job.partial_kind)
+        return self._admit_resumed(job)
 
     def _admit_resumed(self, job: Job) -> Optional[Job]:
         """Fleet requeue admission: re-seed the job's whole visited set (the
@@ -257,11 +611,13 @@ class ServiceEngine:
         — after each on a tiered store, which evicts between the batches as
         it does between steps."""
         g = self.group_of(job)
+        # A requeued job looks in the corpus again on its new replica.
+        self._maybe_warm(job)
         rz = job.resume
-        if rz.was_warm:
-            # A warm run's journal covers only what it re-expanded; without
-            # the corpus (ROADMAP A12) no replica can re-warm, so the job
-            # restarts cold: slower, never wrong.
+        if rz.was_warm and job.warm is None:
+            # A warm run's journal covers only what it re-expanded; a replica
+            # that cannot re-warm (no corpus, a corrupt entry, a faulted
+            # load) restarts the job cold: slower, never wrong.
             self._tracer.instant("corpus.resume_restart", cat="store", job=job.id,
                                  trace=job.trace)
             job.resume = None
@@ -311,6 +667,9 @@ class ServiceEngine:
         # distinct, so the claims above agree with it).
         job.unique_count = rz.unique_count
         job.journal = [(keys, parents)] if n_j else []
+        # The payload has no state rows: the eventual publish has no Spec-CI
+        # plane (valid, never salvaged by a delta).
+        job.state_journal = None
         for states, lo, hi, ebits, depth in rz.chunks:
             job.push(np.asarray(states).astype(np.int64), _pack(lo, hi),
                      np.asarray(ebits, bool), np.asarray(depth).astype(np.int64))
@@ -329,6 +688,10 @@ class ServiceEngine:
         if g is not None and job in g.jobs:
             g.jobs.remove(job)
         job.drop_frontier()
+        if job.corpus_pinned and self._corpus is not None:
+            # The near and partial rungs pin the served entry's key.
+            self._corpus.unpin(job.corpus_pin_key or job.content_key)
+            job.corpus_pinned = False
         # Empty groups are kept: a later job of the same model reuses the
         # group and its pinned staging.
 
@@ -593,8 +956,10 @@ class ServiceEngine:
                          ebits[pr] if P else np.zeros((len(rows), 0), dtype=bool),
                          depth[pr] + 1)
                 # The fleet's journal: the claims, unsalted, from the host
-                # copies above (no extra wait for the card).
-                job.journal_append(o_keys[rows], keys[pr])
+                # copies above (no extra wait for the card); with a corpus,
+                # the Spec-CI plane's rows and depths beside them.
+                job.journal_append(o_keys[rows], keys[pr],
+                                   *((o_states[rows], depth[pr] + 1) if self._corpus else ()))
 
         if self._store is not None:
             self._maybe_evict()
@@ -646,8 +1011,32 @@ class ServiceEngine:
     # -- results / failure -----------------------------------------------------
 
     def build_result(self, job: Job) -> SearchResult:
+        if (job.warm is not None and job.status == JobStatus.DONE and job.pending_lanes == 0
+                and not job.early_exit and not job.timed_out):
+            # The warm replay: the run re-expanded the init frontier only
+            # (everything else was a preloaded duplicate), so the counts and
+            # discoveries are the publisher's cold run's, which for this
+            # content key are this submission's. The discoveries go onto the
+            # job, so that their paths walk the preloaded salted chains.
+            w = job.warm
+            job.state_count = w["state_count"]
+            job.unique_count = w["unique_count"]
+            job.max_depth = w["max_depth"]
+            job.discoveries = dict(w["discoveries"])
         detail = dict(self.store_stats() or {})
         detail["service"] = job.metrics.to_dict(job.unique_count)
+        if self._corpus is not None and job.content_key is not None:
+            detail["corpus"] = {
+                "warm_start": job.warm is not None or job.warm_kind is not None,
+                "preloaded_states": job.warm_states,
+                "verdict_preloads": job.verdict_preloads,
+                "published": job.published,
+                "key": job.content_key[:16],
+            }
+            if job.warm_kind is not None:
+                detail["corpus"]["warm_kind"] = job.warm_kind
+            if job.delta_class is not None:
+                detail["corpus"]["delta_class"] = job.delta_class
         if any(self.fault_counters.values()):
             # Present only once a fault happened (obs/schema.py
             # FAULTS_DETAIL_KEYS).

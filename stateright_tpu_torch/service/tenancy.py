@@ -183,7 +183,8 @@ class TenantQuotas:
 def tenant_salt(tenant: Optional[str]) -> Optional[str]:
     """The corpus-namespace salt for `tenant` — ``None`` for the default
     tenant (and for ``None``), so the default namespace's content keys are
-    unsalted. The corpus that reads it is ROADMAP A12."""
+    unsalted (store/corpus.py salts keys and the family and spec
+    addresses with it)."""
     if not tenant or tenant == DEFAULT_TENANT:
         return None
     return tenant

@@ -1,5 +1,5 @@
-"""The tiered state store (the JAX package's `stateright_tpu/store/`, the
-parts the resident engine runs): the device table is the hot tier, host
+"""The tiered state store and the warm-start corpus (the JAX package's
+`stateright_tpu/store/`): the device table is the hot tier, host
 RAM the cold tier, and a Bloom summary of the spilled set keeps the common
 probe on the device.
 
@@ -10,7 +10,12 @@ probe on the device.
   parents, first-writer dedup, exact membership and parents by binary
   search.
 - `tiered` — `TieredConfig`, `TieredStore`: high/low-water eviction of
-  non-full table rows, suspect resolution, per-tier counters.
+  non-full table rows, suspect resolution, per-tier counters, and the
+  corpus preload.
+- `corpus` — `CorpusStore`: the cross-job warm-start corpus of published
+  visited sets, content-addressed; `warm` — the one warm-start seam (the
+  preloads and the rung gates); `specdelta` — the definition digests and
+  the Spec-CI salvage rules.
 
 Import the submodules directly; this package file imports none of them, so
 that the tensor modules can import the store lazily without a cycle.

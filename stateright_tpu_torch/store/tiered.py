@@ -215,6 +215,47 @@ class TieredStore:
             self.sweep = (self.sweep + w) % self.n_buckets
         return freed
 
+    # -- warm-start preload (store/corpus.py) ----------------------------------
+
+    def preload(self, fps, parents, salt=None, summary_words_arr=None,
+                summary_cfg: Optional[tuple] = None) -> int:
+        """Seed the spill tier and the Bloom summary with a published visited
+        set (packed unsalted uint64 fingerprints and parents, the corpus
+        entry's shape, which is the spill tier's own) before the engine's
+        first step, so that every known state is a suspect at its first
+        re-appearance and is resolved exactly on the host.
+
+        `salt` (a packed int64 job salt) re-keys the set for a service job:
+        the spill tier stores table keys, and the salt keeps one job's
+        preload from shadowing another's; a root's parent stays 0. An
+        unsalted caller that passes the entry's serialized summary words
+        with a `summary_cfg` equal to this store's ORs them in (the
+        publisher hashed every key at this geometry already); otherwise the
+        keys are hashed into the summary on its device. Returns the states
+        preloaded."""
+        from ..tensor.fingerprint import salt_keys
+
+        keys = np.asarray(fps, dtype=np.uint64).view(np.int64)
+        par = np.asarray(parents, dtype=np.uint64).view(np.int64)
+        if keys.size == 0:
+            return 0
+        salted = salt is not None and int(salt) != 0
+        if salted:
+            keys = salt_keys(keys, np.int64(salt))
+            par = np.where(par == 0, 0, salt_keys(par, np.int64(salt)))
+        if (not salted and summary_words_arr is not None
+                and tuple(summary_cfg or ()) == self.summary_cfg
+                and np.asarray(summary_words_arr).size == self.summary.numel()):
+            words = np.ascontiguousarray(summary_words_arr, dtype=np.uint32).view(np.int32)
+            self.summary.bitwise_or_(torch.from_numpy(words).to(self.summary.device))
+        else:
+            for part in torch.from_numpy(np.ascontiguousarray(keys)).split(1 << 22):
+                insert(self.summary, part.to(self.summary.device), *self.summary_cfg)
+        # The spill tier keeps the first writer of a key, so preloading the
+        # same set again (a requeued job re-admitted here) adds nothing.
+        self.store.append(keys.view(np.uint64), np.asarray(par, np.int64).view(np.uint64))
+        return int(keys.size)
+
     # -- suspect resolution ----------------------------------------------------
 
     def resolve_suspects(self, keys) -> np.ndarray:

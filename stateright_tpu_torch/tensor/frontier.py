@@ -16,7 +16,8 @@ each step uploads one padded batch, runs the properties and the
 expand/fingerprint/insert core on the device, and brings the step's new
 states back in the JAX engine's order (`compact_new`). Its discoveries,
 early exits, tiered suspects and evictions, telemetry rows and checkpoint
-file are the JAX engine's.
+file are the JAX engine's. `warm_start` seeds it from a published corpus
+entry (store/warm.py): a complete one replays, a partial one continues.
 """
 
 from __future__ import annotations
@@ -34,8 +35,9 @@ from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..core.path import Path
 from ..faults.ckptio import atomic_savez, load_latest
-from ..knobs import STORE_KINDS
+from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import REGISTRY, StepRing, as_tracer, build_detail
+from ..store import warm as warm_seam
 from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
 from .inserts import resolve_insert
 from .model import TensorModel
@@ -309,6 +311,10 @@ class FrontierSearch:
     `checkpoint` / `load_checkpoint` write and read it in the JAX engine's
     file format, both ways."""
 
+    # The warm ladder's vocabulary and seam, aliased (knobs.check_registry).
+    WARM_KINDS = WARM_KINDS
+    WARM_SEAM = warm_seam
+
     def __init__(
         self,
         model: TensorModel,
@@ -380,6 +386,55 @@ class FrontierSearch:
         self._q = None
         self._counts = None
         self._disc: dict = {}
+        # The corpus payload (see warm_start): the publisher's result to
+        # replay, the states preloaded and the rung served.
+        self._warm: Optional[dict] = None
+        self._warm_states = 0
+        self._warm_kind: Optional[str] = None
+
+    def warm_start(self, entry, kind: Optional[str] = None) -> int:
+        """Preload a published corpus entry (store/corpus.py `CorpusEntry`)
+        into the tiered store before the first run(), through the one seam
+        (store/warm.py). A COMPLETE entry replays: every known state is a
+        suspect at its first re-appearance, resolved on the host as a
+        duplicate, so the search re-expands the init frontier only, and the
+        result is the publisher's. A PARTIAL entry continues: its frontier
+        snapshot becomes the queue (the init states are in the preloaded
+        prefix), its counters and discoveries the baseline, and run() picks
+        up where the publisher was cut. The engine is unsalted, so a
+        matching summary geometry ORs the entry's words in. The caller owns
+        the gate (`warm.can_replay` / `warm.can_continue`: the entry must be
+        this model's and lowering's) and a replay's finish policy. `kind`
+        names the rung (knobs.WARM_KINDS; default "exact", "partial" for a
+        partial entry). Returns the states preloaded."""
+        if self._store is None:
+            raise ValueError(
+                "warm_start requires store='tiered' (known states are "
+                "dedup-filtered through the spill tier's Bloom suspect path)"
+            )
+        n = warm_seam.preload_store(self._store, entry)
+        self._warm_states = n
+        if getattr(entry, "complete", True):
+            self._warm = dict(entry.meta)
+            self._warm_kind = kind or "exact"
+            return n
+        if entry.frontier is None:
+            raise ValueError("partial corpus entry has no frontier snapshot (coverage-only); "
+                             "a continuation needs the publisher's cut frontier")
+        self._warm_kind = kind if kind == "delta" else "partial"
+        m = entry.meta
+        self._q = deque(
+            _Chunk(torch.from_numpy(states.astype(np.int64)),
+                   torch.from_numpy(pack_fp(lo.astype(np.int64), hi.astype(np.int64))),
+                   ebits.copy(), depth)
+            for states, lo, hi, ebits, depth in warm_seam.frontier_chunks(entry))
+        self._counts = dict(state_count=int(m["state_count"]),
+                            unique_count=int(m["unique_count"]),
+                            max_depth=int(m["max_depth"]), steps=0, early_exit=False)
+        self._disc = dict(m.get("discoveries", {}))
+        self._hot_claims = 0
+        self._ring = StepRing(self._tm_capacity) if self._telemetry else None
+        return n
 
     # -- the device step -----------------------------------------------------
 
@@ -604,8 +659,23 @@ class FrontierSearch:
                 continue
             break
 
+        if self._warm is not None and complete and not queue and not counts.get("early_exit"):
+            # The warm replay: the run re-expanded the init frontier only,
+            # so the result is the publisher's cold run's, which for this
+            # content key is this search's; the discoveries go into
+            # self._disc, so that their paths walk the preloaded chains.
+            w = self._warm
+            state_count, unique_count = w["state_count"], w["unique_count"]
+            max_depth = w["max_depth"]
+            discoveries.clear()
+            discoveries.update(w["discoveries"])
         counts.update(state_count=state_count, unique_count=unique_count,
                       max_depth=max_depth, steps=steps)
+        detail = build_detail(self.store_stats(), self.telemetry_summary())
+        if self._warm_kind is not None:
+            detail = dict(detail or {})
+            detail["corpus"] = {"warm_start": True, "preloaded_states": self._warm_states,
+                                "warm_kind": self._warm_kind}
         return SearchResult(
             state_count=state_count,
             unique_state_count=unique_count,
@@ -616,7 +686,7 @@ class FrontierSearch:
             complete=complete and not queue and not counts.get("early_exit", False),
             duration=time.monotonic() - start,
             steps=steps,
-            detail=build_detail(self.store_stats(), self.telemetry_summary()),
+            detail=detail,
         )
 
     def _maybe_evict(self) -> None:

@@ -64,8 +64,9 @@ import torch
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..faults.ckptio import atomic_savez, load_latest
-from ..knobs import FINISH_KINDS, STORE_KINDS
+from ..knobs import FINISH_KINDS, STORE_KINDS, WARM_KINDS
 from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail
+from ..store import warm as warm_seam
 from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
     SearchResult,
@@ -343,6 +344,10 @@ class _TableParents:
 class ResidentSearch:
     """Whole-search device engine for a `TensorModel`."""
 
+    # The warm ladder's vocabulary and seam, aliased (knobs.check_registry).
+    WARM_KINDS = WARM_KINDS
+    WARM_SEAM = warm_seam
+
     def __init__(
         self,
         model: TensorModel,
@@ -445,6 +450,71 @@ class ResidentSearch:
         self._tm_host = np.zeros((self._TMR, N_COLS), np.uint32)
         self._tracer = as_tracer(tracer)
         self._metrics_name = REGISTRY.register("resident", self.metrics)
+        # The corpus payload (see warm_start): the publisher's result to
+        # replay, the states preloaded and the rung served.
+        self._warm: Optional[dict] = None
+        self._warm_states = 0
+        self._warm_kind: Optional[str] = None
+
+    def warm_start(self, entry, kind: Optional[str] = None) -> int:
+        """Preload a published corpus entry before the first run(), through
+        the one seam (store/warm.py). A COMPLETE entry replays: the prefix
+        lands in the spill tier and the Bloom summary (the words the seeded
+        carry reads), so the init frontier's successors are all suspects,
+        resolved as spilled duplicates, and the result is the publisher's.
+        A PARTIAL entry continues: its frontier snapshot fills a fresh
+        carry's queue (the `load_checkpoint` recipe, over an empty hot
+        table: the prefix is filtered through the preloaded spill tier), its
+        counters and discoveries the carry's, and run() finishes the rest.
+        The caller owns the gate (`warm.can_replay` / `warm.can_continue`,
+        or `warm.salvage_delta`'s entry with kind="delta"); a replay runs
+        under the publisher's finish policy. Returns the states
+        preloaded."""
+        if self._store is None:
+            raise ValueError(
+                "warm_start requires store='tiered' (known states are "
+                "dedup-filtered through the spill tier's Bloom suspect path)"
+            )
+        if self._c is not None:
+            raise ValueError("warm_start must run before the first run()")
+        n = warm_seam.preload_store(self._store, entry)
+        self._warm_states = n
+        if getattr(entry, "complete", True):
+            self._warm = dict(entry.meta)
+            self._warm_kind = kind or "exact"
+            return n
+        if entry.frontier is None:
+            raise ValueError("partial corpus entry has no frontier snapshot (coverage-only); "
+                             "a continuation needs the publisher's cut frontier")
+        self._warm_kind = kind if kind == "delta" else "partial"
+        meta, f = entry.meta, entry.frontier
+        nf = int(np.asarray(f["lo"]).size)
+        if nf > self._QL:
+            raise ValueError(f"partial entry's frontier ({nf} rows) exceeds the queue "
+                             f"(queue_log2={self.queue_log2}); raise queue_log2")
+        dev = self.device
+        c = self._alloc()
+        c["q_states"][:nf] = from_u32(np.asarray(f["states"], np.uint32), dev)
+        c["q_keys"][:nf] = (from_u32(f["hi"], dev) << 32) | from_u32(f["lo"], dev)
+        c["q_ebits"][:nf] = from_u32(warm_seam.pack_ebits(f["ebits"]), dev)
+        c["q_depth"][:nf] = from_u32(f["depths"], dev)
+        disc = meta.get("discoveries", {})
+        discovered = 0
+        for i, p in enumerate(self.props):
+            if p.name in disc:
+                discovered |= 1 << i
+                c["disc_keys"][i] = from_host_fp(int(disc[p.name]))
+        i64 = dict(dtype=torch.int64, device=dev)
+        c.update(
+            tail=torch.tensor(nf, **i64),
+            gen=torch.tensor(int(meta["state_count"]), **i64),
+            unique=torch.tensor(int(meta["unique_count"]), **i64),
+            max_depth=torch.tensor(int(meta["max_depth"]), **i64),
+            discovered=torch.tensor(discovered, **i64),
+        )
+        self._c = c
+        self._q_compacted = False
+        return n
 
     def _fresh_store(self) -> None:
         """(Re)build the tiered store: a fresh search owes nothing to an
@@ -736,15 +806,28 @@ class ResidentSearch:
             for i, p in enumerate(self.props)
             if discovered & (1 << i)
         }
+        complete = int(c["head"]) >= int(c["tail"]) and not timed_out
+        if self._warm is not None and complete:
+            # The warm replay: the run re-expanded the init frontier only,
+            # so the result is the publisher's cold run's, which for this
+            # content key is this engine's.
+            w = self._warm
+            gen, unique, max_depth = w["state_count"], w["unique_count"], w["max_depth"]
+            discoveries = dict(w["discoveries"])
+        detail = self._detail()
+        if self._warm_kind is not None:
+            detail = dict(detail or {})
+            detail["corpus"] = {"warm_start": True, "preloaded_states": self._warm_states,
+                                "warm_kind": self._warm_kind}
         return SearchResult(
             state_count=gen,
             unique_state_count=unique,
             max_depth=max_depth,
             discoveries=discoveries,
-            complete=int(c["head"]) >= int(c["tail"]) and not timed_out,
+            complete=complete,
             duration=time.monotonic() - start,
             steps=steps,
-            detail=self._detail(),
+            detail=detail,
         )
 
     def _drain(self, steps: int, window_us: float) -> None:

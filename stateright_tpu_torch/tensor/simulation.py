@@ -27,7 +27,13 @@ discoveries and witness paths.
   one visited table shared by every walk, through the visited-set insert
   (the CUDA kernel on the card), kept across rounds: `unique_state_count`
   is real coverage, and `stale_limit` ends a walk after that many
-  consecutive already-visited states.
+  consecutive already-visited states. `salt=` job-salts the table's keys
+  (tensor/fingerprint.py `salt_keys`, the JAX `salt_fp`), so that the
+  table can be shared with other users.
+- **The corpus** (store/corpus.py, store/warm.py): `warm_start` preloads a
+  published visited set into the shared table, so that walks re-entering
+  it count as dedup hits rather than coverage; `publish_coverage` publishes
+  the table as a coverage-only partial entry for the next campaign.
 
 Walk semantics are the host checker's (ref: src/checker/simulation.rs:
 254-397): the depth cap ends a walk without the eventually check; a
@@ -58,10 +64,11 @@ from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..core.path import Path
 from ..faults.ckptio import atomic_savez, load_latest
-from ..knobs import SIM_DEDUP_KINDS
+from ..knobs import SIM_DEDUP_KINDS, WARM_KINDS
 from ..obs import REGISTRY, build_detail
+from ..store import warm as warm_seam
 from . import prng
-from .fingerprint import to_host_fp
+from .fingerprint import job_salt, pack_salt, salt_keys, to_host_fp
 from .frontier import SearchResult, reinsert, replay_fp_chain, state_fingerprint
 from .inserts import resolve_insert
 from .model import TensorModel
@@ -83,6 +90,10 @@ class DeviceSimulation:
     seed advances per round, and the totals and the shared visited table
     persist. `checkpoint` / `load_checkpoint` persist the rounds loop, in
     the JAX engine's file format."""
+
+    # The warm ladder's vocabulary and seam, aliased (knobs.check_registry).
+    WARM_KINDS = WARM_KINDS
+    WARM_SEAM = warm_seam
 
     def __init__(
         self,
@@ -107,9 +118,10 @@ class DeviceSimulation:
         walk's path); `ring` sizes the per-walk cycle ring and
         `table_log2` the shared table (dedup="shared"). `stale_limit` > 0
         ends a walk after that many consecutive already-visited states
-        (shared only). `salt` (job-salted keys) is not ported yet (ROADMAP
-        A14): only 0. The engine runs on `device`: the CUDA card unless
-        `device="cpu"` is passed; with no CUDA device the default raises."""
+        (shared only). A nonzero `salt` (a job id) salts the shared
+        table's keys and parents as the JAX engine's `salt_fp` does. The
+        engine runs on `device`: the CUDA card unless `device="cpu"` is
+        passed; with no CUDA device the default raises."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -118,11 +130,6 @@ class DeviceSimulation:
             )
         if dedup not in SIM_DEDUP_KINDS:  # knob universe: knobs.py
             raise ValueError(f"dedup must be one of {SIM_DEDUP_KINDS}, got {dedup!r}")
-        if salt:
-            raise NotImplementedError(
-                "salt (job-salted shared-table keys, salt_fp) is not ported yet "
-                "(ROADMAP A14); use salt=0"
-            )
         if dedup == "trace" and (1 << cycle_log2) < 2 * max_depth:
             raise ValueError(
                 "per-walk cycle table must hold 2x max_depth entries; raise cycle_log2"
@@ -141,6 +148,8 @@ class DeviceSimulation:
         self.walks = walks
         self.stale_limit = stale_limit
         self.salt = salt
+        # The packed int64 salt of the table's keys (0: unsalted).
+        self._salt_key = pack_salt(*job_salt(salt)) if salt else 0
         self.continuous = continuous
         self.telemetry = telemetry
         self.table = (PallasHashTable(table_log2, device=self.device)
@@ -153,6 +162,8 @@ class DeviceSimulation:
             duration=0.0,
         )
         self._discoveries: dict = {}  # name -> the witness path's host fingerprints
+        self._warm_states = 0
+        self._warm_kind: Optional[str] = None  # knobs.WARM_KINDS rung served
         self._metrics_name = REGISTRY.register("simulation", self.metrics)
 
     # -- one round -----------------------------------------------------------
@@ -255,8 +266,12 @@ class DeviceSimulation:
 
         stale_out = None
         if shared:
-            _, _, is_new, ovf = self.insert(self.table.t_key, self.table.t_parent, key,
-                                            c["prev"], walking)
+            t_in, p_in = key, c["prev"]
+            if self._salt_key:
+                # The JAX engine salts the parent too, a root's 0 included.
+                t_in, p_in = salt_keys(key, self._salt_key), salt_keys(p_in, self._salt_key)
+            _, _, is_new, ovf = self.insert(self.table.t_key, self.table.t_parent, t_in,
+                                            p_in, walking)
             hit = walking & ~is_new
             c["unique"] = c["unique"] + (walking & is_new).sum()
             c["dedup_hits"] = c["dedup_hits"] + hit.sum()
@@ -389,8 +404,73 @@ class DeviceSimulation:
             complete=False,  # a simulation never proves exhaustion
             duration=duration,
             steps=t["steps"],
-            detail=build_detail(None, self.telemetry_summary()),
+            detail=build_detail(
+                {"corpus": {"warm_start": True, "preloaded_states": self._warm_states,
+                            "warm_kind": self._warm_kind}}
+                if self._warm_kind is not None else None,
+                self.telemetry_summary()),
         )
+
+    # -- the corpus ----------------------------------------------------------
+
+    def warm_start(self, entry, kind: Optional[str] = None) -> int:
+        """Preload the shared table from a published `CorpusEntry` (the
+        store/warm.py seam, `preload_table`: one insert call per 4096 rows,
+        through the kernel on the card), salted as the engine's own inserts
+        are: walks that re-enter the set count as `dedup_hits`, not as new
+        coverage. Any entry serves (a visited set is sound coverage whether
+        its run completed or not), coverage-only ones included; `kind` names
+        the rung (default "exact" for a complete entry, else "partial").
+        Best-effort at a full table. Returns the states inserted."""
+        if self.table is None:
+            raise ValueError("warm_start needs the shared visited table (dedup='shared')")
+        n = warm_seam.preload_table(self.table, entry.fps, entry.parents, salt=self._salt_key)
+        self._warm_states += n
+        self._warm_kind = kind or ("exact" if getattr(entry, "complete", True) else "partial")
+        return n
+
+    def publish_coverage(self, corpus, tenant: Optional[str] = None) -> bool:
+        """Publish the shared table as a coverage-only partial entry (no
+        frontier): a later campaign on the same definition preloads it
+        (`corpus.lookup_family`, `warm_start`) and walks into the rest of
+        the space. The lowering (batch 0, no finish) never matches an
+        exhaustive engine's key, `warm.can_continue` refuses an entry
+        without a frontier, and the delta rung serves complete entries
+        only. The table's keys are unsalted first. Returns True when the
+        entry was written."""
+        if self.table is None:
+            raise ValueError("publish_coverage needs the shared visited table "
+                             "(dedup='shared')")
+        from ..store.corpus import content_key, key_components
+
+        keys = self.table.t_key.cpu().numpy()
+        parents = self.table.t_parent.cpu().numpy()
+        occupied = keys != 0
+        keys, parents = keys[occupied], parents[occupied]
+        if self._salt_key:
+            keys = salt_keys(keys, np.int64(self._salt_key))
+            parents = np.where(parents == 0, 0, salt_keys(parents, np.int64(self._salt_key)))
+        # The dump's order (the JAX `dump()` is a dict in key order).
+        order = np.argsort(keys.view(np.uint64), kind="stable")
+        fps, parents = keys.view(np.uint64)[order], parents.view(np.uint64)[order]
+        lowering = {
+            "engine": "simulation",
+            "dedup": self.dedup,
+            "table_log2": self.table_log2,
+            "insert_variant": "pallas",
+            "batch_size": 0,
+            "finish": None,
+        }
+        meta = {
+            "state_count": int(self._totals["states"]),
+            "unique_count": int(fps.size),
+            "max_depth": int(self._totals["max_depth"]),
+            # Coverage only: walk witnesses are not first-match fingerprints.
+            "discoveries": {},
+        }
+        return corpus.publish(content_key(self.model, lowering, tenant=tenant), fps, parents,
+                              meta, complete=False, frontier=None,
+                              components=key_components(self.model, lowering, tenant=tenant))
 
     # -- observability -------------------------------------------------------
 

@@ -236,3 +236,21 @@ def sleep_past(seconds: float) -> None:
     import time
 
     time.sleep(seconds)
+
+
+def warm_ladder(complete_dir: str, complete_key: str, partial_dir: str,
+                partial_key: str) -> dict:
+    """The exact and partial rungs of the corpus warm ladder on a sharded
+    search (tests/test_torch_corpus.py): each rank preloads its owner's
+    share of the published 2pc-3 entries."""
+    from stateright_tpu_torch.store.corpus import CorpusStore
+
+    out = {}
+    for kind, entry in (("exact", CorpusStore(complete_dir).lookup(complete_key)),
+                        ("partial", CorpusStore(partial_dir).lookup_partial(partial_key))):
+        ss = engine(tm.TensorTwoPhaseSys(3), batch_size=128, table_log2=14, store="tiered",
+                    summary_log2=16)
+        ss.warm_start(entry)
+        r = ss.run()
+        out[kind] = dict(summary(r), corpus=r.detail["corpus"])
+    return out

@@ -292,8 +292,21 @@ def test_unported_fleet_surfaces_raise_naming_their_item(tmp_path):
 
     with pytest.raises(NotImplementedError, match="item 3"):
         ServiceFleet(remote=True)
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServiceFleet(corpus_dir=str(tmp_path))
+    # The warm-start corpus is ported: a fleet over one corpus directory
+    # builds, each replica on a tiered store with the corpus attached and
+    # fenced by its lease; a wire-store corpus root names item 3.
+    fleet = ServiceFleet(n_replicas=2, background=False, corpus_dir=str(tmp_path / "c"),
+                         lease_dir=str(tmp_path / "l"),
+                         service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
+    try:
+        for rep in fleet.replicas:
+            corpus = rep.service._engine._corpus
+            assert rep.service._engine.store == "tiered" and corpus is not None
+            assert corpus.root == str(tmp_path / "c") and corpus._lease is rep.lease
+    finally:
+        fleet.close()
+    with pytest.raises(NotImplementedError, match="item 3"):
+        ServiceFleet(corpus_dir="blob://localhost:9/corpus")
     with pytest.raises(NotImplementedError, match="item 3"):
         ServiceFleet(lease_dir="blob://localhost:9/leases")
     for uri in ("blob://localhost:9/r", "s3://bucket/r", "gs://bucket/r"):

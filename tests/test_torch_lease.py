@@ -1,7 +1,7 @@
 """The port's epoch-fenced checkpoint leases (stateright_tpu_torch/service/
 lease.py and faults/ckptio.py's fenced half) on the CPU: the mirrors of
-tests/test_lease.py but its corpus-publish test, which waits for the
-warm-start corpus (ROADMAP A12).
+tests/test_lease.py, its corpus-publish test included (a slow publish runs
+off the service lock).
 
 Once the router revokes a member's lease, that member's writes are
 harmless: refused at the write, rejected at the read (the open-fd race the
@@ -13,6 +13,7 @@ across packages)."""
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -362,3 +363,42 @@ def test_probe_backoff_does_not_block_death_declaration():
         assert bad.probes == 3  # exactly unhealthy_after probes, then dead
     finally:
         router.close()
+
+
+def test_slow_corpus_publish_does_not_stall_unrelated_poll(tmp_path, monkeypatch):
+    """While one job's corpus publish is parked in its (off-lock) write, an
+    unrelated job's poll answers at once instead of queueing on the service
+    lock."""
+    import stateright_tpu_torch.store.corpus as corpus_mod
+    from stateright_tpu_torch.service import CheckService
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    started, release = threading.Event(), threading.Event()
+    orig = corpus_mod.CorpusStore.publish
+
+    def slow_publish(self, *a, **kw):
+        started.set()
+        release.wait(20)
+        return orig(self, *a, **kw)
+
+    monkeypatch.setattr(corpus_mod.CorpusStore, "publish", slow_publish)
+    svc = CheckService(batch_size=128, table_log2=14, store="tiered", summary_log2=16,
+                       corpus_dir=str(tmp_path / "corpus"), background=True, device="cpu")
+    try:
+        m = TensorTwoPhaseSys(3)
+        h1 = svc.submit(m)
+        assert started.wait(120), "publisher never reached the corpus"
+        h2 = svc.submit(m)
+        t0 = time.monotonic()
+        out = svc.poll(h2.id)
+        dt = time.monotonic() - t0
+        assert out["id"] == h2.id
+        assert dt < 1.0, f"poll stalled {dt:.2f}s behind a corpus publish"
+        release.set()
+        r1 = h1.result(timeout=120)
+        assert (r1.state_count, r1.unique_state_count) == (1_146, 288)
+        assert r1.detail["corpus"]["published"] is True
+        h2.result(timeout=120)
+    finally:
+        release.set()
+        svc.close()

@@ -376,15 +376,25 @@ def test_service_tiered_pallas_salted_fused_probe_2pc4():
         ref[0], ref[1], ref[2], _no_wait(ref[3]), ref[4])
 
 
-def test_submit_rejects_host_models_and_fleet_options(svcs):
+def test_submit_rejects_host_models_and_fleet_options(svcs, tmp_path):
     _j, p = svcs
     with pytest.raises(TypeError, match="TensorModel"):
         p.submit(object())
     # The fleet's options are ported: a resume must be a JobResume payload.
     with pytest.raises(TypeError, match="JobResume"):
         p.submit(P3, resume={"not": "a checkpoint"})
-    with pytest.raises(NotImplementedError, match="A12"):
-        CheckService(device="cpu", background=False, corpus_dir="x")
+    # The warm-start corpus is ported: it builds on a tiered store and, as
+    # in the JAX service, refuses a service without one.
+    with pytest.raises(ValueError, match="tiered"):
+        CheckService(device="cpu", background=False, corpus_dir=str(tmp_path / "x"))
+    with pytest.raises(ValueError, match="tiered"):
+        JaxService(background=False, corpus_dir=str(tmp_path / "y"))
+    svc = CheckService(device="cpu", background=False, store="tiered",
+                       corpus_dir=str(tmp_path / "c"))
+    try:
+        assert svc.stats()["corpus"]["publishes"] == 0
+    finally:
+        svc.close()
 
 
 def test_service_defaults_to_the_card():

@@ -237,10 +237,21 @@ def test_telemetry_off_and_knob_checks():
     assert sim.run().detail is None and sim.telemetry_summary() is None
     for kw, err in ((dict(dedup="global"), ValueError),
                     (dict(max_depth=512, cycle_log2=9), ValueError),
-                    (dict(stale_limit=4), ValueError),
-                    (dict(dedup="shared", salt=7), NotImplementedError)):
+                    (dict(stale_limit=4), ValueError)):
         try:
             DeviceSimulation(pm.TensorTwoPhaseSys(3), device="cpu", **kw)
         except err:
             continue
         raise AssertionError(f"{kw} was accepted")
+    # A job salt is ported: salt=7 salts the shared table's keys and
+    # parents, and the walks, counts and table equal the JAX engine's.
+    kw = dict(dedup="shared", salt=7, max_depth=64, traces=256, table_log2=14, walks=512)
+    sim = DeviceSimulation(pm.TensorTwoPhaseSys(3), device="cpu", **kw)
+    ref = JaxSimulation(jm.TensorTwoPhaseSys(3), insert_variant="pallas", **kw)
+    r, rj = sim.run(), ref.run()
+    assert (r.state_count, r.unique_state_count, r.discoveries) == (
+        rj.state_count, rj.unique_state_count, rj.discoveries)
+    assert sim.metrics() == ref.metrics()
+    table = {int(k) & (2**64 - 1): int(v) & (2**64 - 1)
+             for k, v in zip(sim.table.t_key.tolist(), sim.table.t_parent.tolist()) if k}
+    assert table == ref.table.dump()
