@@ -36,7 +36,8 @@ seconds on a line of its own:
 8. this slice's main path at full width: 2pc-10 through a 2^25 hot tier
    (store="tiered", high water 0.85, summary 2^28 bits) to the same golden,
    both witnesses replayed;
-9. a short profiled window of 2pc-10 steps: where the device time goes,
+9. a short profiled window of 2pc-10 steps (the first 128): where the
+   device time goes,
    and the kernel against its plain version on the real step at the queue
    head after it;
 10. model breadth through `spawn_cuda()`: paxos-1 and paxos-2, 2pc-5 and
@@ -197,7 +198,35 @@ seconds on a line of its own:
     `DeviceSimulation` of 2pc-7 warm-started from that entry
     (`warm.preload_table`), its first preload insert held against the
     plain version, its walks equal to a CPU twin's, and its
-    `publish_coverage` entry read back.
+    `publish_coverage` entry read back;
+20. the fleet across processes (stateright_tpu_torch/service/{remote,
+    replica_main,discovery,autoscale}.py, faults/blobstore.py's wire
+    half), every replica a `replica_main` process on the card (a CUDA
+    device in its `/.probe`, the card's device file open, a row of
+    nvidia-smi's compute processes): (a) phase 18's mix over HTTP on
+    three replica processes sharing a directory root (batch 8192, table
+    2^24, a checkpoint every spin), the paxos-3 route key's replica
+    killed -9 after 200 of its steps: every job at its golden and equal
+    to its standalone run, none lost, a clean timeline through the CLI;
+    each child's boot seconds, the wall, crash to a resumed job's first
+    step split into detect, re-seal, load (load_npz) and re-seed, the
+    rows re-seeded; the first 8,192 journal rows of a requeued job's
+    newest generation, written by a child, inserted into a fresh 2^24
+    table through the kernel and the plain version; (b) two tiered
+    replica processes (2^20 slots, a 2^24-bit summary) on a `blob://`
+    root served by an emulator in this process, two paxos-3 jobs, the
+    holder SIGSTOPped after its first spill until declared dead, then
+    SIGCONTed: its writes fenced (`lease` `rejected_total` > 0 in its own
+    `/.status`), the survivor's fused steps to the golden, a clean
+    timeline read back from the blob root, and the survivor's generation
+    through the fused kernel and its plain version against a summary of
+    its journal; (c) one replica process, a 2pc-7 backlog and a
+    foreground `Autoscaler`: an injected ``fleet.autoscale`` fault aborts
+    the first grow, a scale-out boots a second process that takes work
+    through probation, a scale-in retires one mid-backlog, every job
+    equal to its standalone run. The insert calls of (a) and (b) are
+    derived from what the children serve (device steps, seeds, re-seed
+    calls): `launches_fleet_remote` and `launches_fleet_remote_tiered`.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -252,6 +281,10 @@ PAXOS5_DEPTH, BATCH_PAXOS5, TABLE_PAXOS5 = 10, 4096, 19
 GOLDEN_PAXOS5S4C10 = (661_580, 242_819)
 GOLDEN_PAXOS2, GOLDEN_PAXOS1 = (32_971, 16_668), (482, 265)
 STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspects_dup")
+# Phase 9's profiled 2pc-10 steps: 640 took 170.8 s of a 720.2 s whole smoke
+# on an H100 80GB HBM3 at 700 W (PERF.md, the corpus slice); 128 keep the
+# per-step numbers (ms a step, launches, busy share, the queue-head layers).
+PROFILE_STEPS = 128
 # Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
 # csrc/visited_insert.cu), one 32-byte sector each.
 PROBE_SECTORS = 8
@@ -1084,12 +1117,13 @@ def chunk_launches(torch, eng):
 
 
 def phase_profile(ph, torch, chk):
-    """Where a 2pc-10 step's time goes: the first 640 steps, and each layer
-    at the queue head after them (profile_window)."""
+    """Where a 2pc-10 step's time goes: the first PROFILE_STEPS steps, and
+    each layer at the queue head after them (profile_window)."""
     from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
 
     return profile_window(ph, torch, chk, "[profile]", "2pc-10", TensorTwoPhaseSys(10),
-                          BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10, 640, telemetry_ab=True)
+                          BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10, PROFILE_STEPS,
+                          telemetry_ab=True)
 
 
 def breadth_anchors():
@@ -3389,6 +3423,453 @@ def phase_corpus(ph, torch, chk):
                 launches=launches, bloom_launches=bloom)
 
 
+# -- phase 20: the fleet across processes -----------------------------------------
+
+# (a): three replica processes; the paxos-3 holder is killed -9 after this
+# many of its device steps. `max_resident=2` leaves a queue that the idle
+# replicas steal from, so every child steps on the card before the kill.
+REMOTE_REPLICAS, REMOTE_CRASH_STEPS, REMOTE_MAX_RESIDENT = 3, 200, 2
+REMOTE_PROBE = dict(probe_timeout_s=0.5, unhealthy_after=2)
+# (c): one replica process, this backlog of 2pc-7 jobs, one job resident: at
+# ~0.7 s a job on an H100 80GB HBM3 at 700 W it outlasts a child's boot (~8.4 s)
+# with work left for the scale-in. A service's table keeps every job's states
+# (10.7 M for 36 jobs), so 2^24 slots.
+AUTOSCALE_JOBS, AUTOSCALE_TABLE = 36, 24
+PLAIN_ROWS = 8192  # the journal rows a re-seed insert call takes (the batch)
+
+
+def smi_compute_apps():
+    """[(pid, MiB)] of the compute processes nvidia-smi lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    apps = []
+    for line in out.strip().splitlines():
+        pid, _, mem = line.partition(",")
+        try:
+            apps.append((int(pid), int(mem.strip().split()[0])))
+        except (ValueError, IndexError):
+            continue
+    return apps
+
+
+def opened_card(pid) -> bool:
+    """True when process `pid` holds an open handle on a card device
+    (/dev/nvidia<N>), read from its file descriptors."""
+    fd_dir = f"/proc/{pid}/fd"
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia") and target[len("/dev/nvidia"):].isdigit():
+            return True
+    return False
+
+
+def children_on_card(fleet, tag):
+    """Every live replica process is on the card: its `/.probe` names a
+    CUDA device, it holds the card's device file open, and nvidia-smi lists
+    it among the card's compute processes with memory there — by its pid
+    where nvidia-smi sees this process namespace, else (a container maps
+    every pid to one it cannot resolve) by one row with memory for each
+    process of the fleet, this one included. A child on the CPU fails the
+    phase. Returns {idx: (pid, device_steps)}."""
+    apps = smi_compute_apps()
+    live = [r for r in fleet.replicas if r.proc is not None and r.proc.poll() is None]
+    rows = {}
+    for r in live:
+        p = r._get_json("/.probe", timeout=10.0)
+        assert str(p.get("device", "")).startswith("cuda"), (tag, r.idx, p.get("device"))
+        assert opened_card(r.proc.pid), f"{tag}: replica {r.idx} holds no card device open"
+        rows[r.idx] = (r.proc.pid, int(p.get("device_steps", 0)))
+    pids = {pid for pid, _mem in apps}
+    if all(pid in pids for pid, _s in rows.values()):
+        mem = dict(apps)
+        assert all(mem[pid] > 0 for pid, _s in rows.values()), (tag, apps)
+        how = "by pid"
+    else:
+        assert len(apps) >= len(live) + 1 and all(m > 0 for _p, m in apps), (tag, apps)
+        how = f"{len(apps)} rows, pids unresolved in this namespace"
+    log(f"{tag} on the card: nvidia-smi compute processes {apps} ({how}); "
+        + ", ".join(f"replica{i} pid {pid} holds /dev/nvidia open, {steps} steps"
+                    for i, (pid, steps) in rows.items()))
+    return rows
+
+
+def run_timeline_cli(root):
+    """The port's timeline CLI in a process of its own; its --json report."""
+    proc = subprocess.run([sys.executable, "-m", "stateright_tpu_torch.obs.timeline", root,
+                           "--json"], capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def remote_job_matches(router, jid, ref):
+    """A remote job's result equals its standalone run: depth and discovery
+    fingerprints, and the witness actions where the process that ran the
+    job still serves them (a killed or retired one does not). Returns
+    (result, whether the witnesses were compared)."""
+    r = router.result(jid)
+    want = {n: fp for n, (fp, _a) in ref["discoveries"].items()}
+    assert r.max_depth == ref["max_depth"], (jid, r.max_depth, ref["max_depth"])
+    assert r.discoveries == want, (jid, r.discoveries, want)
+    rep = router.replicas.get(router._jobs[jid].replica)
+    if rep is None or not rep.alive:
+        return r, False
+    got = {n: (int(rec["fingerprint"]), rec["actions"])
+           for n, rec in router.discovery_paths(jid).items()}
+    assert got == ref["discoveries"], (jid, got, ref["discoveries"])
+    return r, True
+
+
+def journal_rows_on_card(torch, path, n):
+    """The first `n` journal rows (keys, parents, active) of the newest
+    fenced generation at `path`, loaded in this process through the port's
+    `load_fenced_resume`, as the card tensors a re-seed call gets."""
+    from stateright_tpu_torch.service.lease import load_fenced_resume
+    from stateright_tpu_torch.service.queue import _pack
+
+    rz = load_fenced_resume(path, None)
+    assert rz is not None, f"no intact generation at {path}"
+    keys, parents = _pack(rz.journal[0], rz.journal[1]), _pack(rz.journal[2], rz.journal[3])
+    rows = min(n, len(keys))
+    dev = torch.device("cuda")
+    key = torch.zeros(n, dtype=torch.int64, device=dev)
+    parent = torch.zeros(n, dtype=torch.int64, device=dev)
+    key[:rows] = torch.from_numpy(keys[:rows]).to(dev)
+    parent[:rows] = torch.from_numpy(parents[:rows]).to(dev)
+    active = torch.arange(n, device=dev) < rows
+    return key, parent, active, torch.from_numpy(keys).to(dev)
+
+
+class RemoteClock:
+    """The smoke process's side of a recovery in a remote fleet: when the
+    router saw the death (`_on_replica_death`) and its seconds re-sealing
+    orphan generations (`_resume_token`) after the kill."""
+
+    def __init__(self, router):
+        self.t_kill = self.t_detect = None
+        self.reseal_s = 0.0
+        real_death, real_token = router._on_replica_death, router._resume_token
+
+        def on_death(r):
+            if self.t_kill is not None and self.t_detect is None:
+                self.t_detect = time.time()
+            return real_death(r)
+
+        def resume_token(*a, **kw):
+            t = time.monotonic()
+            try:
+                return real_token(*a, **kw)
+            finally:
+                if self.t_kill is not None:
+                    self.reseal_s += time.monotonic() - t
+        router._on_replica_death, router._resume_token = on_death, resume_token
+
+
+def remote_killed(ph, torch, chk, refs, tmp):
+    """(a): phase 18's mix over HTTP on three replica processes sharing a
+    directory root; the paxos-3 holder killed -9 mid-run."""
+    import signal
+
+    from stateright_tpu_torch.service import ServiceFleet, serve_fleet
+
+    root = os.path.join(tmp, "a")
+    t0 = time.monotonic()
+    fleet = ServiceFleet(
+        n_replicas=REMOTE_REPLICAS, remote=True, store_root=root,
+        max_resident=REMOTE_MAX_RESIDENT, router_kwargs=REMOTE_PROBE,
+        service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TABLE))
+    boot_s = time.monotonic() - t0
+    server = None
+    try:
+        boots = {r.idx: r.boot_s for r in fleet.replicas}
+        clock = RemoteClock(fleet.router)
+        server = serve_fleet(fleet, "localhost:0")
+        base = "http://" + server.address
+        router = fleet.router
+        refs_args = {"paxos3": ("paxos", {"n": 3}), "2pc7": ("2pc", {"n": 7})}
+        t1 = time.monotonic()
+        jobs = []
+        for name, n in SERVICE_JOBS.items():
+            model, args = refs_args[name]
+            jobs += [(name, http_json(base, "/jobs", {"model": model, "args": args})["job"])
+                     for _ in range(n)]
+        # The paxos-3 jobs share one route key and so one owner, which the
+        # idle replicas steal queued jobs from.
+        victim = fleet.replicas[router.ring.lookup("paxos:n=3")]
+        while True:
+            p = victim._get_json("/.probe", timeout=10.0)
+            if p["device_steps"] >= REMOTE_CRASH_STEPS:
+                break
+            assert time.monotonic() - t1 < 300, p
+            time.sleep(0.05)
+        on_card = children_on_card(fleet, "[remote] (a)")
+        victim_steps = victim._get_json("/.probe", timeout=10.0)["device_steps"]
+        clock.t_kill = time.time()
+        os.kill(victim.proc.pid, signal.SIGKILL)
+        t_kill = time.monotonic() - t1
+        while not router.all_done():
+            assert time.monotonic() - t1 < 600, fleet.stats()
+            time.sleep(0.05)
+        sec = time.monotonic() - t1
+        survivors = [r for r in fleet.replicas if r is not victim]
+        probes = {r.idx: r._get_json("/.probe", timeout=10.0) for r in survivors}
+        resume = {r.idx: r._get_json("/.status", timeout=10.0)["resume"] for r in survivors}
+        generated = witnesses = 0
+        for name, jid in jobs:
+            p = http_json(base, f"/jobs/{jid}")
+            assert p["status"] == "done", p
+            r, witnessed = remote_job_matches(router, jid, refs[name])
+            witnesses += witnessed
+            gold = GOLDEN_PAXOS3 if name == "paxos3" else GOLDEN_2PC7
+            assert (r.state_count, r.unique_state_count) == gold and r.complete, (name, r)
+            generated += r.state_count
+        st = fleet.stats()
+        requeued = [jid for name, jid in jobs if router._jobs[jid].requeues]
+        paths = {jid: router._jobs[jid].ckpt_path for _n, jid in jobs}
+    finally:
+        if server is not None:
+            server.shutdown()
+        fleet.close()
+    assert st["replica_crashes"] == 1 and st["lease_revokes"] == 1, st
+    assert requeued and st["restored_jobs"] >= 1, st
+    steps = {**{i: int(p["device_steps"]) for i, p in probes.items()}, victim.idx: victim_steps}
+    assert all(v > 0 for v in steps.values()), steps
+    report = run_timeline_cli(os.path.join(root, "journal"))
+    assert report["anomalies"] == [] and len(report["traces"]) == len(jobs), report["anomalies"]
+    seeds = len(jobs) + st["requeued_jobs"] - st["restored_jobs"]
+    reseed_calls = sum(r["reseed_calls"] for r in resume.values())
+    rows = sum(r["reseed_rows"] for r in resume.values())
+    first = min(r["first_step_ts"] for r in resume.values() if r["first_step_ts"] is not None)
+    split = dict(detect=clock.t_detect - clock.t_kill, reseal=clock.reseal_s,
+                 load=sum(r["load_s"] for r in resume.values()),
+                 load_npz=sum(r["load_npz_s"] for r in resume.values()),
+                 reseed=sum(r["reseed_s"] for r in resume.values()))
+    launches = sum(steps.values()) + seeds + reseed_calls
+    log(f"[remote] (a) boots (spawn to member record, side by side): "
+        + " ".join(f"replica{i}={b:.3f} s" for i, b in boots.items())
+        + f"; the fleet built in {boot_s:.3f} s")
+    log(f"[remote] (a) {len(jobs)} jobs over HTTP ({SERVICE_JOBS}) on {REMOTE_REPLICAS} replica "
+        f"processes, batch {BATCH_PAXOS3}, table 2^{SERVICE_TABLE}, a checkpoint every spin, "
+        f"max_resident={REMOTE_MAX_RESIDENT}: sec={sec:.3f} generated={generated} "
+        f"generated_per_s={generated / sec:.0f}; replica {victim.idx} (the paxos-3 route key) "
+        f"killed -9 at {t_kill:.3f} s after {victim_steps} steps; requeued_jobs="
+        f"{st['requeued_jobs']} restored_jobs={st['restored_jobs']} steals={st['steals']} "
+        f"lease_revokes={st['lease_revokes']} lease_reseals={st['lease_reseals']}")
+    log(f"[remote] (a) crash to a resumed job's first step {first - clock.t_kill:.3f} s: "
+        + " ".join(f"{k}={v:.3f}" for k, v in split.items())
+        + f" s (load_npz is the part of load in JobResume.from_npz; the survivors' own "
+        f"clocks); re-seeded rows={rows} in {reseed_calls} insert calls")
+    log(f"[remote] (a) device steps per replica {steps}; insert calls derived: "
+        f"{sum(steps.values())} steps + {seeds} seeds + {reseed_calls} re-seed calls = "
+        f"{launches}; every job at its golden and equal to its standalone run (witness "
+        f"actions of the {witnesses} served by a live process), none lost; the timeline "
+        f"CLI reads {len(report['traces'])} clean lifecycles")
+    # The kernel against its plain version on a child-written generation.
+    path = paths[requeued[0]]
+    key, parent, active, _all = journal_rows_on_card(torch, path, PLAIN_ROWS)
+    _, is_new, _ = compare_quietly(ph, chk, SERVICE_TABLE,
+                                   dict(key=key, parent=parent, active=active, tables=None))
+    valid = int(active.sum())
+    roots = int((active & (parent == 0)).sum())
+    assert int(is_new.sum()) == valid and roots >= 1, (int(is_new.sum()), valid, roots)
+    log(f"[remote] (a) insert kernel vs plain on the first {valid} journal rows of "
+        f"{os.path.basename(path)}, written by a replica process on the card ({roots} roots): "
+        f"into a fresh 2^{SERVICE_TABLE}-slot table, {int(is_new.sum())} new; the verdicts "
+        "and the stored pairs agree")
+    return dict(sec=sec, boot=boots, launches=launches, steps=steps, seeds=seeds,
+                reseed_calls=reseed_calls, reseed_rows=rows, split=split,
+                crash_to_step=first - clock.t_kill, on_card=on_card)
+
+
+def remote_zombie(ph, torch, chk, tmp):
+    """(b): two tiered replica processes on a `blob://` root (an emulator
+    in this process), two paxos-3 jobs, the holder SIGSTOPped after its
+    first spill until declared dead, then SIGCONTed."""
+    import signal
+
+    from stateright_tpu_torch.faults.blobstore import serve_blobd
+    from stateright_tpu_torch.service import ServiceFleet
+    from stateright_tpu_torch.tensor import TensorPaxos
+
+    blobd = serve_blobd()
+    root = blobd.root_uri + "/b"
+    fleet = victim = None
+    try:
+        t0 = time.monotonic()
+        fleet = ServiceFleet(
+            n_replicas=2, remote=True, store_root=root,
+            router_kwargs=dict(REMOTE_PROBE, steal=False),
+            service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=SERVICE_TIERED_TABLE,
+                                store="tiered", summary_log2=SERVICE_SUMMARY))
+        boots = {r.idx: r.boot_s for r in fleet.replicas}
+        router = fleet.router
+        model = TensorPaxos(3)
+        hs = [fleet.submit(model, model_ref=("paxos", {"n": 3})) for _ in range(2)]
+        victim = fleet.replicas[hs[0]._job.replica]
+        assert {h._job.replica for h in hs} == {victim.idx}
+        while True:
+            st = victim._get_json("/.status", timeout=10.0)
+            if (st.get("store") or {}).get("spill_events", 0) > 0:
+                break
+            assert time.monotonic() - t0 < 300, st.get("store")
+            time.sleep(0.05)
+        on_card = children_on_card(fleet, "[remote] (b)")
+        victim_steps = victim._get_json("/.probe", timeout=10.0)["device_steps"]
+        os.kill(victim.proc.pid, signal.SIGSTOP)
+        t_stop = time.monotonic()
+        while fleet.stats()["replica_crashes"] < 1:
+            assert time.monotonic() - t_stop < 120, fleet.stats()
+            time.sleep(0.05)
+        declared = time.monotonic() - t_stop
+        os.kill(victim.proc.pid, signal.SIGCONT)  # the zombie rises
+        for h in hs:
+            r = h.result(timeout=600)
+            assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+            assert set(r.discoveries) == {"value chosen"}, r.discoveries
+        sec = time.monotonic() - t0
+        survivor = fleet.replicas[1 - victim.idx]
+        sst = survivor._get_json("/.status", timeout=10.0)
+        s_steps = survivor._get_json("/.probe", timeout=10.0)["device_steps"]
+        rejected = 0
+        while rejected == 0 and time.monotonic() - t_stop < 180:
+            rejected = victim._get_json("/.status", timeout=10.0)["lease"]["rejected_total"]
+            time.sleep(0.1)
+        st = fleet.stats()
+        paths = [router._jobs[h.id].ckpt_path for h in hs]
+        fleet.close()
+        fleet = None
+        assert rejected > 0, "the zombie's writes were not fenced"
+        assert st["replica_crashes"] == 1 and st["lease_revokes"] == 1, st
+        assert st["restored_jobs"] >= 1 and sst["resume"]["resumes"] >= 1, (st, sst["resume"])
+        assert s_steps > 0 and sst["store"]["suspects_checked"] > 0, sst["store"]
+        report = run_timeline_cli(root + "/journal")
+        assert report["anomalies"] == [] and len(report["traces"]) == 2, report["anomalies"]
+        # The fused kernel on the survivor's generation, read back from the
+        # wire root.
+        key, parent, active, all_keys = journal_rows_on_card(torch, paths[0], PLAIN_ROWS)
+        summary = build_summary(torch, all_keys[PLAIN_ROWS // 2:], SERVICE_SUMMARY)
+        cfg = (SERVICE_SUMMARY, 4)
+        _, is_new, suspect = compare_quietly(
+            ph, chk, SERVICE_TIERED_TABLE, dict(key=key, parent=parent, active=active, tables=None),
+            summary=summary, summary_cfg=cfg)
+        assert int(suspect.sum()) > 0, "the fused check met no suspect"
+    finally:
+        if fleet is not None:
+            if victim is not None and victim.proc.poll() is None:
+                os.kill(victim.proc.pid, signal.SIGCONT)
+            fleet.close()
+        blobd.shutdown()
+    fused = victim_steps + s_steps
+    plain = 2 + (st["requeued_jobs"] - st["restored_jobs"]) + sst["resume"]["reseed_calls"]
+    log(f"[remote] (b) boots: " + " ".join(f"replica{i}={b:.3f} s" for i, b in boots.items())
+        + f"; paxos-3 x2 on 2 tiered replica processes over {root}: sec={sec:.3f}; "
+        f"replica {victim.idx} stopped after {victim_steps} steps (its first spill), declared "
+        f"dead in {declared:.3f} s, continued: lease rejected_total={rejected} in its own "
+        f"/.status; the survivor resumed {sst['resume']['resumes']} jobs "
+        f"({sst['resume']['reseed_rows']} rows in {sst['resume']['reseed_calls']} re-seed "
+        f"calls) and ran {s_steps} fused steps; both at the golden; the timeline CLI over "
+        f"the blob journal root: {len(report['traces'])} clean lifecycles")
+    log("[remote] (b) survivor store: " + " ".join(f"{k}={v}" for k, v in sst["store"].items()))
+    log(f"[remote] (b) insert calls derived: {fused} fused (one a step) + {plain} plain "
+        f"(seeds and re-seed calls)")
+    log(f"[remote] (b) fused insert kernel vs plain on the first {int(active.sum())} journal "
+        f"rows of the survivor's generation read back from the blob root, into a fresh "
+        f"2^{SERVICE_TIERED_TABLE}-slot table, against a 2^{SERVICE_SUMMARY}-bit summary of "
+        f"the generation's journal from row {PLAIN_ROWS // 2} on (standing in for the "
+        f"survivor's spill tier, which lives in its memory): {int(is_new.sum())} new, "
+        f"{int(suspect.sum())} suspects; the verdicts, suspects and stored pairs agree")
+    return dict(sec=sec, boot=boots, launches=fused, plain_launches=plain, on_card=on_card,
+                rejected=rejected, declared=declared)
+
+
+def remote_autoscale(ph, torch, chk, refs, tmp):
+    """(c): one replica process, a 2pc-7 backlog and a foreground
+    `Autoscaler`; a faulted first grow, a scale-out onto the card, a
+    scale-in mid-backlog."""
+    from stateright_tpu_torch import faults
+    from stateright_tpu_torch.service import AutoscaleConfig, Autoscaler, ServiceFleet
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    root = os.path.join(tmp, "c")
+    t0 = time.monotonic()
+    fleet = ServiceFleet(n_replicas=1, remote=True, store_root=root, max_resident=1,
+                         router_kwargs=REMOTE_PROBE,
+                         service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=AUTOSCALE_TABLE))
+    scaler = None
+    try:
+        router = fleet.router
+        model = TensorTwoPhaseSys(7)
+        hs = [fleet.submit(model, model_ref=("2pc", {"n": 7})) for _ in range(AUTOSCALE_JOBS)]
+        scaler = Autoscaler(fleet, AutoscaleConfig(min_replicas=1, max_replicas=2,
+                                                   queue_high=1.0, scale_out_after=1,
+                                                   cooldown_ticks=0))
+        while fleet.replicas[0]._last_probe.get("queued", 0) < 2:
+            assert time.monotonic() - t0 < 120, fleet.replicas[0]._last_probe
+            time.sleep(0.02)
+        plan = faults.FaultPlan().rule("fleet.autoscale", "crash", times=1)
+        with faults.active(plan):
+            assert scaler.tick() is None and len(fleet.replicas) == 1  # aborted: no change
+            assert scaler.counters["aborted_ticks"] == 1
+            t_out = time.monotonic()
+            assert scaler.tick() == ("scale_out", 1), scaler.counters
+        grown = fleet.replicas[1]
+        out_s = time.monotonic() - t_out
+        while fleet.stats()["rejoin_promotions"] < 1:
+            assert time.monotonic() - t_out < 120, fleet.stats()
+            time.sleep(0.02)
+        while (grown._last_probe.get("device_steps") or 0) < 1:
+            assert time.monotonic() - t_out < 120, (fleet.stats(), grown._last_probe)
+            time.sleep(0.02)
+        on_card = children_on_card(fleet, "[remote] (c)")
+        left = sum(1 for h in hs if not h._job.event.is_set())
+        assert left > 0, "the backlog ran out before the scale-in"
+        retired = fleet.scale_in()
+        assert retired is not None, "scale_in refused"
+        for h in hs:
+            h.result(timeout=600)
+        sec = time.monotonic() - t0
+        witnesses = 0
+        for h in hs:
+            r, witnessed = remote_job_matches(router, h.id, refs["2pc7"])
+            witnesses += witnessed
+            assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+        st = fleet.stats()
+    finally:
+        if scaler is not None:
+            scaler.close()
+        fleet.close()
+    assert st["scale_outs"] == 1 and st["scale_ins"] == 1, st
+    assert plan.injected_total() == 1
+    report = run_timeline_cli(os.path.join(root, "journal"))
+    assert report["anomalies"] == [], report["anomalies"]
+    log(f"[remote] (c) {AUTOSCALE_JOBS} 2pc-7 jobs, one resident, on one replica process: the "
+        f"injected fleet.autoscale fault aborted the first grow with nothing changed; the "
+        f"scale-out booted replica1 in {grown.boot_s:.3f} s ({out_s:.3f} s in the tick), which "
+        f"took work through probation (steals={st['steals']}); scale_in retired replica"
+        f"{retired} with {left} jobs unfinished (requeued_jobs={st['requeued_jobs']} "
+        f"restored_jobs={st['restored_jobs']}); sec={sec:.3f}; scale_outs={st['scale_outs']} "
+        f"scale_ins={st['scale_ins']}; every job equal to its standalone run (witness actions "
+        f"of the {witnesses} served by a live process); the timeline CLI "
+        f"reads {len(report['traces'])} clean lifecycles")
+    return dict(sec=sec, on_card=on_card, left=left)
+
+
+def phase_remote(ph, torch, chk, service):
+    """The fleet across processes (see the module docstring, phase 20)."""
+    import tempfile
+
+    refs = service["refs"] if service else service_standalone(torch, None)[1]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_remote_") as tmp:
+        killed = remote_killed(ph, torch, chk, refs, tmp)
+        zombie = remote_zombie(ph, torch, chk, tmp)
+        scaled = remote_autoscale(ph, torch, chk, refs, tmp)
+    return dict(killed=killed, zombie=zombie, scaled=scaled, launches=killed["launches"],
+                tiered_launches=zombie["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -3457,6 +3938,7 @@ def main() -> int:
     service = phase(17, "check service", phase_service, ph, torch, chk)
     fleet = phase(18, "service fleet", phase_fleet, ph, torch, chk, service)
     corpus = phase(19, "corpus warm start", phase_corpus, ph, torch, chk)
+    remote = phase(20, "fleet across processes", phase_remote, ph, torch, chk, service)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -3479,6 +3961,7 @@ def main() -> int:
         "launches_fleet": fleet["launches"],
         "launches_corpus": corpus["launches"],
         "launches_corpus_sim": corpus["sim"]["launches"],
+        "launches_fleet_remote": remote["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3499,6 +3982,7 @@ def main() -> int:
         "launches_service_tiered": service["tiered_launches"],
         "launches_fleet_tiered": fleet["tiered_launches"],
         "launches_corpus_tiered": corpus["bloom_launches"],
+        "launches_fleet_remote_tiered": remote["tiered_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

@@ -1,12 +1,13 @@
-"""Crash-safe checkpoint files and the chaos plane (the JAX package's
+"""Crash-safe checkpoint generations and the chaos plane (the JAX package's
 `stateright_tpu/faults/`, the parts the port's engines, check service and
 fleet use): `ckptio` writes and reads one generation of an engine
-checkpoint on the local file system, with the JAX package's CRC footer
-byte for byte, so a file written by either package is read by the other,
-and fences a fleet replica's generations behind its lease; `blobstore` is
-the store-root seam (the local file system; the wire stores are ROADMAP A
-item 3); `plan` is the seeded fault-injection plane (`FaultPlan`,
-`maybe_fault`)."""
+checkpoint, with the JAX package's CRC footer byte for byte, so a file
+written by either package is read by the other, and fences a fleet
+replica's generations behind its lease; `blobstore` is the store-root seam
+(the local file system, the ``blob://`` emulator store and the managed
+``s3://`` / ``gs://`` stores, with `creds` their credential chain and
+`blobdialect` their emulators); `plan` is the seeded fault-injection plane
+(`FaultPlan`, `maybe_fault`)."""
 
 from .ckptio import (
     LEASE_STAMP_KEYS,

@@ -1,5 +1,5 @@
-"""Crash-atomic checkpoint files with a CRC32 footer and a fallback
-generation (the JAX package's `faults/ckptio.py`, local files only).
+"""Crash-atomic checkpoint generations with a CRC32 footer and a fallback
+generation (the JAX package's `faults/ckptio.py`).
 
 - `atomic_savez` writes the npz payload, then a footer (magic, payload
   length, CRC32 of the payload), to ``path + ".tmp.<pid>"``, fsyncs it,
@@ -24,9 +24,15 @@ generation whose stamp a validator rejects, as it skips a torn one.
 `write_record` / `read_record_latest` give the same CRC footer to small
 non-npz records (the lease files), with a magic per record kind.
 
-Only local paths are served here: a wire-store URI (``blob://``, ``s3://``,
-``gs://``) raises `NotImplementedError` naming ROADMAP A item 3
-(faults/blobstore.py).
+Every function dispatches on the path's spelling: a plain or ``file://``
+path keeps the rename and CRC discipline above, and a wire-store URI
+(``blob://``, ``s3://``, ``gs://``, faults/blobstore.py) sends the same
+payload and footer bytes through the object-store client, whose server
+rotates ``.prev`` on PUT. The footer, the lease stamp and the
+current-then-``.prev`` walk are the same on every backend: a torn PUT is
+rejected at read and ``.prev`` serves, as after a torn rename. The
+``ckpt.write`` chaos point (kind ``torn``) corrupts a generation right
+after its write on either backend, which is how the fallback is tested.
 
 The footer is the JAX package's byte for byte (`MAGIC`, `_FOOTER`), so each
 package reads the other's files. The entries are stored, not deflated: an
@@ -45,7 +51,7 @@ from typing import Optional
 
 import numpy as np
 
-from .blobstore import LocalFSBlobStore, refuse_wire
+from .blobstore import LocalFSBlobStore, delete_blob, get_blob, is_blob_uri, put_blob
 from .plan import active_plan
 
 #: Footer layout: 8-byte magic, u64 payload length, u32 CRC32 of payload.
@@ -64,6 +70,12 @@ class LeaseRevoked(RuntimeError):
     lease store and every fenced caller."""
 
 
+#: Wire paths this process wrote intact (dropped when the chaos plane tears
+#: one): rotation trusts them without a round trip that re-reads the whole
+#: previous generation on every write.
+_WRITTEN_INTACT: set = set()
+
+
 def normalize_ckpt_path(path: str) -> str:
     """Strip a ``file://`` scheme and append ``.npz`` when it is absent, so
     that `checkpoint(p)` and `load_checkpoint(..., p)` name the same file."""
@@ -78,9 +90,7 @@ def content_path(root: str, key: str, kind: str = "corpus") -> str:
     entries). Every process that derives the same key names the same file,
     which is what lets fleet replicas share one generation. A key that is
     not lowercase hex (content keys are blake2b hex digests) is hashed to
-    one, so no key escapes `root`. A wire-store root raises
-    `NotImplementedError` naming ROADMAP A item 3."""
-    refuse_wire(root, "a corpus root")
+    one, so no key escapes `root`."""
     key = str(key)
     if not key or any(c not in "0123456789abcdef" for c in key):
         import hashlib
@@ -97,15 +107,19 @@ def atomic_savez(path: str, arrays: dict, keep_prev: bool = True,
     (a check-service preemption spill, read back once) the new file simply
     replaces the old one. With `if_absent=True` (a corpus entry, shared by
     content address) nothing is written when `path` already exists, and
-    None is returned. Returns the path."""
+    None is returned (on a wire store, a server-side conditional put).
+    Returns the path."""
     path = normalize_ckpt_path(path)
-    refuse_wire(path, "a checkpoint write")
-    if if_absent and os.path.exists(path):
-        return None
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     payload = buf.getbuffer()
     footer = _FOOTER.pack(MAGIC, payload.nbytes, zlib.crc32(payload) & 0xFFFFFFFF)
+    if is_blob_uri(path):
+        data = bytes(payload) + footer
+        del payload
+        return _blob_savez(path, data, keep_prev=keep_prev, if_absent=if_absent)
+    if if_absent and os.path.exists(path):
+        return None
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
@@ -143,14 +157,75 @@ def atomic_savez(path: str, arrays: dict, keep_prev: bool = True,
             os.close(dfd)
     except OSError:
         pass
+    plan = active_plan()
+    if plan is not None and plan.consume_corruption("ckpt.write"):
+        _corrupt_file(path, plan.seed)
+    return path
+
+
+def _blob_savez(path: str, data: bytes, keep_prev: bool = True,
+                if_absent: bool = False) -> Optional[str]:
+    """One generation onto a wire store, with the local branch's rules:
+    only a verified current generation rotates into ``.prev`` (a torn one
+    is deleted), a conditional write treats a torn current generation as
+    absent (the server's If-None-Match keys on bare existence, so a torn
+    first publish would otherwise block every repair), and a consumed
+    ``ckpt.write`` torn fault corrupts the uploaded bytes."""
+    torn = False
+    plan = active_plan()
+    if plan is not None and plan.consume_corruption("ckpt.write"):
+        data = _corrupt_payload(data, plan.seed)
+        torn = True
+    if path not in _WRITTEN_INTACT and (keep_prev or if_absent):
+        # One verified probe of the current generation, at most once per
+        # path per process (_WRITTEN_INTACT carries the verdict after).
+        try:
+            read_verified(path)
+            if if_absent:
+                return None  # an intact generation exists
+        except FileNotFoundError:
+            pass
+        except CheckpointCorrupt:
+            try:
+                delete_blob(path)
+            except OSError:
+                pass  # unreachable store: rotation is best-effort
+        except OSError:
+            pass
+    gen = put_blob(path, data, rotate=keep_prev, if_absent=if_absent)
+    if gen is None:
+        return None  # the conditional put lost the race
+    if torn or gen < 0:
+        # A negated generation: the client tore the upload (``blob.put``
+        # torn). The path is not trusted for rotation, and the next
+        # conditional write probes and repairs it.
+        _WRITTEN_INTACT.discard(path)
+    else:
+        _WRITTEN_INTACT.add(path)
     return path
 
 
 def read_verified(path: str):
     """Load one checkpoint file, verifying its CRC footer when present.
     Returns an `NpzFile`; raises `CheckpointCorrupt` on torn, flipped or
-    truncated content and `FileNotFoundError` when the file is absent."""
-    refuse_wire(path, "a checkpoint read")
+    truncated content and `FileNotFoundError` when the file is absent (a
+    wire store's 404 is a missing file)."""
+    if is_blob_uri(path):
+        data = get_blob(path)
+        payload = data
+        if len(data) >= _FOOTER.size:
+            magic, length, crc = _FOOTER.unpack(data[-_FOOTER.size:])
+            if magic == MAGIC:
+                payload = data[:-_FOOTER.size]
+                if length != len(payload) or (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
+                    raise CheckpointCorrupt(
+                        f"checkpoint {path} failed CRC verification "
+                        "(torn or corrupted write)"
+                    )
+        try:
+            return np.load(io.BytesIO(payload), allow_pickle=False)
+        except (zipfile.BadZipFile, ValueError, OSError) as e:
+            raise CheckpointCorrupt(f"checkpoint {path} is unreadable: {e}") from e
     with open(path, "rb") as f:
         size = f.seek(0, os.SEEK_END)
         payload = None
@@ -180,9 +255,10 @@ def read_verified(path: str):
 def load_latest(path: str):
     """The newest intact generation of `path`: the file itself, else
     ``path + ".prev"``. Returns ``(npz, served_path)``; raises
-    `CheckpointCorrupt` naming every candidate when none verifies."""
+    `CheckpointCorrupt` naming every candidate when none verifies. A wire
+    store's outage (retry exhaustion) reads as unavailable and falls to
+    the next candidate."""
     path = normalize_ckpt_path(path)
-    refuse_wire(path, "a checkpoint read")
     tried: list[str] = []
     for p in (path, path + ".prev"):
         try:
@@ -221,6 +297,7 @@ def _corrupt_file(path: str, seed: int) -> None:
     """Simulate a torn write on `path`, deterministically: truncate to half
     on even seeds, flip a payload byte on odd seeds. `read_verified` must
     catch both and `load_latest` fall back."""
+    _WRITTEN_INTACT.discard(path)
     size = os.path.getsize(path)
     if seed % 2 == 0:
         with open(path, "r+b") as f:
@@ -256,7 +333,7 @@ def lease_stamp(data) -> Optional[tuple]:
         return None
 
 
-def fenced_savez(path: str, arrays: dict, lease=None,
+def fenced_savez(path: str, arrays: dict, lease=None, keep_prev: bool = True,
                  if_absent: bool = False) -> Optional[str]:
     """`atomic_savez` behind the epoch fence. With a `lease` (`.member`,
     `.epoch`, and a `.check()` that raises once it is revoked:
@@ -267,7 +344,8 @@ def fenced_savez(path: str, arrays: dict, lease=None,
     The ``fleet.zombie_write`` chaos point is consumed here: an injected
     bypass skips the lease check, as a hung writer that passed the check
     before the revocation and wrote after it would — the stale generation
-    the read-side fence must catch. `if_absent` is `atomic_savez`'s."""
+    the read-side fence must catch. `keep_prev` and `if_absent` are
+    `atomic_savez`'s."""
     if lease is not None:
         plan = active_plan()
         bypassed = plan is not None and plan.consume_bypass("fleet.zombie_write")
@@ -276,7 +354,7 @@ def fenced_savez(path: str, arrays: dict, lease=None,
         arrays = dict(arrays)
         arrays["lease_member"] = np.asarray([str(lease.member)], dtype=np.str_)
         arrays["lease_epoch"] = np.asarray([int(lease.epoch)], np.int64)
-    return atomic_savez(path, arrays, if_absent=if_absent)
+    return atomic_savez(path, arrays, keep_prev=keep_prev, if_absent=if_absent)
 
 
 def fenced_load_latest(path: str, validator=None, on_reject=None):
@@ -288,7 +366,6 @@ def fenced_load_latest(path: str, validator=None, on_reject=None):
     path = normalize_ckpt_path(path)
     if validator is None:
         return load_latest(path)
-    refuse_wire(path, "a checkpoint read")
     tried: list[str] = []
     for p in (path, path + ".prev"):
         try:
@@ -314,11 +391,11 @@ def fenced_load_latest(path: str, validator=None, on_reject=None):
 
 def latest_generation(path: str) -> Optional[str]:
     """The path `load_latest` would serve, or None: a cheap probe for
-    choosing between a resume and a fresh start."""
+    choosing between a resume and a fresh start (a wire store's outage
+    probes as None: a fresh start)."""
     path = normalize_ckpt_path(path)
-    refuse_wire(path, "a checkpoint probe")
     for p in (path, path + ".prev"):
-        if not os.path.exists(p):
+        if not is_blob_uri(p) and not os.path.exists(p):
             continue
         try:
             read_verified(p)
@@ -331,8 +408,11 @@ def latest_generation(path: str) -> Optional[str]:
 def any_generation(path: str) -> bool:
     """True when any generation candidate exists at `path`, intact or not."""
     path = normalize_ckpt_path(path)
-    refuse_wire(path, "a checkpoint probe")
-    return os.path.exists(path) or os.path.exists(path + ".prev")
+    if not is_blob_uri(path):
+        return os.path.exists(path) or os.path.exists(path + ".prev")
+    from .blobstore import blob_exists
+
+    return blob_exists(path) or blob_exists(path + ".prev")
 
 
 # -- CRC'd records (lease files) ---------------------------------------------------
@@ -341,10 +421,13 @@ def any_generation(path: str) -> bool:
 def write_record(path: str, payload: bytes, magic: bytes) -> None:
     """Crash-atomic small-record write: payload and the checkpoint footer
     (with a magic of the record's kind) through tmp, fsync and rename, the
-    previous record rotated to ``.prev``."""
-    refuse_wire(path, "a record write")
+    previous record rotated to ``.prev``; on a wire store, one rotating
+    PUT."""
     crc = zlib.crc32(payload) & 0xFFFFFFFF
     data = payload + _FOOTER.pack(magic, len(payload), crc)
+    if is_blob_uri(path):
+        put_blob(path, data, rotate=True)
+        return
     d, name = os.path.split(os.path.abspath(path))
     LocalFSBlobStore(d).put(name, data, rotate=True)
 
@@ -353,13 +436,16 @@ def read_record_latest(path: str, magic: bytes) -> tuple:
     """`(payload, any_candidate)` for the newest intact record at `path`,
     ``.prev`` included: payload is None when no candidate verifies, and
     `any_candidate` says whether anything existed at all (the lease store's
-    none-versus-unreadable distinction, which fails safe)."""
-    refuse_wire(path, "a record read")
+    none-versus-unreadable distinction, which fails safe: an unreachable
+    wire store reads as unreadable)."""
     any_candidate = False
     for p in (path, path + ".prev"):
         try:
-            with open(p, "rb") as f:
-                data = f.read()
+            if is_blob_uri(p):
+                data = get_blob(p)
+            else:
+                with open(p, "rb") as f:
+                    data = f.read()
         except FileNotFoundError:
             continue
         except OSError:

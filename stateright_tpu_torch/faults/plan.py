@@ -37,17 +37,26 @@ for `maybe_fault(`):
 - ``lease.revoke_race`` — `LeaseStore.revoke` (service/lease.py; ctx
   ``member=<name>``), before the revocation persists: the lease stays
   granted and the router's death handling runs again next tick.
-- ``blob.list`` — the ``stale`` kind, consumed by the local store's listing
-  (faults/blobstore.py), serves the previous listing.
+- ``blob.put`` / ``blob.get`` / ``blob.list`` / ``blob.delete`` — every
+  wire-store op (faults/blobstore.py; ctx ``store, name``): the raising
+  kinds (``http``, ``io``) are absorbed by the client's bounded retry;
+  ``torn`` (put) truncates the upload, ``stale`` (list, the local store's
+  too) serves the previous listing, ``slow`` adds latency.
+- ``creds.refresh`` — one credential resolve of a managed store
+  (faults/creds.py): a fault fails that attempt, which the grace window or
+  the blob client's retry absorbs.
+- ``ckpt.write`` — the ``torn`` kind, consumed right after a checkpoint
+  generation is written (faults/ckptio.py), corrupts it.
+- ``fleet.autoscale`` — `ServiceFleet.scale_out` / `scale_in` (ctx
+  ``action``), before anything changes: a fault aborts the action.
 - ``corpus.load`` / ``corpus.publish`` / ``corpus.gc`` — the warm-start
   corpus (store/corpus.py; ctx ``key=<prefix>``), before any file is read,
   written or removed: a faulted load is a miss (the job runs cold), a
   faulted publish leaves no entry, a faulted sweep removes nothing.
 
 The JAX package's other points (engine steps and chunks, the tiered
-store's spill and resolve, checkpoint writes, the wire blob stores, the
-autoscaler) fire there; here they wait for the supervisor (ROADMAP A15)
-and the fleet across processes (A item 3).
+store's spill and resolve) fire there; here they wait for the supervisor
+(ROADMAP A15).
 The plan machinery is whole: the ``SR_TPU_FAULTS`` grammar, the raising
 kinds, and the consumed kinds (``hang`` parks on a cancel gate, ``torn`` /
 ``bypass`` / ``stale`` / ``slow`` are acted out by the boundary that pulls

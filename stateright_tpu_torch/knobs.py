@@ -43,9 +43,8 @@ WARM_KINDS = ("exact", "near", "partial", "delta")
 
 #: Store-root backends, chosen by the root's URI scheme
 #: (faults/blobstore.py `backend_of`): a plain path or ``file://`` is the
-#: local file system; ``blob://``, ``s3://`` and ``gs://`` are wire stores,
-#: which the port refuses until ROADMAP A item 3 (the fleet across
-#: processes) brings their clients.
+#: local file system; ``blob://``, ``s3://`` and ``gs://`` are wire stores
+#: (the emulator store and the managed S3 and GCS stores).
 BLOB_BACKENDS = ("file", "blob", "s3", "gs")
 
 

@@ -27,6 +27,7 @@ from .events import (
 from .registry import REGISTRY, LogHistogram, flatten_metrics, render_prometheus
 from .ring import N_COLS, STEP_COLS, StepRing, build_detail
 from .schema import (
+    AUTOSCALE_COUNTER_KEYS,
     DETAIL_KEYS,
     EVENT_TYPES,
     FAULTS_DETAIL_KEYS,
@@ -54,6 +55,7 @@ __all__ = [
     "NULL_TRACER",
     "N_COLS",
     "REGISTRY",
+    "AUTOSCALE_COUNTER_KEYS",
     "REGISTRY_SOURCES",
     "SERVICE_DETAIL_KEYS",
     "STEP_COLS",

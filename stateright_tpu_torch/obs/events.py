@@ -1,6 +1,5 @@
 """The event journal: the flight recorder of the check service and its
-fleet (the JAX package's `obs/events.py`, local files only: its blob-store
-mirror is ROADMAP A item 3, and a wire-store URI raises).
+fleet (the JAX package's `obs/events.py`).
 
 - `EventJournal` appends schema'd events (obs/schema.py `EVENT_TYPES` pins
   the vocabulary and each type's required fields) to a JSONL file. Every
@@ -11,6 +10,11 @@ mirror is ROADMAP A item 3, and a wire-store URI raises).
 - Bounded flushing: emissions buffer in memory and reach the file every
   `flush_every` events or `flush_interval_s` seconds. A crash loses at most
   one window, and can only tear the last line, which `read_journal` skips.
+- Wire-store roots: a journal is always written locally (an emit never
+  pays a network round trip); with `sync_uri` the whole file is mirrored
+  to the wire store on a throttled cadence and at every explicit
+  `flush()` / `close()`, and `read_journal` reads a ``blob://``, ``s3://``
+  or ``gs://`` journal directly.
 - Live tails: an in-memory ring of recent events with a global cursor;
   `tail(since=, job=, wait_s=)` is the long-poll behind the service's
   `GET /jobs/<id>/events`.
@@ -61,6 +65,7 @@ class EventJournal:
         flush_interval_s: float = 0.5,
         ring: int = 4096,
         fsync: bool = False,
+        sync_uri: Optional[str] = None,
     ):
         self.path = path
         self.writer = writer if writer is not None else f"pid{os.getpid()}"
@@ -69,6 +74,17 @@ class EventJournal:
         self.fsync = fsync
         self.write_errors = 0  # I/O failures absorbed (recording must not kill)
         self._f = open(path, "a") if path is not None else None
+        # The wire-store mirror: the whole local file, PUT to `sync_uri` at
+        # most every `sync_interval_s` (a whole-file PUT per batch would
+        # make the bytes synced quadratic in the journal's length) and at
+        # every explicit flush()/close(), the crash-durability moments.
+        # Each PUT runs under a short deadline, so a store outage stalls an
+        # emit by about two seconds, not the client's whole retry budget.
+        self.sync_uri = sync_uri
+        self.sync_interval_s = 2.0
+        self.sync_deadline_s = 2.0
+        self.sync_errors = 0
+        self._last_sync = 0.0
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
         # File writes run outside _lock (an emit on the scheduler's path
@@ -153,16 +169,44 @@ class EventJournal:
             self._f.flush()
             if self.fsync:
                 os.fsync(self._f.fileno())
+            if (self.sync_uri is not None
+                    and time.monotonic() - self._last_sync >= self.sync_interval_s):
+                self._sync_blob()
         except (OSError, ValueError, AttributeError):
             # Recording must never kill its host; the loss shows as a count.
             self.write_errors += 1
         finally:
             self._io_lock.release()
 
+    def _sync_blob(self) -> None:
+        """Mirror the whole local file to `sync_uri` (under _io_lock, so no
+        batch interleaves). A failure is counted, never raised: an outage
+        costs the mirror's freshness, not the local journal."""
+        self._last_sync = time.monotonic()
+        try:
+            from ..faults.blobstore import put_blob
+
+            with open(self.path, "rb") as f:
+                data = f.read()
+            # chaos=False: an injected blob.put fault would be recorded as a
+            # `fault.injected` event into this very journal, mid-sync,
+            # re-entering the journal and plan locks.
+            put_blob(self.sync_uri, data, rotate=False, chaos=False,
+                     deadline_s=self.sync_deadline_s)
+        except OSError:
+            self.sync_errors += 1
+
+    def _force_sync(self) -> None:
+        if self.sync_uri is None or self.path is None:
+            return
+        with self._io_lock:
+            self._sync_blob()
+
     def flush(self) -> None:
         with self._lock:
             batch = self._take_batch_locked()
         self._write_batch(batch)
+        self._force_sync()
 
     def close(self) -> None:
         self.flush()
@@ -252,14 +296,18 @@ def as_events(events) -> "EventJournal | _NullEvents":
 def read_journal(path: str) -> list:
     """Every intact event of one journal file, in file order. An append can
     only tear the last line, so a line that does not parse is skipped; a
-    missing or unreadable file is an empty journal. Never raises on the
-    journal's content; a wire-store URI raises `NotImplementedError`."""
-    from ..faults.blobstore import refuse_wire
+    missing or unreadable file is an empty journal, and a wire-store URI
+    (a journal mirrored by `sync_uri`) is read through its client, a mirror
+    caught mid-line reading as a torn tail. Never raises on the journal's
+    content."""
+    from ..faults.blobstore import get_blob, is_blob_uri
 
-    refuse_wire(path, "reading a journal")
     try:
-        with open(path, "r") as f:
-            data = f.read()
+        if is_blob_uri(path):
+            data = get_blob(path).decode("utf-8", errors="replace")
+        else:
+            with open(path, "r") as f:
+                data = f.read()
     except OSError:
         return []
     events = []

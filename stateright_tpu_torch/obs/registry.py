@@ -155,6 +155,11 @@ class CounterRegistry:
         weak = getattr(ref, "_weak", None)
         return weak is None or weak() is not None
 
+    def sources(self) -> list:
+        """The names of the live sources, sorted."""
+        with self._lock:
+            return sorted(k for k, v in self._sources.items() if self._alive(v))
+
     def unregister(self, name: str) -> None:
         with self._lock:
             self._sources.pop(name, None)

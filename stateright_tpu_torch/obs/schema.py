@@ -231,6 +231,38 @@ REGISTRY_SOURCES = {
              "FLEET_COUNTER_KEYS)",
     "lease": "epoch-fenced checkpoint leases (service/lease.py)",
     "corpus": "cross-job warm-start corpus store (store/corpus.py)",
+    "semantics": "consistency-tester verdict planes (semantics/"
+                 "linearizability.py: the per-identity memos and the "
+                 "canonical verdict cache)",
+    "blob": "object-store emulator client (faults/blobstore.py: ops, "
+            "retries, backoff, torn puts, stale lists, unavailability, "
+            "Retry-After floor waits, auth retries)",
+    "blob_s3": "managed S3 client (faults/blobstore_s3.py; the \"blob\" keys)",
+    "blob_gcs": "managed GCS client (faults/blobstore_gcs.py; the \"blob\" keys)",
+    "creds": "managed-store credential chain (faults/creds.py: resolves, "
+             "refreshes, refresh failures, grace-window serves, "
+             "SDK-unavailable degrades)",
+    "autoscaler": "the fleet's reconciliation loop (service/autoscale.py; "
+                  "AUTOSCALE_COUNTER_KEYS)",
+}
+
+
+#: The autoscaler's REGISTRY counters (service/autoscale.py `metrics()`,
+#: the "autoscaler" source): the JAX package's keys.
+AUTOSCALE_COUNTER_KEYS = {
+    "ticks": "reconcile ticks completed (signal read + decision)",
+    "scale_outs": "replicas spawned into probation by the autoscaler",
+    "scale_ins": "replicas drained, lease-revoked, and retired",
+    "aborted_ticks": "reconcile ticks abandoned by an injected "
+                     "`fleet.autoscale` fault with nothing changed",
+    "cooldown_skips": "wanted moves suppressed by the cooldown window",
+    "hysteresis_holds": "ticks where the signals sat between the "
+                        "scale-out and scale-in bands (no move wanted)",
+    "replicas": "current fleet size as of the last tick",
+    "replicas_high_water": "peak fleet size the autoscaler ever reached",
+    "last_queue_depth": "fleet-wide queued jobs as of the last tick",
+    "last_lane_util": "mean per-replica lane utilization, last tick",
+    "last_p99_ms": "p99 admission latency (ms) as of the last tick",
 }
 
 
@@ -258,10 +290,8 @@ FLEET_COUNTER_KEYS = {
                "fresh lease epoch",
     "rejoin_promotions": "rejoined members that passed their probation "
                          "probes and re-entered the ring",
-    "scale_outs": "replicas joined at a new index (autoscaler scale-out; "
-                  "0 in the port until ROADMAP A item 3)",
-    "scale_ins": "replicas drained and retired (autoscaler scale-in; 0 in "
-                 "the port until ROADMAP A item 3)",
+    "scale_outs": "replicas joined at a new index (autoscaler scale-out)",
+    "scale_ins": "replicas drained and retired (autoscaler scale-in)",
     "quota_rejected": "submissions refused at admission because the "
                       "tenant was over its in-flight or lane-seconds quota",
     "lease_revokes": "ring-member leases revoked before requeueing "

@@ -22,8 +22,9 @@ replica, obs/events.py), it
 
 Exit code: 0 when every lifecycle is clean, 2 on anomalies, 1 with no
 journal events to read. The `--json` report is the JAX CLI's on the same
-journals. Local journals only: a wire-store root (``blob://`` and the
-managed stores) raises `NotImplementedError` naming ROADMAP A item 3.
+journals. A journal argument may be a wire-store URI: a ``blob://``,
+``s3://`` or ``gs://`` directory of journals mirrored there by a fleet on
+a wire root (obs/events.py `sync_uri`) is listed through its backend.
 """
 
 from __future__ import annotations
@@ -49,15 +50,26 @@ WAIT_EVENTS = ("job.submitted", "job.requeued")
 
 
 def expand_paths(paths) -> list:
-    """Journal files from a mix of file and directory arguments (a
-    directory contributes its *.jsonl members, sorted). A wire-store URI
-    raises `NotImplementedError`."""
-    from ..faults.blobstore import refuse_wire
+    """Journal files from a mix of file, directory and wire-store
+    arguments (a directory, local or a wire prefix, contributes its *.jsonl
+    members, sorted). A wire listing may trail the writers by one sync
+    window; the reader's torn-tail rule covers the ragged edge."""
+    from ..faults.blobstore import blob_backend, is_blob_uri
 
     out: list = []
     for p in paths:
-        refuse_wire(p, "reading journals")
-        if os.path.isdir(p):
+        if is_blob_uri(p):
+            if p.endswith(".jsonl"):
+                out.append(p)
+                continue
+            root = p.rstrip("/")
+            try:
+                stats = blob_backend(root).list("")
+            except OSError:
+                stats = []
+            out.extend(f"{root}/{st.name}" for st in sorted(stats)
+                       if st.name.endswith(".jsonl"))
+        elif os.path.isdir(p):
             out.extend(
                 os.path.join(p, n)
                 for n in sorted(os.listdir(p))

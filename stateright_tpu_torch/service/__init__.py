@@ -1,7 +1,7 @@
-"""The check service and its fleet in one process (the JAX package's
-`stateright_tpu/service/`, without its cross-process replicas and
-autoscaler): a continuous-batching scheduler that runs many check jobs at
-once against one shared device table, and a router over N such replicas.
+"""The check service and its fleet (the JAX package's
+`stateright_tpu/service/`): a continuous-batching scheduler that runs many
+check jobs at once against one shared device table, and a router over N
+such replicas, in this process or in replica processes of their own.
 
 A standalone engine (`spawn_cuda`, FrontierSearch, ResidentSearch) owns the
 card for one check. The service is the serving layer above: one persistent
@@ -31,12 +31,21 @@ Pieces:
 - `router`    — `FleetRouter`: the consistent-hash ring, health probes,
                 requeue and resume, work stealing, rejoin, and the HTTP
                 front door `serve_fleet`;
-- `fleet`     — `Replica` crash-only runners and `ServiceFleet`.
-
-Replicas in other processes and the autoscaler are ROADMAP A item 3.
+- `fleet`     — `Replica` crash-only runners and `ServiceFleet`, with
+                its replicas in this process or (`remote=True`) each in a
+                `replica_main` process over one shared store root;
+- `remote`    — `RemoteReplica`, the router's HTTP stub of a replica
+                process, `serve_replica` and `spawn_replica_proc`;
+- `replica_main` — the replica process
+                (``python -m stateright_tpu_torch.service.replica_main``);
+- `discovery` — member records in the store root (`MemberDirectory`);
+- `autoscale` — `Autoscaler`: scale-out and scale-in from the status
+                plane's signals.
 """
 
 from .api import CheckService, JobHandle, ServiceChecker
+from .autoscale import AutoscaleConfig, Autoscaler
+from .discovery import MemberDirectory
 from .fleet import Replica, ServiceFleet
 from .lease import FencedEvents, Lease, LeaseRevoked, LeaseStore
 from .metrics import JobMetrics
@@ -48,6 +57,8 @@ from .tenancy import DEFAULT_TENANT, QuotaExceeded, TenantQuota, TenantQuotas
 
 __all__ = [
     "AdmissionQueue",
+    "AutoscaleConfig",
+    "Autoscaler",
     "CheckService",
     "DEFAULT_TENANT",
     "FencedEvents",
@@ -62,6 +73,7 @@ __all__ = [
     "Lease",
     "LeaseRevoked",
     "LeaseStore",
+    "MemberDirectory",
     "ModelRegistry",
     "QuotaExceeded",
     "Replica",

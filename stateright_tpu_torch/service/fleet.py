@@ -1,6 +1,6 @@
 """Replica runners and the ServiceFleet assembly: a router front door over
-N CheckService replicas in one process (the JAX package's
-`service/fleet.py`, its in-process half).
+N CheckService replicas, in this process or each in a process of its own
+(the JAX package's `service/fleet.py`).
 
 A `Replica` wraps one CheckService (one shared device table) in a
 crash-only runner: it pumps the service's scheduling rounds, checkpoints
@@ -30,9 +30,12 @@ directory (store/corpus.py): the first replica to finish a content key
 publishes it, and every replica warm-starts from that one generation; a
 requeued job looks in the corpus again on its survivor.
 
-Not ported yet, and refused with `NotImplementedError`: replicas in other
-processes (`remote=True`, `store_root=`) and the autoscaler's `scale_out` /
-`scale_in` (ROADMAP A item 3).
+`remote=True` runs each replica as a `replica_main` process
+(service/replica_main.py) over one shared store root, a directory or a
+wire-store URI, behind `RemoteReplica` stubs (service/remote.py): a kill -9
+of one process is a replica death the router recovers like any other.
+`scale_out` / `scale_in` grow and shrink either kind of fleet (the
+autoscaler's actions, service/autoscale.py).
 """
 
 from __future__ import annotations
@@ -43,14 +46,21 @@ import threading
 import time
 from typing import Callable, Optional
 
-from ..faults.blobstore import WIRE_ITEM, normalize_root, refuse_wire
+from ..faults.blobstore import is_blob_uri, normalize_root
 from ..faults.ckptio import fenced_savez
 from ..faults.plan import FaultError, maybe_fault
 from ..obs import EventJournal, as_events, as_tracer
 from .api import CheckService
 from .lease import FencedEvents, LeaseRevoked, LeaseStore, load_fenced_resume
 from .queue import JobResume, JobStatus
-from .router import FleetRouter, ReplicaDead, ResumeToken, lease_member, serve_fleet
+from .router import (
+    FleetJobStatus,
+    FleetRouter,
+    ReplicaDead,
+    ResumeToken,
+    lease_member,
+    serve_fleet,
+)
 
 __all__ = ["Replica", "ServiceFleet", "serve_fleet"]
 
@@ -293,6 +303,22 @@ class Replica:
             # store still hold memory and the store a thread.
             self.service._engine.close()
 
+    def retire_runner(self) -> None:
+        """The local teardown after the router's scale-in drain
+        (`FleetRouter.retire` already revoked the lease and requeued every
+        fleet job): stop pumping, close the service, and read as not alive
+        from here on, without `_die`'s crash record: a retirement is a
+        decision, not a failure."""
+        self.stop()
+        if self._dead:
+            return
+        try:
+            self.service.close()
+        except Exception:  # noqa: BLE001 — best-effort teardown
+            pass
+        self._dead = True
+        self.error = "retired (scale-in)"
+
 
 class ServiceFleet:
     """N CheckService replicas behind one consistent-hash router: replica
@@ -316,6 +342,7 @@ class ServiceFleet:
         lease_dir: Optional[str] = None,
         remote: bool = False,
         store_root: Optional[str] = None,
+        spawn_timeout_s: float = 180.0,
         quotas=None,
     ):
         """`service_kwargs` configure every replica's CheckService
@@ -345,34 +372,67 @@ class ServiceFleet:
         names a store); with a lease plane, each replica's publishes are
         fenced by its lease.
 
-        `remote=True` and `store_root=` (replicas in other processes) raise
-        `NotImplementedError` naming ROADMAP A item 3. The dirs are local
-        paths: a wire-store URI raises too."""
-        if remote or store_root is not None:
-            raise NotImplementedError(
-                f"fleet replicas in other processes (remote=True, store_root=) are {WIRE_ITEM}")
+        `remote=True` runs every replica as a process of its own: N
+        `replica_main` processes, each an HTTP server over a `Replica`
+        runner, sharing `store_root` (checkpoints, journals, leases, member
+        records, the corpus; a managed temporary directory when None) and
+        driven through `RemoteReplica` stubs behind the same router. The
+        lease plane and the journals are always on in a remote fleet: they
+        are what make a death declared across processes sound. A remote
+        fleet runs in the background only. Submissions name their model by
+        `model_ref=(registry name, args)` (serve_fleet fills it in), since
+        model objects cannot cross a process boundary. The device in
+        `service_kwargs` must be a string ("cuda", "cpu"); a child with no
+        device runs on the card. `spawn_timeout_s` bounds one child's boot.
+
+        `store_root` and every *_dir may be a wire-store URI (``blob://``,
+        ``s3://``, ``gs://``, faults/blobstore.py): the durable state then
+        lives in the object store, and the root URI is all the processes
+        share. Journals are written locally, in a scratch directory that
+        also holds the children's logs, and mirrored to the root at flush
+        boundaries."""
         if n_replicas < 1:
             raise ValueError("a fleet needs at least one replica")
-        ckpt_dir, journal_dir, lease_dir, corpus_dir = (
-            normalize_root(d) for d in (ckpt_dir, journal_dir, lease_dir, corpus_dir))
-        for what, d in (("ckpt_dir", ckpt_dir), ("journal_dir", journal_dir),
-                        ("lease_dir", lease_dir), ("corpus_dir", corpus_dir)):
-            if d is not None:
-                refuse_wire(d, what)
         self._tracer = as_tracer(tracer)
         self._tracer_raw = tracer
         self._tmpdir = None
+        self._scratch_tmp = None
+        self.remote = bool(remote)
+        store_root, ckpt_dir, journal_dir, lease_dir, corpus_dir = (
+            normalize_root(d) for d in (store_root, ckpt_dir, journal_dir, lease_dir, corpus_dir))
+        self.store_root = store_root
+        self.scratch_dir: Optional[str] = None
+        if remote:
+            if not background:
+                raise ValueError("a remote fleet runs in the background only (replica "
+                                 "processes cannot be pumped from here)")
+            if store_root is None:
+                self._tmpdir = tempfile.TemporaryDirectory(prefix="srtpu-fleet-root-")
+                self.store_root = store_root = self._tmpdir.name
+            if is_blob_uri(store_root):
+                # The wire root holds the shared state; the children's logs
+                # and the local halves of the journals need a directory here.
+                self._scratch_tmp = tempfile.TemporaryDirectory(prefix="srtpu-fleet-scratch-")
+                self.scratch_dir = self._scratch_tmp.name
+            else:
+                os.makedirs(store_root, exist_ok=True)
+                self.scratch_dir = store_root
+            ckpt_dir = ckpt_dir or os.path.join(store_root, "ckpt")
+            journal_dir = journal_dir or os.path.join(store_root, "journal")
+            lease_dir = lease_dir or os.path.join(store_root, "leases")
+            if corpus_dir is None and "corpus_dir" in (service_kwargs or {}):
+                corpus_dir = normalize_root((service_kwargs or {}).get("corpus_dir"))
         if ckpt_dir is None:
             self._tmpdir = tempfile.TemporaryDirectory(prefix="srtpu-fleet-")
             ckpt_dir = self._tmpdir.name
-        os.makedirs(ckpt_dir, exist_ok=True)
+        if not is_blob_uri(ckpt_dir):
+            os.makedirs(ckpt_dir, exist_ok=True)
         self.journal_dir = journal_dir
         self._journals: list = []
         router_journal = None
         if journal_dir is not None:
-            os.makedirs(journal_dir, exist_ok=True)
-            router_journal = EventJournal(os.path.join(journal_dir, "router.jsonl"),
-                                          writer="router")
+            jpath, jsync = self._journal_path("router.jsonl")
+            router_journal = EventJournal(jpath, writer="router", sync_uri=jsync)
             self._journals.append(router_journal)
         # The lease plane: every grant happens here, before a replica runs.
         self.lease_store = None
@@ -382,15 +442,20 @@ class ServiceFleet:
             router_lease = self.lease_store.grant("router")
         kw = dict(service_kwargs or {})
         kw.setdefault("max_resident", max_resident)
+        if remote:
+            from .remote import check_service_kwargs
+
+            check_service_kwargs(kw)  # the device crosses as a string
         self.quotas = quotas
-        if quotas is not None:
+        if quotas is not None and not remote:
             # One lane-seconds ledger for every replica, charging only: the
             # router is the admission gate (a requeued job must not bounce
             # off a budget its first admission passed).
             kw["quotas"] = quotas
             kw["quota_gate"] = False
         if corpus_dir is not None:
-            os.makedirs(corpus_dir, exist_ok=True)
+            if not is_blob_uri(corpus_dir):
+                os.makedirs(corpus_dir, exist_ok=True)
             kw["corpus_dir"] = corpus_dir
             kw.setdefault("store", "tiered")
         self.corpus_dir = corpus_dir
@@ -398,12 +463,34 @@ class ServiceFleet:
         self._service_kw = kw
         self._ckpt_every_spins = ckpt_every_spins
         self._pump_rounds = pump_rounds
+        self._spawn_timeout_s = spawn_timeout_s
         self._retired: list = []  # dead incarnations replaced by rejoins
         self._incarnations: dict = {}  # idx -> rejoin count (lease-less)
-        # Serialises rejoin_replica whole: a second grant for one member
-        # would revoke the first incarnation's epoch and fence the winner.
+        # Serialises rejoin_replica, scale_out and scale_in whole: a second
+        # grant for one member would revoke the first incarnation's epoch
+        # and fence the winner.
         self._rejoin_lock = threading.Lock()
-        self.replicas = [self._make_replica(i) for i in range(n_replicas)]
+        self._procs: list = []
+        if remote:
+            self.replicas = []
+            try:
+                # Every child boots at once, and their member records are
+                # watched together.
+                started = [self._start_remote(i) for i in range(n_replicas)]
+                self.replicas = self._await_remote(started)
+            except BaseException:
+                # Nobody calls close() on a constructor that raised: stop
+                # the children that did come up.
+                self._kill_procs()
+                for j in self._journals:
+                    j.close()
+                self.lease_store.close()
+                for tmp in (self._scratch_tmp, self._tmpdir):
+                    if tmp is not None:
+                        tmp.cleanup()
+                raise
+        else:
+            self.replicas = [self._make_replica(i) for i in range(n_replicas)]
         self.router = FleetRouter(
             self.replicas,
             background=background,
@@ -426,6 +513,70 @@ class ServiceFleet:
                                                    name="fleet-router")
             self._router_thread.start()
 
+    def _journal_path(self, name: str) -> tuple:
+        """(local path, wire sync URI or None) of one journal: journals are
+        written locally (an emit never waits on the network); on a wire
+        journal root the file lives in the scratch directory and is
+        mirrored to the root at flush boundaries."""
+        jd = self.journal_dir
+        if not is_blob_uri(jd):
+            os.makedirs(jd, exist_ok=True)
+            return os.path.join(jd, name), None
+        if self.scratch_dir is None:
+            self._scratch_tmp = tempfile.TemporaryDirectory(prefix="srtpu-fleet-scratch-")
+            self.scratch_dir = self._scratch_tmp.name
+        local_dir = os.path.join(self.scratch_dir, "journal")
+        os.makedirs(local_dir, exist_ok=True)
+        return os.path.join(local_dir, name), os.path.join(jd, name)
+
+    def _spawn_remote(self, i: int, rejoin: bool = False):
+        """Grant member `i` a fresh lease, start its replica process and
+        wait for its member record: the router's `RemoteReplica` stub. A
+        rejoined incarnation journals under its fresh epoch."""
+        return self._await_remote([self._start_remote(i, rejoin)])[0]
+
+    def _start_remote(self, i: int, rejoin: bool = False) -> tuple:
+        from .remote import start_replica_proc
+
+        lease = self.lease_store.grant(lease_member(i))
+        t0 = time.monotonic()
+        proc, log_path = start_replica_proc(
+            i, self.store_root, self._service_kw, scratch=self.scratch_dir,
+            incarnation=lease.epoch if rejoin else None)
+        self._procs.append(proc)
+        return i, proc, log_path, t0
+
+    def _await_remote(self, started: list) -> list:
+        """The `RemoteReplica` of each started process, once each has
+        published its member record (all are watched at once, so children
+        that boot side by side are ready side by side). Each stub's
+        `boot_s` is its process's seconds from start to record."""
+        from .discovery import MemberDirectory
+        from .remote import RemoteReplica, poll_replica_proc
+
+        directory = MemberDirectory(self.store_root)
+        urls: dict = {}
+        deadline = time.monotonic() + self._spawn_timeout_s
+        while len(urls) < len(started):
+            for i, proc, log_path, t0 in started:
+                if i not in urls:
+                    url = poll_replica_proc(i, directory, proc, log_path)
+                    if url is not None:
+                        urls[i] = (url, time.monotonic() - t0)
+            if len(urls) < len(started):
+                if time.monotonic() > deadline:
+                    late = [i for i, *_ in started if i not in urls]
+                    raise TimeoutError(f"replicas {late} published no member record "
+                                       f"within {self._spawn_timeout_s:.0f}s")
+                time.sleep(0.05)
+        out = []
+        for i, proc, _log, _t0 in started:
+            rr = RemoteReplica(i, urls[i][0], proc=proc, tracer=self._tracer_raw,
+                               store_root=self.store_root)
+            rr.boot_s = urls[i][1]
+            out.append(rr)
+        return out
+
     def _make_replica(self, i: int, rejoin: bool = False) -> Replica:
         """One Replica runner (a fresh service and lease epoch). A rejoined
         incarnation journals to a file of its own under the writer name
@@ -441,7 +592,8 @@ class ServiceFleet:
             writer, fname = f"{member}@e{n}", f"replica{i}.e{n}.jsonl"
         journal = None
         if self.journal_dir is not None:
-            journal = EventJournal(os.path.join(self.journal_dir, fname), writer=writer)
+            path, sync = self._journal_path(fname)
+            journal = EventJournal(path, writer=writer, sync_uri=sync)
             self._journals.append(journal)
             if lease is not None:
                 # A fenced-out replica can no longer journal admissions or
@@ -461,11 +613,14 @@ class ServiceFleet:
 
     def rejoin_replica(self, idx: int) -> bool:
         """Re-admit a dead or fenced member as a fresh incarnation: a fresh
-        lease epoch, a fresh runner and service, handed to
-        `FleetRouter.rejoin`, which holds it in probation until it answers
-        its probes, then moves its keys back. Returns False when the member
-        is not dead, or when the ``fleet.rejoin`` chaos point aborted the
-        rejoin (before the grant: nothing changed)."""
+        lease epoch and a fresh runner and service (in a remote fleet, a
+        fresh process, which publishes a fresh member record, journaling
+        under ``replica<i>@e<epoch>``), handed to `FleetRouter.rejoin`,
+        which holds it in probation until it answers its probes, then moves
+        its keys back. The old incarnation may still run (a zombie): the
+        fresh epoch fences its writes. Returns False when the member is not
+        dead, or when the ``fleet.rejoin`` chaos point aborted the rejoin
+        (before the grant: nothing changed)."""
         with self._rejoin_lock:
             old = self.replicas[idx]
             if idx not in self.router._dead:
@@ -474,27 +629,116 @@ class ServiceFleet:
                 maybe_fault("fleet.rejoin", replica=idx)
             except FaultError:
                 return False
-            new = self._make_replica(idx, rejoin=True)
+            if self.remote:
+                new = self._spawn_remote(idx, rejoin=True)
+            else:
+                new = self._make_replica(idx, rejoin=True)
             if not self.router.rejoin(new):
-                new.close()
+                self._discard(new)
                 return False
             self.replicas[idx] = new
             self._retired.append(old)
-            if self.background:
-                new.start()
-            if self.lease_store is not None:
-                member = lease_member(idx)
-                epoch, _state = self.lease_store.state(member)
-                self.router._events.emit("lease.grant", member=member, epoch=epoch)
+            self._granted(idx, new)
             return True
 
+    def _discard(self, new) -> None:
+        """Tear down an incarnation the router refused: nothing leaks."""
+        proc = getattr(new, "proc", None)
+        if proc is not None:
+            self._kill_one(proc)
+        else:
+            new.close()
+
+    def _granted(self, idx: int, new) -> None:
+        """Start a member the router took, and journal its grant."""
+        if self.background:
+            new.start()
+        if self.lease_store is not None:
+            member = lease_member(idx)
+            epoch, _state = self.lease_store.state(member)
+            self.router._events.emit("lease.grant", member=member, epoch=epoch)
+
+    # -- autoscaling (service/autoscale.py drives these) -------------------------
+
     def scale_out(self) -> Optional[int]:
-        """The autoscaler's grow: ROADMAP A item 3, not ported yet."""
-        raise NotImplementedError(f"fleet autoscaling (scale_out) is {WIRE_ITEM}")
+        """Grow the fleet by one replica at the next free index. The new
+        member enters through `FleetRouter.rejoin`'s door for a brand-new
+        index: registered, leased and probed, but held in probation like a
+        rejoined one. Journals `fleet.scale_out`, counts `scale_outs`.
+        Returns the new index, or None when the ``fleet.autoscale`` chaos
+        point aborted the grow; it fires first, before the grant and the
+        spawn, so a fault changes nothing."""
+        with self._rejoin_lock:
+            try:
+                maybe_fault("fleet.autoscale", action="scale_out")
+            except FaultError:
+                return None
+            idx = len(self.replicas)
+            new = self._spawn_remote(idx) if self.remote else self._make_replica(idx)
+            if not self.router.rejoin(new):
+                self._discard(new)
+                return None
+            self.replicas.append(new)
+            self._granted(idx, new)
+            return idx
 
     def scale_in(self, idx: Optional[int] = None) -> Optional[int]:
-        """The autoscaler's shrink: ROADMAP A item 3, not ported yet."""
-        raise NotImplementedError(f"fleet autoscaling (scale_in) is {WIRE_ITEM}")
+        """Retire one replica, by default the least-loaded healthy member
+        (a tie retires the newest index). Loss-free: an in-process
+        replica's running journaled jobs get one last checkpoint generation
+        (a replica process writes one every spin), then `FleetRouter.retire`
+        revokes the lease and drains the backlog onto the survivors,
+        resumed where a generation exists, and only then is the runner or
+        process stopped. Journals `fleet.scale_in`, counts `scale_ins`.
+        Returns the retired index, or None when no member is eligible (the
+        last healthy one never is) or the ``fleet.autoscale`` chaos point
+        aborted it (first, so a fault changes nothing). The slot stays in
+        `replicas`, reported dead: a later scale_out grows at the next
+        index, and `rejoin_replica` can bring this one back."""
+        with self._rejoin_lock:
+            try:
+                maybe_fault("fleet.autoscale", action="scale_in")
+            except FaultError:
+                return None
+            if idx is None:
+                idx = self._scale_in_candidate()
+            if idx is None or not (0 <= idx < len(self.replicas)):
+                return None
+            r = self.replicas[idx]
+            if not self.remote and r.alive:
+                # The last flush comes before the revoke inside retire():
+                # after it this runner's writes refuse themselves, and the
+                # drain would restart its jobs instead of resuming them.
+                try:
+                    r._checkpoint_jobs()
+                except Exception:  # noqa: BLE001 — best-effort flush
+                    pass
+            if not self.router.retire(idx):
+                return None
+            if self.remote:
+                r.stop()  # the completion mirror: its handles were requeued
+                if r.proc is not None:
+                    self._kill_one(r.proc)
+            else:
+                r.retire_runner()
+            return idx
+
+    def _scale_in_candidate(self) -> Optional[int]:
+        """The least-loaded healthy member by unfinished fleet jobs; members
+        in probation or draining are mid-transition and ineligible, and the
+        last healthy member is never a candidate."""
+        router = self.router
+        with router._lock:
+            live = [i for i in router.replicas
+                    if i not in router._dead and i not in router._draining
+                    and i not in router._probation and router.replicas[i].alive]
+            if len(live) <= 1:
+                return None
+            load: dict[int, int] = {}
+            for fj in router._jobs.values():
+                if fj.status not in FleetJobStatus.FINISHED and fj.replica is not None:
+                    load[fj.replica] = load.get(fj.replica, 0) + 1
+        return min(live, key=lambda i: (load.get(i, 0), -i))
 
     # -- the client surface --------------------------------------------------------
 
@@ -505,7 +749,8 @@ class ServiceFleet:
         return self.router.stats()
 
     def store_stats(self) -> Optional[dict]:
-        rows = [r.service.store_stats() for r in self.replicas if r.alive]
+        rows = [r.service.store_stats() for r in self.replicas
+                if r.alive and getattr(r, "service", None) is not None]
         rows = [s for s in rows if s]
         return rows[0] if len(rows) == 1 else (rows or None)
 
@@ -533,6 +778,28 @@ class ServiceFleet:
             else:
                 self.pump(4)
 
+    @staticmethod
+    def _kill_one(p) -> None:
+        """SIGTERM first (the child drains and flushes its journal), then
+        the hard kill: teardown never hangs on a wedged child."""
+        try:
+            if p.poll() is None:
+                p.terminate()
+                p.wait(timeout=10.0)
+        except Exception:  # noqa: BLE001 — best-effort teardown
+            pass
+        try:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=5.0)
+        except Exception:  # noqa: BLE001 — best-effort teardown
+            pass
+
+    def _kill_procs(self) -> None:
+        """Stop every replica process, rejoined incarnations included."""
+        for p in self._procs:
+            self._kill_one(p)
+
     def _supervise(self) -> None:
         while not self._stop.is_set():
             self.router.tick()
@@ -549,10 +816,13 @@ class ServiceFleet:
         for r in list(self.replicas) + self._retired:
             r.close()
         self.router.close()
+        self._kill_procs()
         for j in self._journals:
             j.close()
         if self.lease_store is not None:
             self.lease_store.close()
-        if self._tmpdir is not None:
-            self._tmpdir.cleanup()
-            self._tmpdir = None
+        for attr in ("_scratch_tmp", "_tmpdir"):
+            tmp = getattr(self, attr)
+            if tmp is not None:
+                tmp.cleanup()
+                setattr(self, attr, None)

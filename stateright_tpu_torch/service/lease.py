@@ -25,8 +25,9 @@ in every lease-based store:
 Chaos points: ``lease.revoke_race`` fires at the top of `revoke` (the lease
 stays granted and the router retries next tick); ``fleet.zombie_write`` is
 consumed by the fenced writer. The records are the JAX package's byte for
-byte, so either package's store reads the other's. Local roots only: a
-wire-store root raises `NotImplementedError` naming ROADMAP A item 3.
+byte, so either package's store reads the other's. A lease root may be a
+directory or a wire-store URI (faults/blobstore.py): the records ride the
+one record seam either way.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import os
 import threading
 from typing import Optional
 
-from ..faults.blobstore import normalize_root, refuse_wire
+from ..faults.blobstore import is_blob_uri, normalize_root
 from ..faults.ckptio import (
     CheckpointCorrupt,
     LeaseRevoked,
@@ -107,8 +108,8 @@ class LeaseStore:
 
     def __init__(self, root: str):
         self.root = normalize_root(root)
-        refuse_wire(self.root, "a lease store")
-        os.makedirs(self.root, exist_ok=True)
+        if not is_blob_uri(self.root):
+            os.makedirs(self.root, exist_ok=True)
         self._lock = threading.Lock()
         self.counters = {
             "grants": 0,
@@ -181,8 +182,9 @@ class LeaseStore:
     def _read(self, member: str) -> tuple:
         """(epoch, state) for `member`: the newest intact lease record,
         `.prev` fallback included; (0, "none") when the member never held
-        a lease; (0, "unreadable") when every record is torn (fail-safe: it
-        validates False, so a fenced writer refuses instead of guessing)."""
+        a lease; (0, "unreadable") when every record is torn or the wire
+        store is unreachable (fail-safe: it validates False, so a fenced
+        writer refuses instead of guessing)."""
         payload, any_file = read_record_latest(
             self.path_for(member), LEASE_MAGIC
         )

@@ -188,8 +188,8 @@ class FleetJob:
         self.id = fleet_id
         self.model = model
         # (registry name, args dict) when known: what a replica in another
-        # process (ROADMAP A item 3) would submit, since model objects
-        # cannot cross a process boundary.
+        # process submits, since model objects cannot cross a process
+        # boundary (both sides resolve it through a ModelRegistry).
         self.model_ref = model_ref
         self.key = key
         # Flight-recorder trace id: minted HERE (the outermost front door)
@@ -377,8 +377,9 @@ class FleetRouter:
         defaults to the model's type name — same-key jobs share a replica
         (and so a compiled step); distinct keys spread over the ring.
         `model_ref=(registry name, args)` names the model for a replica in
-        another process (ROADMAP A item 3; serve_fleet fills it in);
-        in-process replicas take the model object itself.
+        another process, and a fleet with such replicas requires it
+        (serve_fleet fills it in); in-process replicas take the model
+        object itself.
         `tenant` is the job's billing identity: it rides in `opts` through
         `_spec` into every replica's `CheckService.submit` (quota
         accounting and tenant-fair admission key on it), and when the
@@ -386,6 +387,17 @@ class FleetRouter:
         non-default tenant over its in-flight or lane-seconds budget is
         rejected HERE with `QuotaExceeded` before any replica is
         touched."""
+        if model_ref is None and any(
+            getattr(r, "remote", False) for r in self.replicas.values()
+        ):
+            # The caller's contract, not a fleet failure: without this check
+            # every placement would read the refusal as ReplicaDead and walk
+            # the healthy ring to no end.
+            raise TypeError(
+                "this fleet has replicas in other processes: submit() needs "
+                "model_ref=(registry name, args), since model objects cannot "
+                "cross a process boundary"
+            )
         if self.quotas is not None and tenant != DEFAULT_TENANT:
             with self._lock:
                 in_flight = sum(
@@ -664,7 +676,7 @@ class FleetRouter:
         the spawn — so an injected fault aborts the whole rejoin with
         literally nothing changed (not even a burned epoch).
 
-        A brand-new index (an autoscaler's scale-out, ROADMAP A item 3)
+        A brand-new index (an autoscaler's scale-out, `ServiceFleet.scale_out`)
         joins through the same door and the same quarantine: it is
         registered and probed like any member but gets no keys (and no
         placements) until `probation_probes` consecutive healthy probes
@@ -721,8 +733,8 @@ class FleetRouter:
     # -- replica retire (an autoscaler's scale-in) -----------------------------
 
     def retire(self, idx: int) -> bool:
-        """Gracefully remove a healthy member (an autoscaler's scale-in;
-        `ServiceFleet.scale_in` waits for ROADMAP A item 3). The drain is
+        """Gracefully remove a healthy member (an autoscaler's scale-in,
+        `ServiceFleet.scale_in`). The drain is
         loss-free by the same
         argument as the death path, in a safer order:
 
@@ -1113,11 +1125,12 @@ class FleetRouter:
                 elif inner.status == JobStatus.CANCELLED:
                     # A still-ROUTED fleet job whose inner copy is
                     # CANCELLED: a withdraw whose response was lost (a
-                    # steal across processes, ROADMAP A item 3; in one
-                    # process the steal rebinds the handle in the same
-                    # tick, and the router's own cancel finishes the fleet
-                    # job first). Recover like any orphan: requeue on the
-                    # ring, no job lost.
+                    # steal from a replica process hit its control deadline
+                    # after the victim had withdrawn; in one process the
+                    # steal rebinds the handle in the same tick, and the
+                    # router's own cancel finishes the fleet job first).
+                    # Recover like any orphan: requeue on the ring, no job
+                    # lost.
                     src = fj.replica
                     fj.requeues += 1
                     fj.replica = None

@@ -58,7 +58,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..faults.blobstore import blob_backend, normalize_root, refuse_wire
+from ..faults.blobstore import blob_backend, is_blob_uri, normalize_root
 from ..faults.ckptio import (
     CheckpointCorrupt,
     LeaseRevoked,
@@ -186,17 +186,19 @@ def _json_row(data, name="members") -> list:
 class CorpusStore:
     """The content-addressed corpus directory. Thread-safe; one per service
     engine (fleet replicas each build one over the SHARED directory). The
-    counters are the "corpus" source of the obs REGISTRY. A wire-store root
-    raises `NotImplementedError` naming ROADMAP A item 3."""
+    counters are the "corpus" source of the obs REGISTRY. The root may be a
+    directory or a wire-store URI (faults/blobstore.py): entries are
+    ckptio generations, and `gc` lists through the backend seam either
+    way."""
 
     def __init__(self, root: str, summary_log2: int = 20,
                  summary_hashes: int = DEFAULT_HASHES):
         summary_words(summary_log2)  # validates >= 5
         self.root = normalize_root(root)
-        refuse_wire(self.root, "a corpus root")
         self.summary_log2 = summary_log2
         self.summary_hashes = summary_hashes
-        os.makedirs(self.root, exist_ok=True)
+        if not is_blob_uri(self.root):
+            os.makedirs(self.root, exist_ok=True)
         self._lock = threading.Lock()
         # The owning fleet replica's lease (`set_lease`): publishes check it
         # and entries carry its stamp; lookups reject revoked stamps.

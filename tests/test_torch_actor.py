@@ -157,3 +157,23 @@ def test_host_examples_equal_jax_over_a_bfs(example):
     t = _bfs_pairs(build("stateright_tpu_torch", TN), tfingerprint, limit=1500)
     assert len(j) > 20
     assert t == j
+
+
+def test_semantics_registry_source_equals_jax():
+    """Both packages' obs REGISTRY carry a "semantics" source, with the
+    same keys, after the same verdicts; the verdicts move the port's
+    counters."""
+    from stateright_tpu.obs import REGISTRY as JREG
+    from stateright_tpu_torch.obs import REGISTRY as TREG
+
+    before = TREG.collect()["semantics"]
+    for seed in range(8):
+        for pkg in (js, ts):
+            tester = _history(pkg, pkg.LinearizabilityTester, pkg.Register(), _register_step,
+                              seed, 3, 3 + seed % 7)
+            tester.is_consistent()
+            tester.serialized_history()
+    port, ref = TREG.collect()["semantics"], JREG.collect()["semantics"]
+    assert sorted(port) == sorted(ref)
+    assert port["canonical_hits"] + port["canonical_misses"] > (
+        before["canonical_hits"] + before["canonical_misses"])

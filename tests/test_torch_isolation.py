@@ -3,10 +3,12 @@ and its entry point runs on the CUDA card unless the caller asks for the
 CPU."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -286,15 +288,29 @@ def test_fleet_services_default_to_the_card():
 
 
 def test_unported_fleet_surfaces_raise_naming_their_item(tmp_path):
-    from stateright_tpu_torch.faults.blobstore import blob_backend
-    from stateright_tpu_torch.faults.ckptio import atomic_savez, write_record
+    """The fleet surfaces that once raised naming ROADMAP A item 3 now work:
+    a remote fleet builds on a wire store root, every wire scheme resolves
+    to its store against the in-repo emulators and carries checkpoint
+    generations and records, an in-process fleet takes wire dirs, and
+    `scale_out` / `scale_in` act on a foreground fleet."""
+    from stateright_tpu_torch.faults.blobstore import (
+        HTTPBlobStore,
+        blob_backend,
+        serve_blobd,
+    )
+    from stateright_tpu_torch.faults.blobstore_gcs import GCSBlobStore
+    from stateright_tpu_torch.faults.blobstore_s3 import S3BlobStore
+    from stateright_tpu_torch.faults.ckptio import (
+        atomic_savez,
+        load_latest,
+        read_record_latest,
+        write_record,
+    )
     from stateright_tpu_torch.service import ServiceFleet
 
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ServiceFleet(remote=True)
-    # The warm-start corpus is ported: a fleet over one corpus directory
-    # builds, each replica on a tiered store with the corpus attached and
-    # fenced by its lease; a wire-store corpus root names item 3.
+    # The warm-start corpus: a fleet over one corpus directory builds, each
+    # replica on a tiered store with the corpus attached and fenced by its
+    # lease.
     fleet = ServiceFleet(n_replicas=2, background=False, corpus_dir=str(tmp_path / "c"),
                          lease_dir=str(tmp_path / "l"),
                          service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
@@ -305,23 +321,77 @@ def test_unported_fleet_surfaces_raise_naming_their_item(tmp_path):
             assert corpus.root == str(tmp_path / "c") and corpus._lease is rep.lease
     finally:
         fleet.close()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ServiceFleet(corpus_dir="blob://localhost:9/corpus")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ServiceFleet(lease_dir="blob://localhost:9/leases")
-    for uri in ("blob://localhost:9/r", "s3://bucket/r", "gs://bucket/r"):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            blob_backend(uri)
-        with pytest.raises(NotImplementedError, match="item 3"):
-            atomic_savez(uri + "/x.npz", {})
-        with pytest.raises(NotImplementedError, match="item 3"):
+    servers = {d: serve_blobd(dialect=d) for d in ("blob", "s3", "gs")}
+    saved = {k: os.environ.get(k) for srv in servers.values() for k in srv.env}
+    try:
+        for srv in servers.values():
+            os.environ.update(srv.env)
+        kinds = {"blob": HTTPBlobStore, "s3": S3BlobStore, "gs": GCSBlobStore}
+        for dialect, srv in servers.items():
+            uri = srv.root_uri + "/r"
+            assert isinstance(blob_backend(uri), kinds[dialect])
+            atomic_savez(uri + "/x.npz", {"a": np.arange(3)})
+            assert list(load_latest(uri + "/x.npz")[0]["a"]) == [0, 1, 2]
             write_record(uri + "/lease", b"{}", b"SRTPLSE1")
+            assert read_record_latest(uri + "/lease", b"SRTPLSE1") == (b"{}", True)
+        blob = servers["blob"].root_uri
+        # An in-process fleet with its corpus and leases on a wire store.
+        fleet = ServiceFleet(n_replicas=1, background=False, corpus_dir=blob + "/corpus",
+                             lease_dir=blob + "/leases",
+                             service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
+        try:
+            assert fleet.replicas[0].service._engine._corpus.root == blob + "/corpus"
+            assert fleet.lease_store.state("replica0") == (1, "granted")
+        finally:
+            fleet.close()
+        # A remote fleet on a wire root: its children's logs and the local
+        # halves of the journals go to a scratch directory of this host.
+        fleet = ServiceFleet(n_replicas=1, remote=True, store_root=blob + "/fleet",
+                             service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
+        try:
+            assert fleet.scratch_dir is not None and os.path.isdir(fleet.scratch_dir)
+            assert os.path.exists(os.path.join(fleet.scratch_dir, "logs", "replica0.log"))
+            assert fleet.replicas[0].probe()["device"] == "cpu"
+        finally:
+            fleet.close()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for srv in servers.values():
+            srv.shutdown()
     fleet = ServiceFleet(n_replicas=1, background=False,
                          service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
     try:
-        with pytest.raises(NotImplementedError, match="item 3"):
-            fleet.scale_out()
-        with pytest.raises(NotImplementedError, match="item 3"):
-            fleet.scale_in()
+        assert fleet.scale_in() is None  # never the last member
+        assert fleet.scale_out() == 1
+        assert fleet.scale_in() is None  # the new member is in probation
+        fleet.pump(rounds=4)  # its probation probes pass
+        assert fleet.scale_in() in (0, 1)
+        s = fleet.stats()
+        assert (s["scale_outs"], s["scale_ins"]) == (1, 1)
     finally:
         fleet.close()
+
+
+def test_replica_processes_run_without_jax(tmp_path):
+    """A remote fleet's replica process runs a job on the port alone: its
+    own `sys.modules`, read from its log at boot and at exit, holds neither
+    jax nor the JAX package."""
+    from stateright_tpu_torch.service import ServiceFleet
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    fleet = ServiceFleet(n_replicas=1, remote=True, store_root=str(tmp_path),
+                         service_kwargs=dict(batch_size=64, table_log2=12, device="cpu"))
+    try:
+        h = fleet.submit(TensorTwoPhaseSys(3), model_ref=("2pc", {"n": 3}))
+        r = h.result(timeout=120)
+        assert (r.state_count, r.unique_state_count) == (1146, 288)
+    finally:
+        fleet.close()
+    log = (tmp_path / "logs" / "replica0.log").read_text()
+    lines = [ln for ln in log.splitlines() if ln.startswith(("REPLICA_READY", "REPLICA_EXIT"))]
+    assert [ln.split()[0] for ln in lines] == ["REPLICA_READY", "REPLICA_EXIT"], log
+    assert all(ln.endswith("foreign_modules=[]") for ln in lines), lines

@@ -200,11 +200,40 @@ def test_timeline_runs_as_a_module_cli(chaos_fleet_run):
     assert empty.returncode == 1  # nothing to read
 
 
-def test_timeline_refuses_wire_store_roots():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tl.load_events(["blob://localhost:9/journal"])
-    with pytest.raises(NotImplementedError, match="item 3"):
-        read_journal("s3://bucket/journal/router.jsonl")
+def test_timeline_refuses_wire_store_roots(tmp_path):
+    """Wire-store journal roots, once refused, are read: journals mirrored
+    to a ``blob://`` root load as the local files do, and the port's CLI
+    report over the wire root equals the JAX CLI's over the same root. An
+    unreachable root is an empty journal (the reader never raises)."""
+    from stateright_tpu_torch.faults.blobstore import serve_blobd
+
+    srv = serve_blobd()
+    try:
+        root = srv.root_uri + "/journal"
+        for name, writer in (("router.jsonl", "router"), ("replica0.jsonl", "replica0")):
+            j = EventJournal(str(tmp_path / name), writer=writer,
+                             sync_uri=f"{root}/{name}")
+            if writer == "router":
+                j.emit("job.submitted", job=1, trace="t1")
+            else:
+                j.emit("replica.admit", job=1, trace="t1")
+                j.emit("job.done", job=1, trace="t1")
+            j.close()
+        local = tl.load_events([str(tmp_path)])
+        wire = tl.load_events([root])
+        assert [e["event"] for e in wire] == [e["event"] for e in local] == [
+            "job.submitted", "replica.admit", "job.done"]
+        assert read_journal(root + "/router.jsonl") == read_journal(str(tmp_path / "router.jsonl"))
+        out = [subprocess.run([sys.executable, "-m", mod, root, "--json"], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+               for mod in ("stateright_tpu_torch.obs.timeline", "stateright_tpu.obs.timeline")]
+        assert [o.returncode for o in out] == [0, 0], [o.stderr[-400:] for o in out]
+        reports = [json.loads(o.stdout.strip().splitlines()[-1]) for o in out]
+        assert reports[0] == reports[1] and reports[0]["anomalies"] == []
+        assert reports[0]["traces"]["t1"]["terminal"] == "job.done"
+    finally:
+        srv.shutdown()
+    assert read_journal("blob://localhost:9/journal/router.jsonl") == []
 
 
 # -- live event tails over HTTP ---------------------------------------------------------
