@@ -226,7 +226,33 @@ seconds on a line of its own:
     through probation, a scale-in retires one mid-backlog, every job
     equal to its standalone run. The insert calls of (a) and (b) are
     derived from what the children serve (device steps, seeds, re-seed
-    calls): `launches_fleet_remote` and `launches_fleet_remote_tiered`.
+    calls): `launches_fleet_remote` and `launches_fleet_remote_tiered`;
+21. the supervisor and the calibration (stateright_tpu_torch/faults/
+    supervisor.py, obs/calib.py, tensor/costmodel.py): (a) resident
+    paxos-3 at full width under `Supervisor` with a canned `FaultPlan`
+    (an engine.step oom after 2, an engine.chunk preemption, a torn first
+    checkpoint generation, an engine.step hang under a 2 s watchdog), at
+    its golden with phase 11's discoveries and every fault in
+    `detail["faults"]`, the first restored engine's queue head through the
+    kernel against the plain version; (b) resident 2pc-7 through a 2^18
+    hot tier with store.spill, store.append and store.resolve io faults, a
+    restored engine's first fused step with suspects held against its
+    plain version; (c) paxos-3 in 2^20 slots aborting "table full",
+    regrown by the supervisor to 2^21 through the kernel (the regrow's last
+    batch against the plain version); (d) 2pc-5 driven down the degrade
+    ladder to its cpu rung, every engine and carry still on the card and
+    the environment untouched; (e) the sharded engine on one NCCL rank,
+    supervised, tiered 2pc-7 with a shard.transfer fault; (f) resident
+    paxos-3 and device-store 2pc-10 recording observations, `fit_theta` of
+    the cuda-h100 spec on them, a held-out configuration of another model
+    and geometry (resident 2pc-7 on the device store at batch 2048 in 2^21
+    slots) scored against [0.7, 1.4] of its prediction under the fitted
+    spec, an overlay with
+    three times the fitted ms_dispatch tripping a drift episode on a
+    journaled check service (counters, the calib.drift event, the
+    timeline CLI), and paxos-3 with SR_TPU_CALIB=0 identical. Each part
+    prints its wall seconds and counters. The insert calls of (a) and (b)
+    are `launches_supervised` and `launches_supervised_tiered`.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -284,7 +310,7 @@ STORE_COUNTERS = ("spill_events", "spilled_states", "suspects_checked", "suspect
 # Phase 9's profiled 2pc-10 steps: 640 took 170.8 s of a 720.2 s whole smoke
 # on an H100 80GB HBM3 at 700 W (PERF.md, the corpus slice); 128 keep the
 # per-step numbers (ms a step, launches, busy share, the queue-head layers).
-PROFILE_STEPS = 128
+PROFILE_STEPS = 64
 # Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
 # csrc/visited_insert.cu), one 32-byte sector each.
 PROBE_SECTORS = 8
@@ -3870,6 +3896,441 @@ def phase_remote(ph, torch, chk, service):
                 tiered_launches=zombie["launches"])
 
 
+# -- phase 21: the supervisor and the calibration ------------------------------------
+
+# (a), (c): a slice of the supervised runs, the checkpoint cadence, in steps
+# (one chunk of them, enqueued with no host sync); the watchdog's deadline for
+# a warm engine's slice (a 64-step paxos-3 slice takes ~0.6 s on an H100 80GB
+# HBM3 at 700 W, PERF.md §5). (b), (e): the tiered runs slice at the engines'
+# own chunk, since a service exit turns the rest of a chunk into no-op steps.
+SUPERVISED_SLICE, SUPERVISED_WATCHDOG_S, TIERED_SLICE = 64, 2.0, 16
+# (c): paxos-3's 1.19 M unique states overflow a partition of 2^20 slots;
+# the queue is sized past them, so the table is what aborts.
+REGROW_TABLE, REGROW_QUEUE = 20, 22
+# (f): steps of device-store 2pc-10 observed, the comparator's chunk in
+# steps, and the held-out configuration: a model and geometry the fit never
+# sees (2pc-7, resident on the device store, in 2^21 slots).
+CALIB_2PC10_STEPS, CALIB_CHUNK = 320, 32
+HOLDOUT_BATCH, HOLDOUT_TABLE = 2048, 21
+
+
+def quiet_launches(ph):
+    """A context that keeps the insert's launch counters as they were: a
+    comparison's own kernel calls are not the path's."""
+    @contextlib.contextmanager
+    def keep():
+        saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+        try:
+            yield
+        finally:
+            ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+    return keep()
+
+
+def faults_line(f) -> str:
+    keys = ("injected_total", "retries", "restores", "checkpoint_generations",
+            "watchdog_fired", "degrade_steps", "degrade_rung")
+    return " ".join(f"{k}={f[k]}" for k in keys) + f" injected={f['injected']}"
+
+
+def supervised_paxos3(ph, torch, chk, tmp, paxos3):
+    """(a) resident paxos-3 at full width under the supervisor and a canned
+    plan: an engine.step oom after 2, an engine.chunk preemption, a torn
+    first checkpoint generation and an engine.step hang under the watchdog.
+    The golden, the plain run's discoveries, every fault accounted for; the
+    first restored engine's queue head through the kernel against the plain
+    version."""
+    from stateright_tpu_torch.faults import FaultPlan, Supervisor, SupervisorConfig
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    plan = (FaultPlan(seed=21, hang_limit_s=60.0)
+            .rule("engine.step", "oom", after=2)
+            .rule("engine.chunk", "preempt", after=1)
+            .rule("ckpt.write", "torn")
+            .rule("engine.step", "hang", after=4))
+    cfg = SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=SUPERVISED_SLICE,
+                           retries_per_rung=8, watchdog_s=SUPERVISED_WATCHDOG_S,
+                           compile_grace_s=120.0, seed=7)
+    restored = []
+
+    class Watched(Supervisor):
+        def _restore(self):
+            eng = super()._restore()
+            if eng is not None and not restored:
+                with quiet_launches(ph):
+                    queue_head_vs_plain(torch, chk, "[supervisor] (a) the restored engine's",
+                                        eng)
+                restored.append(eng.device)
+            return eng
+
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    sup = Watched(TensorPaxos(3), engine="resident", plan=plan, config=cfg,
+                  checkpoint_path=os.path.join(tmp, "paxos3.npz"),
+                  engine_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3))
+    r = sup.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    launches = ph.insert_kernel.launches
+    f = r.detail["faults"]
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+    want = paxos3["result"].discoveries if paxos3 else None
+    assert want is None or r.discoveries == want, (r.discoveries, want)
+    assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    assert f["injected"] == {"engine.step:oom": 1, "engine.chunk:preempt": 1,
+                             "ckpt.write:torn": 1, "engine.step:hang": 1}, f
+    assert f["retries"] == 3 and f["watchdog_fired"] == 1 and f["restores"] >= 1, f
+    assert restored == [torch.device("cuda")] and launches > 0, (restored, launches)
+    log(f"[supervisor] (a) resident paxos-3, batch {BATCH_PAXOS3}, table 2^{TABLE_PAXOS3}, "
+        f"slices of {SUPERVISED_SLICE} steps, watchdog {SUPERVISED_WATCHDOG_S} s: "
+        f"generated={r.state_count} unique={r.unique_state_count} steps={r.steps} "
+        f"sec={sec:.3f} insert_launches={launches}; {faults_line(f)}")
+    return dict(sec=sec, launches=launches, faults=f)
+
+
+def supervised_tiered(ph, torch, chk, tmp):
+    """(b) resident 2pc-7 through a 2^18 hot tier (it spills) under the
+    supervisor with store.spill, store.append and store.resolve io faults.
+    The golden; the first fused step with suspects of the first restored
+    engine held against its plain version on that step's operands."""
+    from stateright_tpu_torch.faults import FaultPlan, Supervisor, SupervisorConfig
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    plan = (FaultPlan(seed=22).rule("store.spill", "io").rule("store.append", "io")
+            .rule("store.resolve", "io"))
+    cfg = SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=TIERED_SLICE,
+                           retries_per_rung=8, seed=7)
+    found = []  # [(the step's operands, its index on the restored engine)]
+
+    class Watched(Supervisor):
+        def _restore(self):
+            eng = super()._restore()
+            if eng is not None and not found:
+                real, seen = eng.insert, [0]
+
+                def insert(t_key, t_parent, key, parent, active, **kw):
+                    if found or kw.get("summary") is None:
+                        return real(t_key, t_parent, key, parent, active, **kw)
+                    got = dict(tables=(t_key.clone(), t_parent.clone()), key=key.clone(),
+                               parent=parent.clone(), active=active.clone(),
+                               summary=kw["summary"].clone(), summary_cfg=kw["summary_cfg"])
+                    out = real(t_key, t_parent, key, parent, active, **kw)
+                    seen[0] += 1
+                    if int(out[3].sum()):  # a host read: this engine's first suspect step
+                        found.append((got, seen[0]))
+                    return out
+
+                eng.insert = insert
+            return eng
+
+    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    t0 = time.monotonic()
+    sup = Watched(TensorTwoPhaseSys(7), engine="resident", plan=plan, config=cfg,
+                  checkpoint_path=os.path.join(tmp, "tiered7.npz"),
+                  engine_kwargs=dict(batch_size=BATCH_TIERED7, table_log2=TABLE_TIERED7,
+                                     store="tiered", summary_log2=SUMMARY_TIERED7))
+    r = sup.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    f = r.detail["faults"]
+    assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+    assert r.detail["spill_events"] >= 1 and r.detail["suspects_checked"] > 0, r.detail
+    assert f["injected"] == {"store.spill:io": 1, "store.append:io": 1,
+                             "store.resolve:io": 1}, f
+    assert f["restores"] >= 1 and fused > 0, (f, fused)
+    assert found, "no restored engine stepped with a suspect"
+    hit, index = found[0]
+    with quiet_launches(ph):
+        _, is_new, suspect = chk.compare(TABLE_TIERED7, hit["key"], hit["parent"],
+                                         hit["active"], tables=hit["tables"],
+                                         summary=hit["summary"], summary_cfg=hit["summary_cfg"])
+    log(f"[supervisor] (b) a restored engine's first fused step with suspects (its step "
+        f"{index}): {hit['key'].numel()} lanes ({int(hit['active'].sum())} active), "
+        f"{int(is_new.sum())} new, {int(suspect.sum())} suspect: the kernel and the plain "
+        "version agree")
+    log(f"[supervisor] (b) tiered 2pc-7, batch {BATCH_TIERED7}, table 2^{TABLE_TIERED7}, "
+        f"summary 2^{SUMMARY_TIERED7}: generated={r.state_count} "
+        f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} plain_launches={plain} "
+        f"fused_launches={fused} spill_events={r.detail['spill_events']} "
+        f"suspects_checked={r.detail['suspects_checked']}; {faults_line(f)}")
+    return dict(sec=sec, launches=fused, faults=f)
+
+
+def supervised_regrow(ph, torch, chk, tmp):
+    """(c) paxos-3 in a table of 2^20 slots aborts "table full"; the
+    supervisor checkpoints the carry and regrows it into 2^21 slots through
+    the kernel (the regrow's last batch held against the plain version)."""
+    import shutil
+
+    from stateright_tpu_torch.faults import Supervisor, SupervisorConfig
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    path = os.path.join(tmp, "regrow.npz")
+    side = os.path.join(tmp, "regrow_source.npz")
+    regrown = []
+
+    class Watched(Supervisor):
+        def _restore(self):
+            grow = self._grow_table
+            if grow:
+                shutil.copyfile(path, side)
+            eng = super()._restore()
+            if grow and eng is not None:
+                regrown.append((eng.table_log2, eng.load_seconds.get("regrow", 0.0),
+                                ph.insert_kernel.launches))
+                with quiet_launches(ph):
+                    regrow_batch_vs_plain(ph, torch, chk, side, eng)
+                os.remove(side)
+            return eng
+
+    ph.insert_kernel.launches = 0
+    t0 = time.monotonic()
+    r = Watched(TensorPaxos(3), engine="resident", plan=None,
+                config=SupervisorConfig(backoff_base_s=0.0,
+                                        checkpoint_every_steps=SUPERVISED_SLICE, seed=7),
+                checkpoint_path=path,
+                engine_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=REGROW_TABLE,
+                                   queue_log2=REGROW_QUEUE)).run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    f = r.detail["faults"]
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+    assert regrown and regrown[0][0] == REGROW_TABLE + 1 and f["restores"] >= 1, (regrown, f)
+    log(f"[supervisor] (c) paxos-3 from 2^{REGROW_TABLE} slots: aborted table full, regrown to "
+        f"2^{regrown[-1][0]} through the kernel in {regrown[0][1]:.3f} s "
+        f"(insert calls to the end of the regrow {regrown[0][2]}), generated={r.state_count} "
+        f"unique={r.unique_state_count} sec={sec:.3f}; {faults_line(f)}")
+    return dict(sec=sec, faults=f)
+
+
+def supervised_ladder(ph, torch, tmp):
+    """(d) six consecutive faults walk the degrade ladder to its cpu rung:
+    every engine built after each rung holds its tensors on the card, the
+    environment is untouched, and the run reaches its golden."""
+    from stateright_tpu_torch.faults import FaultPlan, Supervisor, SupervisorConfig
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    built = []
+
+    class Watched(Supervisor):
+        def _build(self):
+            eng = super()._build()
+            built.append(eng)
+            return eng
+
+    env = dict(os.environ)
+    t0 = time.monotonic()
+    sup = Watched(TensorTwoPhaseSys(5), engine="resident",
+                  plan=FaultPlan(seed=23).rule("engine.step", "oom", times=6),
+                  config=SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=8,
+                                          retries_per_rung=2, max_retries=10, seed=7),
+                  checkpoint_path=os.path.join(tmp, "ladder.npz"),
+                  engine_kwargs=dict(batch_size=2048, table_log2=17))
+    r = sup.run()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    f = r.detail["faults"]
+    changed = {k for k in set(env) | set(os.environ) if env.get(k) != os.environ.get(k)}
+    assert not changed, f"the ladder changed the environment: {sorted(changed)}"
+    assert (r.state_count, r.unique_state_count) == (58_146, 8_832) and r.complete, r
+    assert f["degrade_rung"] == 3 and f["degrade_steps"] == 3, f
+    assert all(e.device.type == "cuda" for e in built), [e.device for e in built]
+    held = [e._c["t_key"].device.type for e in built if e._c is not None]
+    assert held and set(held) == {"cuda"}, held
+    assert built[-1].batch_size == 1024 and built[-1].store == "tiered"
+    log(f"[supervisor] (d) 2pc-5 driven to the cpu rung: {len(built)} engines built, every "
+        f"one on {sorted({str(e.device) for e in built})}, carries on {sorted(set(held))}; "
+        f"generated={r.state_count} unique={r.unique_state_count} sec={sec:.3f}; "
+        f"{faults_line(f)}")
+    return dict(sec=sec, faults=f)
+
+
+def supervised_sharded(ph, torch, tmp):
+    """(e) the sharded engine on a world of one rank over NCCL, supervised,
+    with a shard.transfer fault on its tiered service."""
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.faults import FaultPlan, SupervisorConfig, run_supervised
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        t0 = time.monotonic()
+        r = run_supervised(
+            TensorTwoPhaseSys(7), engine="sharded",
+            plan=FaultPlan(seed=24).rule("shard.transfer", "shard", match={"shard": 0}),
+            config=SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=TIERED_SLICE,
+                                    seed=7),
+            checkpoint_path=os.path.join(tmp, "sharded.npz"),
+            engine_kwargs=dict(device="cuda:0", batch_size=BATCH_TIERED7,
+                               table_log2=TABLE_TIERED7, store="tiered",
+                               summary_log2=SUMMARY_TIERED7))
+        torch.cuda.synchronize()
+        sec = time.monotonic() - t0
+    finally:
+        dist.destroy_process_group()
+    f = r.detail["faults"]
+    assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+    assert f["injected"] == {"shard.transfer:shard": 1} and f["retries"] == 1, f
+    assert ph.insert_kernel.bloom_launches > 0
+    log(f"[supervisor] (e) sharded tiered 2pc-7 on one NCCL rank: generated={r.state_count} "
+        f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} "
+        f"fused_launches={ph.insert_kernel.bloom_launches}; {faults_line(f)}")
+    return dict(sec=sec, faults=f)
+
+
+def calib_run(torch, engine, model, batch, table_log2, queue_log2=None, max_steps=1 << 62):
+    """One calibrated resident run: (result, its comparator, seconds)."""
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    rs = ResidentSearch(model, batch, table_log2, queue_log2=queue_log2)
+    t0 = time.monotonic()
+    r = rs.run(max_steps=max_steps)
+    torch.cuda.synchronize()
+    return rs, r, time.monotonic() - t0
+
+
+def calibration(ph, torch, tmp):
+    """(f) resident paxos-3 and device-store 2pc-10 record observations
+    under a record root; `fit_theta` fits cuda-h100 on them; the held-out
+    configuration (2pc-7 at batch 2048, another model and geometry, with
+    its own counted launches) is predicted under the fitted
+    spec; an overlay with three times the fitted ms_dispatch trips a drift
+    episode on a journaled check service (counters, the calib.drift event,
+    the timeline CLI); and results with SR_TPU_CALIB=0 are identical."""
+    from stateright_tpu_torch.obs import calib
+    from stateright_tpu_torch.service import CheckService
+    from stateright_tpu_torch.tensor import costmodel as cm
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+
+    root = os.path.join(tmp, "calib_root")
+    saved = {k: os.environ.get(k) for k in (calib.ENV_DIR, calib.ENV_CHUNK, calib.ENV_ENABLE,
+                                             cm.CALIB_ENV)}
+    out = {}
+    try:
+        os.environ[calib.ENV_DIR] = root
+        os.environ[calib.ENV_CHUNK] = str(CALIB_CHUNK)
+        runs = {}
+        for key, model, batch, log2, qlog2, steps in (
+                ("paxos-3", TensorPaxos(3), BATCH_PAXOS3, TABLE_PAXOS3, None, 1 << 62),
+                ("2pc-10", TensorTwoPhaseSys(10), BATCH_2PC10, TABLE_2PC10, QUEUE_2PC10,
+                 CALIB_2PC10_STEPS),
+                ("holdout", TensorTwoPhaseSys(7), HOLDOUT_BATCH, HOLDOUT_TABLE, None,
+                 1 << 62)):
+            rs, r, sec = calib_run(torch, "resident", model, batch, log2, qlog2, steps)
+            comp = rs._calib
+            d = r.detail["calib"]
+            runs[key] = (r, comp.record_key())
+            log(f"[calib] (f) {key}: batch {batch}, {r.steps} steps in {sec:.3f} s, "
+                f"{comp.config.launches:.0f} launches a step counted; measured p50 "
+                f"{d['measured_p50_ms']} ms a step against {d['predicted_ms']} predicted "
+                f"(stock cuda-h100), ratio {d['drift_ratio']}, chunks {d['chunks']}, "
+                f"out of band {d['out_of_band']}, drift events {d['drift_events']}, "
+                f"top term {d['top_term']}; terms {d['terms']}")
+            out[key] = dict(ms=d["measured_p50_ms"], predicted=d["predicted_ms"],
+                            ratio=d["drift_ratio"], launches=comp.config.launches)
+            del rs
+            torch.cuda.empty_cache()
+        assert (runs["paxos-3"][0].state_count,
+                runs["paxos-3"][0].unique_state_count) == GOLDEN_PAXOS3
+        assert (runs["holdout"][0].state_count,
+                runs["holdout"][0].unique_state_count) == GOLDEN_2PC7
+        recs = calib.load_observations(root)
+        keys = {rec["key"] for rec in recs}
+        assert {k for _r, k in runs.values()} <= keys, keys
+        train = [rec for rec in recs if rec["key"] != runs["holdout"][1]]
+        theta, report = calib.fit_theta(train, cm.H100)
+        fitted = calib.device_from_theta(cm.H100, theta)
+        log(f"[calib] (f) fit_theta on {report['rows']} rows of paxos-3 and 2pc-10: median "
+            f"|drift-1| stock {report['median_abs_drift_stock']:.4f} -> fitted "
+            f"{report['median_abs_drift_fitted']:.4f}; fitted cuda-h100 rates "
+            + ", ".join(f"{f}={getattr(fitted, f):.6g}" for _n, f, _k in calib.THETA_FIELDS))
+        held = calib.holdout_eval(recs, cm.H100)[runs["holdout"][1]]
+        log(f"[calib] (f) held out 2pc-7 at batch {HOLDOUT_BATCH}, 2^{HOLDOUT_TABLE} slots "
+            f"({out['holdout']['launches']:.0f} launches a step counted): measured/predicted "
+            f"{held['fitted_ratio']:.4f} under the fitted spec (stock {held['stock_ratio']:.4f})")
+        lo, hi = calib.DRIFT_BAND
+        assert lo <= held["fitted_ratio"] <= hi, held
+        out.update(theta=theta, fitted={f: getattr(fitted, f) for _n, f, _k in calib.THETA_FIELDS},
+                   holdout=held, fit=report)
+
+        # The mis-scaled overlay: three times the fitted cost of a launch.
+        bad = list(theta)
+        bad[[n for n, _f, _k in calib.THETA_FIELDS].index("dispatch")] *= 3
+        overlay = os.path.join(tmp, "overlay_x3.json")
+        with open(overlay, "w") as fh:
+            json.dump(calib.overlay_dict(cm.H100, bad), fh)
+        os.environ[cm.CALIB_ENV] = overlay
+        os.environ[calib.ENV_CHUNK] = "8"
+        del os.environ[calib.ENV_DIR]
+        journal = os.path.join(tmp, "drift_journal")
+        os.makedirs(journal)
+        svc = CheckService(batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3, background=False,
+                           events_out=os.path.join(journal, "svc.jsonl"))
+        try:
+            h = svc.submit(TensorPaxos(3))
+            svc.drain(timeout=600)
+            res = h.result()
+            m = svc._engine._calib.metrics()
+        finally:
+            svc.close()
+        assert (res.state_count, res.unique_state_count) == GOLDEN_PAXOS3
+        assert m["drift_events"] >= 1 and m["out_of_band"] >= calib.DRIFT_CONSECUTIVE, m
+        rep = run_timeline_cli(journal)
+        assert rep["drift"] and rep["drift"][0]["engine"] == "service", rep["drift"]
+        log(f"[calib] (f) overlay with ms_dispatch x3 on a journaled service paxos-3 job: "
+            f"chunks {m['chunks']}, out of band {m['out_of_band']}, drift events "
+            f"{m['drift_events']}, last ratio {m['last_ratio']}; the timeline CLI reports "
+            f"{len(rep['drift'])} drift event(s): engine {rep['drift'][0]['engine']} term "
+            f"{rep['drift'][0]['term']} ratio {rep['drift'][0]['ratio']} jobs "
+            f"{rep['drift'][0]['jobs']}")
+        out["drift"] = dict(m, timeline=len(rep["drift"]))
+        del os.environ[cm.CALIB_ENV]
+
+        # The comparator observes and never steers.
+        os.environ[calib.ENV_ENABLE] = "0"
+        rs, off, _sec = calib_run(torch, "resident", TensorPaxos(3), BATCH_PAXOS3, TABLE_PAXOS3)
+        assert rs._calib is None and "calib" not in (off.detail or {})
+        on = runs["paxos-3"][0]
+        same = lambda r: (r.state_count, r.unique_state_count, r.max_depth, r.steps,  # noqa: E731
+                          r.discoveries)
+        assert same(off) == same(on), (same(off), same(on))
+        log("[calib] (f) paxos-3 with SR_TPU_CALIB=0: counts, depth, steps and discoveries "
+            "identical to the calibrated run")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return out
+
+
+def phase_supervisor(ph, torch, chk, paxos3):
+    """The supervisor and the calibration (see the module docstring,
+    phase 21); each part prints its seconds and counters."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervisor_") as tmp:
+        for name, fn, args in (("a", supervised_paxos3, (ph, torch, chk, tmp, paxos3)),
+                               ("b", supervised_tiered, (ph, torch, chk, tmp)),
+                               ("c", supervised_regrow, (ph, torch, chk, tmp)),
+                               ("d", supervised_ladder, (ph, torch, tmp)),
+                               ("e", supervised_sharded, (ph, torch, tmp)),
+                               ("f", calibration, (ph, torch, tmp))):
+            t0 = time.monotonic()
+            out[name] = fn(*args)
+            torch.cuda.empty_cache()
+            log(f"[supervisor] ({name}) wall {time.monotonic() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3939,6 +4400,7 @@ def main() -> int:
     fleet = phase(18, "service fleet", phase_fleet, ph, torch, chk, service)
     corpus = phase(19, "corpus warm start", phase_corpus, ph, torch, chk)
     remote = phase(20, "fleet across processes", phase_remote, ph, torch, chk, service)
+    sup = phase(21, "supervisor and calibration", phase_supervisor, ph, torch, chk, paxos3)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -3962,6 +4424,7 @@ def main() -> int:
         "launches_corpus": corpus["launches"],
         "launches_corpus_sim": corpus["sim"]["launches"],
         "launches_fleet_remote": remote["launches"],
+        "launches_supervised": sup["a"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -3983,6 +4446,7 @@ def main() -> int:
         "launches_fleet_tiered": fleet["tiered_launches"],
         "launches_corpus_tiered": corpus["bloom_launches"],
         "launches_fleet_remote_tiered": remote["tiered_launches"],
+        "launches_supervised_tiered": sup["b"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

@@ -59,6 +59,12 @@ class Checker:
             return DiscoveryClassification.COUNTEREXAMPLE
         return DiscoveryClassification.EXAMPLE
 
+    def drift_ratio(self) -> Optional[float]:
+        """Measured/predicted step cost from the calibration comparator
+        (obs/calib.py) when the checker runs one; None otherwise. Feeds the
+        WriteReporter `drift=` field."""
+        return None
+
     def report(self, reporter: Reporter) -> "Checker":
         """Periodically emit status until done, then a final line plus the
         discovery summary (ref: src/checker.rs:412-452)."""
@@ -81,6 +87,7 @@ class Checker:
                     duration=now - start,
                     done=False,
                     rate=rate,
+                    drift=self.drift_ratio(),
                 )
             )
             time.sleep(reporter.delay())

@@ -92,6 +92,46 @@ class CheckerBuilder:
             kwargs.setdefault("trace_out", self.trace_out_)
         return CudaChecker(self, **kwargs)
 
+    def run_supervised(
+        self,
+        engine: str = "resident",
+        plan=None,
+        config=None,
+        checkpoint_path: Optional[str] = None,
+        **engine_kwargs,
+    ):
+        """Run this check under the self-healing supervisor
+        (stateright_tpu_torch/faults/supervisor.py): checkpointed slices,
+        bounded retry with backoff, the degrade ladder and the watchdog,
+        with fault injection when a `FaultPlan` is passed (or
+        ``SR_TPU_FAULTS=`` is set). Blocking; returns the engine's
+        `SearchResult` with the recovery counters in `detail["faults"]`.
+        The builder's finish_when and targets map onto the run; the engine
+        options (`device` among them: the card unless "cpu") go to every
+        engine the run builds. The model must be a TensorModel."""
+        from ..faults import run_supervised as _run_supervised
+        from ..tensor.model import TensorModel
+
+        if not isinstance(self.model, TensorModel):
+            raise TypeError(
+                "run_supervised requires a stateright_tpu_torch TensorModel; "
+                f"got {type(self.model).__name__}"
+            )
+        run_kwargs = {"finish_when": self.finish_when_}
+        if self.target_state_count_ is not None:
+            run_kwargs["target_state_count"] = self.target_state_count_
+        if self.target_max_depth_ is not None:
+            run_kwargs["target_max_depth"] = self.target_max_depth_
+        return _run_supervised(
+            self.model,
+            engine=engine,
+            plan=plan,
+            config=config,
+            checkpoint_path=checkpoint_path,
+            engine_kwargs=engine_kwargs,
+            run_kwargs=run_kwargs,
+        )
+
     def spawn_service(self, service, priority: int = 0):
         """Submit this check as a job of a shared `CheckService`
         (stateright_tpu_torch/service/) and return the `Checker` surface

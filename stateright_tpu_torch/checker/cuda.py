@@ -107,6 +107,12 @@ class CudaChecker(Checker):
             self._live.update(states=states, unique=unique, depth=depth)
 
         try:
+            # The chaos plane's boundary: the search thread itself (the
+            # engines have their own points; this one exercises the
+            # join()/panic surface, faults/plan.py).
+            from ..faults.plan import maybe_fault
+
+            maybe_fault("checker.run", engine=type(self._search).__name__)
             with self._search._tracer.span("search.run", cat="checker"):
                 self._result = self._search.run(
                     finish_when=self._options.finish_when_,
@@ -227,6 +233,13 @@ class CudaChecker(Checker):
         """The engine's step-telemetry digest (obs/ring.py; None with
         telemetry off)."""
         return self._search.telemetry_summary()
+
+    def drift_ratio(self) -> Optional[float]:
+        """The engine's calibration comparator's latest measured/predicted
+        step cost (obs/calib.py), the reporter's `drift=` field; None until
+        its first chunk closes, or with calibration off."""
+        calib = getattr(self._search, "_calib", None)
+        return calib.drift_ratio() if calib is not None else None
 
     def table_fill(self) -> float:
         """Visited-table fill: the tiered store's exact hot fill when there

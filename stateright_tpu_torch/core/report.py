@@ -14,7 +14,9 @@ from typing import Optional, TextIO
 @dataclass
 class ReportData:
     """Snapshot of checker progress (ref: src/report.rs:10-21). `rate` is
-    states/sec over the last reporting window, None on the first tick."""
+    states/sec over the last reporting window, None on the first tick;
+    `drift` the calibration comparator's measured/predicted step cost
+    (obs/calib.py), None until a chunk closes or with calibration off."""
 
     total_states: int
     unique_states: int
@@ -22,6 +24,7 @@ class ReportData:
     duration: float  # seconds
     done: bool
     rate: Optional[float] = None
+    drift: Optional[float] = None
 
 
 class Reporter:
@@ -58,6 +61,8 @@ class WriteReporter(Reporter):
             )
             if data.rate is not None:
                 line += f", rate={data.rate:.0f}"
+            if data.drift is not None:
+                line += f", drift={data.drift:.2f}"
             self.stream.write(line + "\n")
         self.stream.flush()
 

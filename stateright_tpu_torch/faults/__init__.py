@@ -7,7 +7,10 @@ replica's generations behind its lease; `blobstore` is the store-root seam
 (the local file system, the ``blob://`` emulator store and the managed
 ``s3://`` / ``gs://`` stores, with `creds` their credential chain and
 `blobdialect` their emulators); `plan` is the seeded fault-injection plane
-(`FaultPlan`, `maybe_fault`)."""
+(`FaultPlan`, `maybe_fault`); `supervisor` is the self-healing supervisor
+(`run_supervised`: checkpointed slices, bounded retry with backoff, the
+degrade ladder, the watchdog, the SIGTERM drain) over the frontier,
+resident and sharded engines."""
 
 from .ckptio import (
     LEASE_STAMP_KEYS,
@@ -15,6 +18,7 @@ from .ckptio import (
     LeaseRevoked,
     atomic_savez,
     fenced_load_latest,
+    latest_generation,
     fenced_savez,
     lease_stamp,
     load_latest,
@@ -29,12 +33,23 @@ from .plan import (
     FaultRule,
     HttpFault,
     PoisonFault,
+    PreemptionFault,
+    ReplicaCrash,
+    ShardFault,
+    SpillIOError,
     WatchdogTimeout,
     XlaError,
     active,
     active_plan,
     install_plan,
     maybe_fault,
+)
+from .supervisor import (
+    RUNGS,
+    Supervisor,
+    SupervisorConfig,
+    SupervisorGaveUp,
+    run_supervised,
 )
 
 __all__ = [
@@ -48,6 +63,14 @@ __all__ = [
     "FaultRule",
     "HttpFault",
     "PoisonFault",
+    "PreemptionFault",
+    "RUNGS",
+    "ReplicaCrash",
+    "ShardFault",
+    "SpillIOError",
+    "Supervisor",
+    "SupervisorConfig",
+    "SupervisorGaveUp",
     "WatchdogTimeout",
     "XlaError",
     "active",
@@ -56,9 +79,11 @@ __all__ = [
     "fenced_load_latest",
     "fenced_savez",
     "install_plan",
+    "latest_generation",
     "lease_stamp",
     "load_latest",
     "maybe_fault",
     "normalize_ckpt_path",
     "read_verified",
+    "run_supervised",
 ]

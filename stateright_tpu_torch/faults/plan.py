@@ -7,6 +7,33 @@ is exercised on purpose, with results that must stay bit-identical.
 Injection points that fire in this package (the name is the contract; grep
 for `maybe_fault(`):
 
+- ``engine.step`` — an engine's step dispatch, BEFORE the device work: the
+  host-driven engine a batch (tensor/frontier.py; ctx ``engine, step``, and
+  ``phase="seed"`` before the init inserts), the resident and sharded
+  engines a chunk (tensor/resident.py, parallel/sharded.py), the device
+  simulation a round (tensor/simulation.py; ctx ``engine="simulation",
+  round=r``). A faulted step or chunk leaves the carry at its last sound
+  boundary, so a retry is exact.
+- ``engine.chunk`` — between the resident or sharded engine's chunks, where
+  the carry is sound (preemption mid-run).
+- ``store.service`` — the resident engine's tiered service entry (queue
+  compaction, suspect injection, eviction), before anything changes.
+- ``store.spill`` — the tiered store's eviction (store/tiered.py; ctx
+  ``tier`` ("device" for the engines' tables, "host" for numpy ones),
+  ``target``), before any row is emptied.
+- ``store.resolve`` — the tiered store's suspect resolution (ctx
+  ``suspects``), before the spill tier is read.
+- ``store.append`` — the host spill tier's append (store/host.py; ctx
+  ``n``), before the batch lands.
+- ``shard.transfer`` — a sharded rank's service of its own shard (ctx
+  ``shard=<rank>, phase`` "resolve" or "evict"). The port runs one process
+  a rank, so the sharded engine's points are collective while a plan is
+  active: the ranks agree on a fault where it fires, and every rank raises
+  (a rule matching ``shard=1`` raises on rank 1 and, agreed, on the
+  others), so every rank's supervisor restores; with no plan, nothing is
+  added.
+- ``checker.run`` — the `spawn_cuda()` checker's search thread
+  (checker/cuda.py; ctx ``engine``), before the engine runs.
 - ``service.step`` — the check service's fused step, BEFORE the device
   call (service/scheduler.py; ctx ``job=[ids], group=<model class>``): a
   rule with ``match={"job": id}`` fires only on steps carrying that job,
@@ -54,9 +81,11 @@ for `maybe_fault(`):
   written or removed: a faulted load is a miss (the job runs cold), a
   faulted publish leaves no entry, a faulted sweep removes nothing.
 
-The JAX package's other points (engine steps and chunks, the tiered
-store's spill and resolve) fire there; here they wait for the supervisor
-(ROADMAP A15).
+The JAX package's ``table.insert_retry`` has no counterpart: its Pallas
+table re-offers spilled lanes in a host loop, a boundary between two
+device calls; the port's `PallasHashTable.insert` is one CUDA call with no
+re-offer loop (the kernel resolves every lane), so there is no boundary
+to fire it at.
 The plan machinery is whole: the ``SR_TPU_FAULTS`` grammar, the raising
 kinds, and the consumed kinds (``hang`` parks on a cancel gate, ``torn`` /
 ``bypass`` / ``stale`` / ``slow`` are acted out by the boundary that pulls

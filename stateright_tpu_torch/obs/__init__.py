@@ -12,7 +12,11 @@ trimmed to what the port's engines and check service use):
 4. the event journal (`events.py`): the check service's and the fleet's
    JSONL flight recorder, in the JAX package's format, and the forensic
    timeline over a run's journals (`timeline.py`,
-   ``python -m stateright_tpu_torch.obs.timeline``).
+   ``python -m stateright_tpu_torch.obs.timeline``);
+5. the calibration observatory (`calib.py`): each engine's measured step
+   cost against the cost model's prediction (tensor/costmodel.py), its
+   records and the fitter (``python -m
+   stateright_tpu_torch.obs.calibrate``).
 """
 
 from .events import (

@@ -43,6 +43,44 @@ DETAIL_KEYS = {
     "tenant": "per-tenant accounting sub-dict (TENANT_DETAIL_KEYS)",
     # the warm-start corpus (store/corpus.py)
     "corpus": "cross-job warm-start sub-dict (CORPUS_DETAIL_KEYS)",
+    # the calibration observatory (obs/calib.py Comparator): present only
+    # when the comparator is on and has closed a chunk
+    "calib": "measured-vs-predicted cost sub-dict (CALIB_DETAIL_KEYS)",
+}
+
+#: Keys of `detail["calib"]` (obs/calib.py Comparator.detail): the JAX
+#: package's. `terms` is the one dynamic sub-dict: one predicted-ms entry
+#: per cost-model OpCost name.
+CALIB_DETAIL_KEYS = {
+    "engine": "which engine the comparator observed "
+              "(frontier/resident/sharded/simulation/service)",
+    "variant": "cost-model variant the prediction priced "
+               "(costmodel.ENGINE_VARIANTS value)",
+    "device": "DeviceSpec kind the predictions used (overlay-aware)",
+    "predicted_ms": "cost-model ms a step for the last chunk's new_frac",
+    "measured_p50_ms": "measured ms a step, step-weighted p50 over chunks",
+    "measured_p95_ms": "measured ms a step, step-weighted p95 over chunks",
+    "drift_ratio": "measured/predicted, step-weighted p50 over chunks",
+    "new_frac": "active-lane fraction the prediction used (quantized; from "
+                "drained generated counts)",
+    "chunks": "comparison chunks closed (~chunk_steps steps each)",
+    "out_of_band": "chunks whose ratio left the drift band",
+    "drift_events": "drift episodes journaled (K consecutive chunks out)",
+    "terms": "per-term predicted-ms attribution sub-dict (OpCost names)",
+    "top_term": "largest predicted term: the term a drift episode names",
+}
+
+#: The `"calib"` REGISTRY source (obs/calib.py Comparator.metrics).
+CALIB_COUNTER_KEYS = {
+    "chunks": "comparison chunks closed",
+    "out_of_band": "chunks outside the drift band",
+    "drift_events": "drift episodes (K consecutive out-of-band chunks)",
+    "drift_active": "1 while an episode is open, else 0",
+    "last_ratio": "latest chunk's measured/predicted",
+    "last_predicted_ms": "latest chunk's predicted ms a step",
+    "last_measured_ms": "latest chunk's measured ms a step",
+    "records_flushed": "durable observation-record merges written",
+    "record_errors": "record writes that failed (store unreachable)",
 }
 
 #: Keys of `detail["corpus"]` (service/scheduler.py `build_result`, the
@@ -143,9 +181,7 @@ TELEMETRY_KEYS = {
 #: The event-journal vocabulary (obs/events.py): event type -> the fields
 #: every emission of that type must carry, beyond the stamps the journal
 #: adds (ts / seq / writer / pid). `EventJournal.emit` rejects an
-#: undeclared type or a missing field. The JAX package's vocabulary whole;
-#: the calibration, credential and autoscaling types are emitted only
-#: there.
+#: undeclared type or a missing field. The JAX package's vocabulary whole.
 EVENT_TYPES = {
     # job lifecycle
     "job.submitted": ("job",),       # accepted by a router or service
@@ -207,6 +243,7 @@ DETAIL_SUBSCHEMAS = (
     ("faults", FAULTS_DETAIL_KEYS),
     ("corpus", CORPUS_DETAIL_KEYS),
     ("tenant", TENANT_DETAIL_KEYS),
+    ("calib", CALIB_DETAIL_KEYS),
 )
 
 
@@ -244,6 +281,10 @@ REGISTRY_SOURCES = {
              "SDK-unavailable degrades)",
     "autoscaler": "the fleet's reconciliation loop (service/autoscale.py; "
                   "AUTOSCALE_COUNTER_KEYS)",
+    "calib": "calibration observatory comparator (obs/calib.py; "
+             "CALIB_COUNTER_KEYS; one provider per live engine)",
+    "supervisor": "self-healing supervisor (faults/supervisor.py; the "
+                  "FAULTS_DETAIL_KEYS counters of a supervised run)",
 }
 
 

@@ -185,9 +185,8 @@ def lifecycle(evs: list) -> dict:
 
 def drift_report(events: list) -> list:
     """Calibration drift digest: one row per journaled `calib.drift`
-    event (the JAX package's calibration comparator; the port journals
-    none until ROADMAP A15) answering "which job, which engine, which term,
-    when". Drift is a costmodel-accuracy signal, NOT a lifecycle anomaly
+    event (either package's calibration comparator, obs/calib.py)
+    answering "which job, which engine, which term, when". Drift is a costmodel-accuracy signal, NOT a lifecycle anomaly
     — it never changes the exit code."""
     out: list = []
     for e in events:

@@ -70,8 +70,18 @@ each rank preloads the entry's rows it owns into its spill tier (the whole
 Bloom summary OR-ed in: a superset is sound), and a partial entry's frontier
 rows go to their owners' queues.
 
-Left out of the port (ROADMAP): `audit_step` (A16),
-the calibration comparator and `maybe_fault` (A15), `donate_chunks` and
+The chaos plane's points (`engine.step` before a chunk, `engine.chunk`
+between chunks, `shard.transfer` in a rank's service of its shard, and the
+tiered store's own) fire on each rank against its own plan, and while a
+plan is active they are collective: the ranks gather a fault flag where the
+point fires (`_fault_point`; the service folds it into the gather of its
+outcome it already makes), and every rank raises, the faulted one its own
+fault and the others a `ShardFault` naming it, so that every rank's
+supervisor restores together. With no plan active nothing is added: no
+collective, no launch. The calibration comparator prices one shard's step
+(per-shard batch and table) from the chunk summaries already gathered.
+
+Left out of the port (ROADMAP): `audit_step` (A16), `donate_chunks` and
 the `append` variants.
 """
 
@@ -89,8 +99,10 @@ import torch.distributed as dist
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..faults.ckptio import atomic_savez, load_latest, normalize_ckpt_path
+from ..faults.plan import FaultError, ShardFault, active_plan, maybe_fault
 from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import N_COLS, REGISTRY, StepRing, as_tracer
+from ..obs.calib import launch_scope, make_comparator
 from ..store import warm as warm_seam
 from ..tensor.fingerprint import MASK32, from_host_fp, to_host_fp
 from ..tensor.frontier import (
@@ -128,6 +140,9 @@ from .world import backend_for
 # overflowed; it wants a fresh run with a larger dest_capacity.
 ABORT_ROUTE = 8
 FATAL = ABORT_TABLE | ABORT_QUEUE | ABORT_ROUTE
+# A rank's service outcome when a fault was injected there (agreed in the
+# service's gather, never a carry bit).
+FAULTED = 16
 
 # Columns of the per-rank chunk summary, before the discovery keys and the
 # chunk's telemetry rows.
@@ -294,6 +309,10 @@ class ShardedSearch:
         self._tm_host = np.zeros((N, self._TMR, N_COLS), np.uint32)
         self._tracer = as_tracer(tracer)
         self._metrics_name = REGISTRY.register("sharded", self.metrics)
+        # The calibration comparator (obs/calib.py): one shard's step, fed
+        # by the gathered chunk summaries; observes, never steers.
+        self._calib = (make_comparator("sharded", model, batch_size, table_log2, self.device,
+                                       spill=store == "tiered") if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -333,6 +352,25 @@ class ShardedSearch:
         """Host ints of every rank: int64[N, len(values)] on every rank."""
         t = torch.tensor([int(v) for v in values], dtype=torch.int64, device=self.device)
         return self._all_gather(t).cpu().numpy()
+
+    def _fault_point(self, point: str, **ctx) -> None:
+        """`maybe_fault(point)` on this rank, agreed across the ranks while
+        a plan is active (free with none: no collective): every rank's
+        fault flag is gathered, and when any rank faulted every rank raises
+        (its own fault on the faulted rank, a ShardFault naming the first
+        faulted shard elsewhere)."""
+        if active_plan() is None:
+            return
+        err = None
+        try:
+            maybe_fault(point, **ctx)
+        except FaultError as e:
+            err = e
+        flags = self._gather_ints([err is not None])[:, 0]
+        if err is not None:
+            raise err
+        if flags.any():
+            raise ShardFault(f"{point} faulted on shard {int(np.nonzero(flags)[0][0])}")
 
     def _from_root(self, value: int) -> int:
         """Rank 0's `value`, on every rank."""
@@ -628,9 +666,12 @@ class ShardedSearch:
         followed by its sync. Returns the last `go`."""
         self._snap = (torch.stack([c[k] for k in self._scalars()]), c["disc_keys"].clone())
         go = self._sync(c, self._zero, req, anym, target, max_steps)
-        for _ in range(n_steps):
-            gen = self._step(c, go, tmd)
-            go = self._sync(c, gen, req, anym, target, max_steps)
+        for i in range(n_steps):
+            # An engine's first step is counted for the calibration's
+            # prediction (host only; obs/calib.py launch_scope).
+            with launch_scope(self._calib if i == 0 else None):
+                gen = self._step(c, go, tmd)
+                go = self._sync(c, gen, req, anym, target, max_steps)
         return go
 
     def _summary(self, c, go, steps0: int, n_steps: int) -> np.ndarray:
@@ -659,6 +700,11 @@ class ShardedSearch:
         slots = (steps0 + np.arange(nr)) % R
         self._tm_host[:, slots] = _step_cols(rows).reshape(self.n_chips, nr, N_COLS)
         self._ring.drain_sharded(self._tm_host, steps, window_us=window_us)
+        if self._calib is not None:
+            # One shard's share of the generated states (the prediction
+            # prices one shard's step).
+            self._calib.observe(self._ring.steps, window_us,
+                                self._ring.generated_total // self.n_chips)
 
     # -- host entry ---------------------------------------------------------------
 
@@ -705,6 +751,8 @@ class ShardedSearch:
         c = self._c
         timed_out = False
         while True:
+            # The chaos plane's boundary, before the chunk (faults/plan.py).
+            self._fault_point("engine.step", engine="sharded")
             t_chunk = time.monotonic()
             steps0 = self._steps
             with self._tracer.span("sharded.chunk", cat="engine"):
@@ -728,6 +776,8 @@ class ShardedSearch:
                     "ShardedSearch.load_checkpoint(model, path, table_log2=<bigger>) "
                     "continues the run"
                 )
+            # Preemption between chunks, where every shard is sound.
+            self._fault_point("engine.chunk", engine="sharded")
             if progress is not None:
                 progress(int(col["gen"][0]), int(col["unique"].sum()),
                          int(col["max_depth"].max()))
@@ -768,6 +818,12 @@ class ShardedSearch:
         detail.update(self.store_stats() or {})
         if self._ring is not None:
             detail["telemetry"] = self.telemetry_summary()
+        if self._calib is not None:
+            self._calib.finish()
+            if self._calib.chunks:
+                detail["calib"] = self._calib.detail()
+                if self.rank == 0:  # one writer of the shared record
+                    self._calib.flush_records()
         return SearchResult(
             state_count=state_count,
             unique_state_count=unique,
@@ -836,8 +892,22 @@ class ShardedSearch:
     def _service(self) -> None:
         """Every rank services its own shard (`service_carry`, the resident
         engine's service, with the table size as the queue's cap), then the
-        ranks agree: a failure on any shard raises on every rank."""
-        failed = self._gather_ints([service_carry(self, 1 << self.table_log2)])[:, 0]
+        ranks agree: a failure on any shard raises on every rank. While a
+        plan is active, a fault in a rank's service (``shard.transfer`` and
+        the store's points) is agreed in the same gather."""
+        code, err = 0, None
+        try:
+            code = service_carry(self, 1 << self.table_log2, shard=self.rank)
+        except FaultError as e:
+            if active_plan() is None:
+                raise
+            code, err = FAULTED, e
+        failed = self._gather_ints([code])[:, 0]
+        if err is not None:
+            raise err
+        if (failed == FAULTED).any():
+            raise ShardFault(
+                f"shard.transfer faulted on shard {int(np.nonzero(failed == FAULTED)[0][0])}")
         bad = np.nonzero(failed)[0]
         if bad.size:
             i = int(bad[0])

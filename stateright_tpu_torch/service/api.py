@@ -402,6 +402,10 @@ class CheckService:
             corpus = self._engine.corpus_stats()
             if corpus is not None:
                 out["corpus"] = corpus
+            # The calibration join (obs/calib.py), once a chunk has closed.
+            calib = self._engine.calib_detail()
+            if calib is not None:
+                out["calib"] = calib
             return out
 
     def lane_util(self) -> float:
@@ -431,6 +435,13 @@ class CheckService:
         """The shared table's fill fraction."""
         with self._lock:
             return round(self._engine.hot_claims / self._engine.table.size, 4)
+
+    def drift_ratio(self) -> Optional[float]:
+        """The last closed calibration chunk's measured/predicted step cost
+        (obs/calib.py), the reporter's `drift=` read (lock-free: one plain
+        attribute read)."""
+        calib = self._engine._calib
+        return calib.drift_ratio() if calib is not None else None
 
     def metrics(self) -> dict:
         """The "service" metric source (obs/registry.py, `GET /metrics`):
@@ -832,6 +843,9 @@ class ServiceChecker(Checker):
 
     def table_fill(self) -> Optional[float]:
         return self._handle._service.table_fill()
+
+    def drift_ratio(self) -> Optional[float]:
+        return self._handle._service.drift_ratio()
 
     def telemetry_summary(self) -> Optional[dict]:
         return self._handle._service.telemetry_summary()

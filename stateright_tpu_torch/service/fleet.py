@@ -167,8 +167,10 @@ class Replica:
         }
 
     def _signal_row(self) -> dict:
-        """Lane utilisation and p99 admission wait, read without the
-        service lock; a racy read of the wait deque is an empty sample."""
+        """Lane utilisation, p99 admission wait and, once the calibration
+        comparator has closed a chunk, its measured/predicted `drift`, read
+        without the service lock; a racy read of the wait deque is an empty
+        sample."""
         svc = self.service
         try:
             waits = sorted(svc._queue_waits)
@@ -177,7 +179,12 @@ class Replica:
         p99 = 0.0
         if waits:
             p99 = round(waits[min(len(waits) - 1, int(0.99 * len(waits)))] * 1e3, 3)
-        return {"lane_util": round(svc._engine.lane_util(), 4), "adm_p99_ms": p99}
+        row = {"lane_util": round(svc._engine.lane_util(), 4), "adm_p99_ms": p99}
+        calib = svc._engine._calib
+        ratio = calib.drift_ratio() if calib is not None else None
+        if ratio is not None:
+            row["drift"] = round(ratio, 3)
+        return row
 
     def idle(self) -> bool:
         """True when nothing is queued or runnable here: may this replica

@@ -364,7 +364,7 @@ class RemoteReplica:
             return {"alive": 0, "error": self.error or "process exited"}
         with self._lock:
             p = dict(self._last_probe)
-        return {
+        row = {
             "alive": 1,
             # Pre-first-probe (or partitioned-from-boot) the cache is
             # empty: report zeros, not None — stats() SUMS these rows.
@@ -376,6 +376,9 @@ class RemoteReplica:
             "adm_p99_ms": p.get("adm_p99_ms") or 0.0,
             "remote": self.base_url,
         }
+        if p.get("drift") is not None:  # the child's calibration ratio
+            row["drift"] = p["drift"]
+        return row
 
     # -- completion mirroring --------------------------------------------------
 

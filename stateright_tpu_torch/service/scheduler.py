@@ -1,5 +1,5 @@
 """The continuous-batching engine of the check service (the JAX package's
-`service/scheduler.py`, without its calibration).
+`service/scheduler.py`).
 
 One visited table on the device (and, with `store="tiered"`, one spill
 tier on the host) is shared by every co-resident job, and each fused step
@@ -59,6 +59,7 @@ from ..core.model import Expectation
 from ..faults.plan import maybe_fault
 from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import StepRing, as_events, as_tracer
+from ..obs.calib import launch_scope
 from ..store import warm as warm_seam
 from ..tensor.fingerprint import from_host_fp, salt_keys, to_host_fp
 from ..tensor.frontier import (
@@ -205,6 +206,12 @@ class ServiceEngine:
                                        summary_log2=self._store.config.summary_log2,
                                        summary_hashes=self._store.summary_cfg[1])
         self.hot_claims = 0  # occupied table slots (claims - evictions)
+        # The calibration comparator (obs/calib.py): built with the first
+        # group (the prediction needs a geometry) and re-pointed as groups
+        # change; its drift events journal through this engine's events with
+        # the active jobs' traces, and its records go to the corpus root.
+        self._calib = None
+        self._calib_root = corpus_dir
         self.groups: dict[int, _Group] = {}
         self._group_rr: list[int] = []
         # Recovery counters (stats()["faults"], and each result's
@@ -236,7 +243,27 @@ class ServiceEngine:
             g = _Group(job.model, self.batch_size, self.device)
             self.groups[key] = g
             self._group_rr.append(key)
+            self._configure_calib()
         return g
+
+    def _configure_calib(self) -> None:
+        """(Re)point the comparator at the widest live group geometry: the
+        fused step is padded to it."""
+        from ..obs.calib import calib_enabled, make_comparator
+
+        if self._ring is None or not calib_enabled() or not self.groups:
+            return
+        lanes = max(g.model.lanes for g in self.groups.values())
+        acts = max(g.model.max_actions for g in self.groups.values())
+        if self._calib is None:
+            widest = max((g.model for g in self.groups.values()),
+                         key=lambda m: (m.lanes, m.max_actions))
+            self._calib = make_comparator(
+                "service", widest, self.batch_size, self.table.size.bit_length() - 1,
+                self.device, spill=self._store is not None, events=self._events,
+                record_root=self._calib_root)
+        if self._calib is not None:
+            self._calib.configure(lanes, acts)
 
     # -- the warm-start corpus -------------------------------------------------
 
@@ -845,9 +872,10 @@ class ServiceEngine:
             maybe_fault("service.step", job=[j.id for j, _s, _e in segments],
                         group=type(model).__name__)
             with self._tracer.span("service.step", cat="service", jobs=len(jobs), lanes=m):
-                head, flags, out = self._device_step(group, *self._upload(group))
+                with launch_scope(self._calib):  # the engine's first step (host only)
+                    head, flags, out = self._device_step(group, *self._upload(group))
+                    head, flags = _to_host(self.device, head, flags)
                 self.total_steps += 1
-                head, flags = _to_host(self.device, head, flags)
                 if int(head[1]):  # the step's first host read
                     msg = "shared hash table full; raise table_log2 (or store='tiered')"
                     self._fail_all(msg)
@@ -978,6 +1006,11 @@ class ServiceEngine:
                 table_claims=self.hot_claims, suspects=sus_n,
                 depth=int(depth[:m].max()) if m else 0, step_us=step_us,
             )
+            if self._calib is not None:
+                # The same host numbers, joined against the cost model; the
+                # active jobs' traces ride onto a drift event.
+                self._calib.observe(self._ring.steps, step_us, self._ring.generated_total,
+                                    traces=[j.trace for j, _s, _e in segments if j.trace] or None)
 
         # -- per-job finish checks ----------------------------------------------
         for job, _s, _e in segments:
@@ -1045,6 +1078,11 @@ class ServiceEngine:
         if t is not None:
             # The engine-wide digest of the shared steps this job rode in.
             detail["telemetry"] = t
+        c = self.calib_detail()
+        if c is not None:
+            # The engine-wide measured-against-predicted join, as above.
+            detail["calib"] = c
+            self._calib.flush_records()
         if job.tenant != "default":
             detail["tenant"] = {"name": job.tenant,
                                 "lane_seconds": round(job.metrics.lane_seconds, 6)}
@@ -1085,6 +1123,16 @@ class ServiceEngine:
         if self._store is None:
             return None
         return self._store.stats(self.hot_claims)
+
+    def calib_detail(self) -> Optional[dict]:
+        """The comparator's `detail["calib"]`, or None before its first
+        closed chunk (also the `/.status` and fleet-row surface)."""
+        if self._calib is None:
+            return None
+        self._calib.finish()
+        if not self._calib.chunks:
+            return None
+        return self._calib.detail()
 
     def lane_util(self) -> float:
         """Fraction of the batch the last fused step filled (0.0 before any

@@ -35,6 +35,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..faults.plan import maybe_fault
+
 
 def _compactor_loop(store_ref, wake: threading.Event) -> None:
     """Background compactor body. Holds only a WEAKREF to the store, so a
@@ -116,6 +118,9 @@ class HostSpillStore:
         parents = np.asarray(parents, dtype=np.uint64)
         if fps.size == 0:
             return
+        # The chaos plane's boundary: the spill tier's write path; a fault
+        # here fires before the batch lands (faults/plan.py).
+        maybe_fault("store.append", n=int(fps.size))
         chunk = _first_of_each(fps, parents)  # copies
         with self._lock:
             self._pending.append(chunk)

@@ -46,6 +46,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..faults.plan import maybe_fault
 from ..tensor.pallas_hashtable import LANES, partitions
 from .host import HostSpillStore
 from .summary import DEFAULT_HASHES, insert, summary_words
@@ -134,19 +135,22 @@ class TieredStore:
     # -- eviction --------------------------------------------------------------
 
     def _spill(self, keys: torch.Tensor, parents: torch.Tensor) -> None:
-        """Move evicted (key, parent) pairs into the summary (on the
-        device) and the spill tier (one copy to the host)."""
-        insert(self.summary, keys, *self.summary_cfg)
+        """Move evicted (key, parent) pairs into the spill tier (one copy
+        to the host) and the summary (on the device): the tier first, so a
+        faulted append leaves the summary as it was."""
         k, p = keys.cpu().numpy(), parents.cpu().numpy()
         self.evict_bytes_pcie += k.nbytes + p.nbytes
         self.store.append(k.view(np.uint64), p.view(np.uint64))
+        insert(self.summary, keys, *self.summary_cfg)
 
     def evict_host(self, t_key: np.ndarray, t_parent: np.ndarray, hot_claims: int) -> int:
         """Numpy-table eviction (int64 tables, in place; tests): `evict` on
         CPU tensors over the same memory. Returns the evicted slot count."""
-        return self.evict(torch.from_numpy(t_key), torch.from_numpy(t_parent), hot_claims)
+        return self.evict(torch.from_numpy(t_key), torch.from_numpy(t_parent), hot_claims,
+                          tier="host")
 
-    def evict(self, t_key: torch.Tensor, t_parent: torch.Tensor, hot_claims: int) -> int:
+    def evict(self, t_key: torch.Tensor, t_parent: torch.Tensor, hot_claims: int,
+              tier: str = "device") -> int:
         """Eviction of the engine's tables on their device, in place.
 
         First the reference's sweep, from the clock hand until occupancy is
@@ -165,9 +169,15 @@ class TieredStore:
         may not touch. Emptying a partition whole is sound: its chains live
         inside it, so every one of them becomes empty. At the reference's
         test sizes no partition comes near `risk_slots`, and eviction is the
-        reference's slot for slot. Returns the evicted count."""
+        reference's slot for slot. Returns the evicted count.
+
+        The chaos plane's ``store.spill`` point (ctx ``tier``: "device" for
+        an engine's tables, "host" for numpy ones) fires first, when the
+        sweep has a target: a faulted eviction leaves the tables as they
+        were."""
         freed = 0
         if hot_claims - self.low_slots > 0:
+            maybe_fault("store.spill", tier=tier, target=hot_claims - self.low_slots)
             freed = self._sweep(t_key.view(-1, self.bucket), t_parent.view(-1, self.bucket),
                                 hot_claims - self.low_slots)
         fill = self.partition_fill(t_key).cpu().numpy()
@@ -265,6 +275,8 @@ class TieredStore:
         if isinstance(keys, torch.Tensor):
             keys = keys.cpu().numpy()
         fps = np.asarray(keys).view(np.uint64)
+        # The chaos plane's boundary: before the spill tier is read.
+        maybe_fault("store.resolve", suspects=int(fps.size))
         dup = self.store.contains(fps)
         self.suspects_checked += int(fps.size)
         self.suspects_dup += int(dup.sum())

@@ -36,7 +36,9 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..faults.ckptio import atomic_savez, load_latest
 from ..knobs import STORE_KINDS, WARM_KINDS
+from ..faults.plan import maybe_fault
 from ..obs import REGISTRY, StepRing, as_tracer, build_detail
+from ..obs.calib import launch_scope, make_comparator
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
 from .inserts import resolve_insert
@@ -374,6 +376,10 @@ class FrontierSearch:
         self._ring: Optional[StepRing] = None  # one per search (see _seed)
         self._tracer = as_tracer(tracer)
         self._metrics_name = REGISTRY.register("frontier", self.metrics)
+        # The calibration comparator (obs/calib.py): fed by the step times
+        # the engine already measures; observes, never steers.
+        self._calib = (make_comparator("frontier", model, batch_size, table_log2, self.device,
+                                       spill=store == "tiered") if telemetry else None)
         self.properties = model.properties()
         # Host staging of one padded batch: pinned on a card, so that each
         # operand goes up in one asynchronous copy.
@@ -486,6 +492,9 @@ class FrontierSearch:
         self._disc = {}
         self._hot_claims = 0
         self._ring = StepRing(self._tm_capacity) if self._telemetry else None
+        # The chaos plane's boundary: before the seed inserts, which can
+        # overflow like a step (faults/plan.py).
+        maybe_fault("engine.step", engine="frontier", phase="seed")
         t_key, t_parent = self.table.t_key, self.table.t_parent
         dev = self.device
         for b0 in range(0, n0, K):
@@ -555,12 +564,16 @@ class FrontierSearch:
             for b0 in range(0, n, K):
                 b1 = min(b0 + K, n)
                 m = b1 - b0
+                # The chaos plane's boundary: before the dispatch, so a
+                # faulted step never touches the visited table.
+                maybe_fault("engine.step", engine="frontier", step=steps)
                 t_step0 = time.monotonic()
                 with self._tracer.span("frontier.step", cat="engine"):
-                    scalars, flags, out = self._step(*self._upload(chunk, b0, b1))
+                    with launch_scope(self._calib):
+                        scalars, flags, out = self._step(*self._upload(chunk, b0, b1))
+                        scalars, flags = _to_host(self.device, scalars, flags)
                     steps += 1
                     run_steps += 1
-                    scalars, flags = _to_host(self.device, scalars, flags)
                     nc, gen_i, overflow = (int(x) for x in scalars)
                     if overflow:
                         raise RuntimeError("hash table full; raise table_log2")
@@ -641,6 +654,8 @@ class FrontierSearch:
                         table_claims=self._hot_claims, suspects=sus_n,
                         depth=chunk.depth, step_us=step_us,
                     )
+                    if self._calib is not None:
+                        self._calib.observe(steps, step_us, state_count)
                 if target_state_count is not None and state_count >= target_state_count:
                     complete = False
                     counts["early_exit"] = True
@@ -676,6 +691,11 @@ class FrontierSearch:
             detail = dict(detail or {})
             detail["corpus"] = {"warm_start": True, "preloaded_states": self._warm_states,
                                 "warm_kind": self._warm_kind}
+        if self._calib is not None:
+            self._calib.finish()
+            if self._calib.chunks:
+                detail = dict(detail or {}, calib=self._calib.detail())
+                self._calib.flush_records()
         return SearchResult(
             state_count=state_count,
             unique_state_count=unique_count,

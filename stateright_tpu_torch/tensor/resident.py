@@ -64,8 +64,10 @@ import torch
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..faults.ckptio import atomic_savez, load_latest
+from ..faults.plan import maybe_fault
 from ..knobs import FINISH_KINDS, STORE_KINDS, WARM_KINDS
 from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail
+from ..obs.calib import launch_scope, make_comparator
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
@@ -245,7 +247,7 @@ def undo_chunk(eng) -> None:
     c["disc_keys"].copy_(disc)
 
 
-def service_carry(eng, queue_cap: int) -> int:
+def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
     """The host half of the tiered store on an engine's carry (`eng._c`,
     `eng._store`), run between chunks — the JAX engine's `_service`:
 
@@ -263,7 +265,9 @@ def service_carry(eng, queue_cap: int) -> int:
     compacted live frontier still passes `queue_cap` rows (the carry is
     left compacted and sound: checkpoint, then regrow), or ABORT_TABLE when
     eviction could free nothing (every row full). Adds the seconds of each
-    part to `eng.service_seconds`."""
+    part to `eng.service_seconds`. A sharded rank passes its `shard`: the
+    ``shard.transfer`` fault point fires before its resolution and its
+    eviction."""
     t0 = time.monotonic()
     c, store, dev = eng._c, eng._store, eng.device
     head, tail, s_tail, hot, unique = (
@@ -278,12 +282,16 @@ def service_carry(eng, queue_cap: int) -> int:
             tail = compact_queue(queue, head, tail)
         head = 0
         eng._q_compacted = True
+        # The compacted queue is a sound carry (a fault in the parts below
+        # leaves it so, with the service bit still set).
+        c.update(head=torch.zeros((), **i64), tail=torch.tensor(tail, **i64))
     t1 = time.monotonic()
     if tail > queue_cap:
-        c.update(head=torch.zeros((), **i64), tail=torch.tensor(tail, **i64),
-                 overflow=torch.zeros((), **i64))
+        c.update(overflow=torch.zeros((), **i64))
         return ABORT_QUEUE
     if s_tail > 0:
+        if shard is not None:
+            maybe_fault("shard.transfer", shard=shard, phase="resolve")
         eng._tracer.instant("tiered.suspect_resolve", cat="store", suspects=s_tail)
         dup = store.resolve_suspects(c["s_keys"][:s_tail])
         keep = torch.from_numpy(~dup).to(dev)
@@ -295,6 +303,8 @@ def service_carry(eng, queue_cap: int) -> int:
     t2 = time.monotonic()
     at_risk = int(store.partition_fill(c["t_key"]).max()) >= store.risk_slots
     if hot >= eng._spill_trigger or at_risk:
+        if shard is not None:
+            maybe_fault("shard.transfer", shard=shard, phase="evict")
         with eng._tracer.span("tiered.evict", cat="store"):
             freed = store.evict(c["t_key"], c["t_parent"], hot)
         if freed == 0:
@@ -450,6 +460,10 @@ class ResidentSearch:
         self._tm_host = np.zeros((self._TMR, N_COLS), np.uint32)
         self._tracer = as_tracer(tracer)
         self._metrics_name = REGISTRY.register("resident", self.metrics)
+        # The calibration comparator (obs/calib.py): fed by the counter read
+        # each chunk already makes; observes, never steers.
+        self._calib = (make_comparator("resident", model, batch_size, table_log2, self.device,
+                                       spill=store == "tiered") if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -756,6 +770,9 @@ class ResidentSearch:
         zero = torch.zeros((), dtype=torch.int64, device=self.device)
         timed_out = False
         while True:
+            # The chaos plane's boundary: before the chunk, so a faulted
+            # chunk never touches the carry (faults/plan.py).
+            maybe_fault("engine.step", engine="resident")
             t_chunk = time.monotonic()
             with self._tracer.span("resident.chunk", cat="engine"):
                 self._chunk(c, req, anym, target, tmd, max_steps, n_chunk)
@@ -784,7 +801,8 @@ class ResidentSearch:
                     "(the checkpoint keeps the abort reason, and "
                     "load_checkpoint refuses a resume that does not grow it)"
                 )
-
+            # Preemption between chunks, where the carry is sound.
+            maybe_fault("engine.chunk", engine="resident")
             if progress is not None:
                 progress(gen, unique, max_depth)
             if stop:
@@ -845,6 +863,8 @@ class ResidentSearch:
             slots = np.arange(first, steps) % R
             self._tm_host[slots] = _step_cols(dev_rows.cpu().numpy())
         ring.drain(self._tm_host, steps, window_us=window_us)
+        if self._calib is not None:
+            self._calib.observe(ring.steps, window_us, ring.generated_total)
 
     def telemetry_summary(self) -> Optional[dict]:
         """The step-telemetry digest (obs/ring.py; None with telemetry
@@ -871,7 +891,13 @@ class ResidentSearch:
         stats = self.store_stats()
         if stats is not None:
             stats = dict(stats, service_seconds=dict(self.service_seconds))
-        return build_detail(stats, self.telemetry_summary())
+        detail = build_detail(stats, self.telemetry_summary())
+        if self._calib is not None:
+            self._calib.finish()
+            if self._calib.chunks:
+                detail = dict(detail or {}, calib=self._calib.detail())
+                self._calib.flush_records()
+        return detail
 
     def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:
         """`n_steps` steps queued on the device with no host sync, after a
@@ -879,9 +905,12 @@ class ResidentSearch:
         of the chunk (one stack and one clone)."""
         self._snap = (torch.stack([c[k] for k in self._scalars()]),
                       c["disc_keys"].clone())
-        for _ in range(n_steps):
-            go = self._should_continue(c, req, anym, target, max_steps)
-            self._step(c, go, tmd)
+        for i in range(n_steps):
+            # An engine's first step is counted for the calibration's
+            # prediction (host only; obs/calib.py launch_scope).
+            with launch_scope(self._calib if i == 0 else None):
+                go = self._should_continue(c, req, anym, target, max_steps)
+                self._step(c, go, tmd)
 
     def _undo_chunk(self) -> None:
         """Put the carry back at the chunk boundary after an abort
@@ -911,6 +940,8 @@ class ResidentSearch:
         (or a drained queue with buffered suspects): `service_carry`; then
         the caller resumes the carry. A live frontier past the queue, or an
         eviction that frees nothing, raises."""
+        # The chaos plane's boundary: before the service changes anything.
+        maybe_fault("store.service", engine="resident")
         code = service_carry(self, self._QL)
         if code == ABORT_QUEUE:
             # A real capacity wall, recoverable like the device store's queue

@@ -65,7 +65,9 @@ from ..core.model import Expectation
 from ..core.path import Path
 from ..faults.ckptio import atomic_savez, load_latest
 from ..knobs import SIM_DEDUP_KINDS, WARM_KINDS
+from ..faults.plan import maybe_fault
 from ..obs import REGISTRY, build_detail
+from ..obs.calib import launch_scope, make_comparator
 from ..store import warm as warm_seam
 from . import prng
 from .fingerprint import job_salt, pack_salt, salt_keys, to_host_fp
@@ -165,6 +167,11 @@ class DeviceSimulation:
         self._warm_states = 0
         self._warm_kind: Optional[str] = None  # knobs.WARM_KINDS rung served
         self._metrics_name = REGISTRY.register("simulation", self.metrics)
+        # The calibration comparator (obs/calib.py): one observation a
+        # round, the engine's own sync boundary; observes, never steers.
+        self._calib = (make_comparator("simulation", model, traces, table_log2, self.device,
+                                       dedup=dedup, cycle_log2=cycle_log2, ring=ring)
+                       if telemetry else None)
 
     # -- one round -----------------------------------------------------------
 
@@ -360,6 +367,8 @@ class DeviceSimulation:
         every property is discovered, or the round's step cap is reached."""
         from .resident import _finish_masks
 
+        # The chaos plane's boundary: a round is the engine's dispatch.
+        maybe_fault("engine.step", engine="simulation", round=self._rounds)
         start = time.monotonic()
         init = self._init_states()
         req, anym = _finish_masks(finish_when, self.props)
@@ -370,7 +379,9 @@ class DeviceSimulation:
             step_cap = self.max_depth + 2
         c = self._round_carry((self.seed + self._rounds) & prng.MASK32, init)
         while True:
-            for _ in range(CHUNK_STEPS):
+            with launch_scope(self._calib):  # an engine's first step (host only)
+                self._step(c, self._cond(c, walks_target, step_cap, req, anym), init)
+            for _ in range(CHUNK_STEPS - 1):
                 self._step(c, self._cond(c, walks_target, step_cap, req, anym), init)
             go = self._cond(c, walks_target, step_cap, req, anym)
             # ONE device->host read per chunk.
@@ -396,6 +407,17 @@ class DeviceSimulation:
             t[k] += counts[k]
         duration = time.monotonic() - start
         t["duration"] += duration
+        detail = build_detail(
+            {"corpus": {"warm_start": True, "preloaded_states": self._warm_states,
+                        "warm_kind": self._warm_kind}}
+            if self._warm_kind is not None else None,
+            self.telemetry_summary())
+        if self._calib is not None:
+            self._calib.observe(t["steps"], duration * 1e6, t["states"])
+            self._calib.finish()
+            if self._calib.chunks:
+                detail = dict(detail or {}, calib=self._calib.detail())
+                self._calib.flush_records()
         return SearchResult(
             state_count=t["states"],
             unique_state_count=t["unique"] if self.dedup == "shared" else t["states"],
@@ -404,11 +426,7 @@ class DeviceSimulation:
             complete=False,  # a simulation never proves exhaustion
             duration=duration,
             steps=t["steps"],
-            detail=build_detail(
-                {"corpus": {"warm_start": True, "preloaded_states": self._warm_states,
-                            "warm_kind": self._warm_kind}}
-                if self._warm_kind is not None else None,
-                self.telemetry_summary()),
+            detail=detail,
         )
 
     # -- the corpus ----------------------------------------------------------

@@ -254,3 +254,125 @@ def warm_ladder(complete_dir: str, complete_key: str, partial_dir: str,
         r = ss.run()
         out[kind] = dict(summary(r), corpus=r.detail["corpus"])
     return out
+
+
+def supervised_shard_fault(path: str) -> dict:
+    """2pc-3 on rank-local tiered stores under the supervisor, one shard's
+    service transfer faulted (shard 1), beside the same engine fault-free:
+    each rank's result, its `detail["faults"]` and the golden's summary."""
+    from stateright_tpu_torch.faults import FaultPlan, SupervisorConfig, run_supervised
+
+    kw = dict(batch_size=4, table_log2=8, store="tiered", high_water=0.5, summary_log2=12)
+    plan = FaultPlan(seed=9).rule("shard.transfer", "shard", times=1, match={"shard": 1})
+    r = run_supervised(
+        tm.TensorTwoPhaseSys(3), engine="sharded", plan=plan,
+        config=SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=8, seed=7),
+        checkpoint_path=path, engine_kwargs=dict(kw, device="cpu"),
+    )
+    golden = engine(tm.TensorTwoPhaseSys(3), **kw).run()
+    return dict(summary(r), faults=r.detail["faults"], golden=summary(golden))
+
+
+def supervised_interval_skew(path: str) -> dict:
+    """2pc-3 under the supervisor with a checkpoint interval, rank 1's clock
+    frozen (its interval never runs out after the first generation, rank
+    0's runs out at every boundary): the ranks must agree at each boundary
+    or one enters the checkpoint's gather while the other steps on. Each
+    rank's result, its checkpoint generations, and the golden's summary."""
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.faults import SupervisorConfig, run_supervised
+    from stateright_tpu_torch.faults import supervisor as sup_mod
+
+    kw = dict(batch_size=8, table_log2=10)
+    if dist.get_rank() == 1:
+        import types
+
+        sup_mod.time = types.SimpleNamespace(monotonic=lambda: 1e9, sleep=sup_mod.time.sleep)
+    r = run_supervised(
+        tm.TensorTwoPhaseSys(3), engine="sharded", plan=None,
+        config=SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=4,
+                                checkpoint_interval_s=1e-6, seed=7),
+        checkpoint_path=path, engine_kwargs=dict(kw, device="cpu"),
+    )
+    golden = engine(tm.TensorTwoPhaseSys(3), **kw).run()
+    return dict(summary(r), generations=r.detail["faults"]["checkpoint_generations"],
+                golden=summary(golden))
+
+
+def supervised_sigterm_one_rank(path: str) -> dict:
+    """2pc-3 under the supervisor; rank 1 alone takes a SIGTERM during its
+    second slice. Every rank must drain at the same boundary (a rank that
+    drained alone would leave its peer in the next slice's collectives).
+    Then a second supervised run resumes the drained checkpoint on every
+    rank. Each rank's drained result, its counters, and the resumed one."""
+    import os
+    import signal
+
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.faults import Supervisor, SupervisorConfig
+
+    kw = dict(device="cpu", batch_size=8, table_log2=10)
+    cfg = SupervisorConfig(backoff_base_s=0.0, checkpoint_every_steps=4, seed=7)
+
+    class Signalled(Supervisor):
+        slices = 0
+
+        def _slice(self, eng):
+            out = super()._slice(eng)
+            self.slices += 1
+            if self.slices == 2 and dist.get_rank() == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+
+    drained = Signalled(tm.TensorTwoPhaseSys(3), engine="sharded", config=cfg,
+                        checkpoint_path=path, engine_kwargs=kw).run()
+    f = drained.detail["faults"]
+    resumed = Supervisor(tm.TensorTwoPhaseSys(3), engine="sharded", config=cfg,
+                         checkpoint_path=path, engine_kwargs=kw).run()
+    return dict(drained=summary(drained), drained_count=f["drained"],
+                generations=f["checkpoint_generations"], resumed=summary(resumed),
+                restores=resumed.detail["faults"]["restores"])
+
+
+def gathers_without_plan() -> dict:
+    """The host gathers (`_gather_ints`) and chunk summaries of a 2pc-3 run
+    with no fault plan, then with an empty plan active (its fault points
+    agree across the ranks), and whether both results are equal."""
+    from stateright_tpu_torch.faults import FaultPlan, active
+
+    counts = {"gathers": 0, "chunks": 0}
+    gather, summ = ShardedSearch._gather_ints, ShardedSearch._summary
+
+    def counted_gather(self, values):
+        counts["gathers"] += 1
+        return gather(self, values)
+
+    def counted_summary(self, *a):
+        counts["chunks"] += 1
+        return summ(self, *a)
+
+    ShardedSearch._gather_ints, ShardedSearch._summary = counted_gather, counted_summary
+    try:
+        plain = summary(engine(tm.TensorTwoPhaseSys(3), batch_size=64, table_log2=12).run())
+        out = dict(plain_gathers=counts["gathers"], plain_chunks=counts["chunks"])
+        counts.update(gathers=0, chunks=0)
+        with active(FaultPlan()):
+            planned = summary(engine(tm.TensorTwoPhaseSys(3), batch_size=64,
+                                     table_log2=12).run())
+        out.update(plan_gathers=counts["gathers"], plan_chunks=counts["chunks"],
+                   same=planned == plain)
+    finally:
+        ShardedSearch._gather_ints, ShardedSearch._summary = gather, summ
+    return out
+
+
+def sharded_calib() -> dict:
+    """A 2pc-3 run's `detail["calib"]` (chunks of 4 steps, compared by 2)."""
+    import os
+
+    os.environ["SR_TPU_CALIB_CHUNK"] = "2"
+    r = engine(tm.TensorTwoPhaseSys(3), batch_size=16, table_log2=12).run(budget=4)
+    d = r.detail["calib"]
+    return {"engine": d["engine"], "chunks": d["chunks"], "counts": summary(r)["counts"]}
