@@ -253,13 +253,33 @@ seconds on a line of its own:
     timeline CLI), and paxos-3 with SR_TPU_CALIB=0 identical. Each part
     prints its wall seconds and counters. The insert calls of (a) and (b)
     are `launches_supervised` and `launches_supervised_tiered`.
+22. static analysis (stateright_tpu_torch/analysis/): (a) `python -m
+    stateright_tpu_torch.analysis --skip-tools` run in this process on the
+    card (srlint over the port and this script clean, no knob drift, every
+    engine anchor's step audited clean and inside the costmodel band);
+    (b) every anchor audited on the card and on the CPU: equal op
+    censuses, the insert one registered op in both, no host-sync on the
+    card (where a copy to the host would show); (c) one resident paxos-3
+    step at full width (batch 8192, 2^22 slots) after 64 steps, audited at
+    its queue head: clean, its insert held against the plain version, the
+    carry it returns and its operands equal to an unaudited step's, its
+    `ops_per_step` printed beside the CUDA-graph node count a step of a
+    chunk and the ten sites that issue the most ops. The insert calls of
+    the path, `launches_audit` and `launches_audit_tiered`, are those of
+    (a)'s and (b)'s anchor runs on the card (warm-up steps and audited
+    steps) and of (c)'s paxos-3 steps and audited step, each part logged;
+    the comparisons' calls are not counted. Phase 3 also times the
+    insert through its registered op (`op_ms`) beside the bare kernel
+    launch (`op_direct_ms`).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
 `python3 chip_smoke.py --only 2,4,6` runs a subset (no result lines).
 
-Kernel times are medians of 20 CUDA-event runs, the table restored before
-each: `ms` is the time a caller that waits sees, from an idle card, the
+Every checked or timed kernel call goes through the registered op
+(`ph.insert_op`), as the engines' calls do; only `op_direct_ms` times the
+bare launch. Kernel times are medians of 20 CUDA-event runs, the table
+restored before each: `ms` is the time a caller that waits sees, from an idle card, the
 host's work to issue the call included; `device_ms` is the device's time
 alone (the host's work hidden behind a spin kernel).
 
@@ -364,9 +384,34 @@ def no_host_sync(torch):
 
 
 def kernel_call(ph, torch, *args, **kw):
-    """ph.insert_kernel under no_host_sync."""
+    """The insert as the engines call it (ph.insert_op, the registered op)
+    under no_host_sync."""
     with no_host_sync(torch):
-        return ph.insert_kernel(*args, **kw)
+        return ph.insert_op(*args, **kw)
+
+
+def op_timing(ph, torch, restore, args, kw, tag, rounds=3):
+    """The insert through its registered op (kernel_call, the engines'
+    path) against the bare kernel launch (ph.launch_kernel, no dispatcher),
+    both under no_host_sync: the call times (`median_ms`) of `rounds`
+    alternating rounds, and each side's median."""
+    def direct():  # args: (t_key, t_parent, key, parent, active)
+        with no_host_sync(torch):
+            return ph.launch_kernel(*args, None, kw.get("summary"), kw.get("summary_cfg"))
+
+    def op():
+        return kernel_call(ph, torch, *args, **kw)
+
+    times = {"direct": [], "op": []}
+    for _ in range(rounds):
+        times["direct"].append(median_ms(direct, restore))
+        times["op"].append(median_ms(op, restore))
+    direct_ms, op_ms = (statistics.median(times[k]) for k in ("direct", "op"))
+    log(f"{tag} through the registered op: call time {op_ms:.4f} ms against {direct_ms:.4f} ms "
+        f"for the bare launch ({1e3 * (op_ms - direct_ms):+.1f} us a call; medians of {rounds} "
+        f"alternating rounds: op {[round(t, 4) for t in times['op']]}, bare "
+        f"{[round(t, 4) for t in times['direct']]})")
+    return dict(op_ms=op_ms, op_direct_ms=direct_ms)
 
 
 def stored_pairs(torch, t_key, t_parent):
@@ -390,7 +435,8 @@ def build_summary(torch, keys, summary_log2):
 
 
 class InsertCheck:
-    """Runs the kernel and the plain version on identical table copies and
+    """Runs the kernel through the registered op (kernel_call, as the
+    engines call it) and the plain version on identical table copies and
     accumulates the comparison (max_abs_err)."""
 
     def __init__(self, ph, torch):
@@ -495,7 +541,7 @@ def phase_kernel_vs_plain(ph, torch, chk, gen, rand_keys, fused=False):
     t_par = torch.zeros(S, dtype=torch.int64, device=dev)
     present = rand_keys(S // 2)
     ones = torch.ones(S // 2, dtype=torch.bool, device=dev)
-    _, _, is_new, ovf = ph.insert_kernel(t_key, t_par, present, present, ones)
+    _, _, is_new, ovf = ph.insert_op(t_key, t_par, present, present, ones)
     assert int(is_new.sum()) == S // 2 and not bool(ovf)
     n = 1 << 20
     pick = torch.rand(n, device=dev, generator=gen) < 0.5
@@ -558,8 +604,8 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     present = rand_keys(S // 2)
     step = 1 << 22
     for i in range(0, S // 2, step):
-        ph.insert_kernel(base_key, base_par, present[i:i + step], present[i:i + step],
-                         torch.ones(step, dtype=torch.bool, device=dev))
+        ph.insert_op(base_key, base_par, present[i:i + step], present[i:i + step],
+                     torch.ones(step, dtype=torch.bool, device=dev))
     B = BATCH_2PC10 * 52
     active = torch.rand(B, device=dev, generator=gen) < 0.26
     is_fresh = torch.rand(B, device=dev, generator=gen) < 0.08
@@ -586,6 +632,8 @@ def phase_time_step_shape(ph, torch, chk, gen, rand_keys):
     plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active), restore)
     per_call = launches_per_call(ph, torch, restore,
                                  lambda: kernel_call(ph, torch, t_key, t_par, key, parent, active))
+    per_call.update(op_timing(ph, torch, restore, (t_key, t_par, key, parent, active), {},
+                              "[kernel]"))
     wait = host_wait_ms(torch, restore,
                         lambda: kernel_call(ph, torch, t_key, t_par, key, parent, active))
     log(f"[kernel] a call issued behind ~20 ms of queued device work held the host {wait:.3f} ms")
@@ -717,8 +765,8 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
     step = 1 << 22
     for i in range(0, fill, step):
         part = present[i:i + step]
-        ph.insert_kernel(base_key, base_par, part, part,
-                         torch.ones(part.shape[0], dtype=torch.bool, device=dev))
+        ph.insert_op(base_key, base_par, part, part,
+                     torch.ones(part.shape[0], dtype=torch.bool, device=dev))
     assert int((base_key != 0).sum()) == fill
     spilled = rand_keys(SPILLED_AT_STEP)
     # The bit insert on the card against the same function on the CPU.
@@ -767,6 +815,7 @@ def phase_fused_step_shape(ph, torch, chk, gen, rand_keys):
     form_ms = form["ms"]
     per_call = launches_per_call(ph, torch, restore,
                                  lambda: kernel_call(ph, torch, *args, **kw), "[fused]")
+    per_call.update(op_timing(ph, torch, restore, args, kw, "[fused]"))
     plain_ms = median_ms(lambda: ph.insert_plain(t_key, t_par, key, parent, active, **kw), restore)
     # Bytes the fused function must move: every lane's active flag read and
     # is_new and suspect written; an active lane's key and one 32-byte
@@ -832,11 +881,11 @@ def phase_anchors(ph, torch):
         ("2pc-5", TensorTwoPhaseSys(5), dict(batch_size=2048, table_log2=16), (None, 8_832)),
     ]
     for name, model, kw, (gen_want, uniq_want) in anchors:
-        ph.insert_kernel.launches = 0
+        ph.launch_kernel.launches = 0
         t0 = time.monotonic()
         c = model.checker().spawn_cuda(**kw).join()
         sec = time.monotonic() - t0
-        launches = ph.insert_kernel.launches
+        launches = ph.launch_kernel.launches
         got = (c.state_count(), c.unique_state_count())
         assert got[1] == uniq_want and gen_want in (None, got[0]), (name, got)
         assert launches > 0, f"{name} never launched the insert kernel"
@@ -871,14 +920,14 @@ def phase_2pc10(ph, torch):
     model = TensorTwoPhaseSys(10)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     c = model.checker().spawn_cuda(
         batch_size=BATCH_2PC10, table_log2=TABLE_2PC10, queue_log2=QUEUE_2PC10
     ).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_2PC10, got
@@ -905,9 +954,9 @@ def phase_tiered_anchor(ph, torch):
     from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
 
     kw = dict(batch_size=32, table_log2=11, store="tiered", high_water=0.6, summary_log2=14)
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     c = TensorTwoPhaseSys(4).checker().spawn_cuda(**kw).join()
-    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
     r = c.result()
     st = c.store_stats()
     assert (r.state_count, r.unique_state_count) == (8_258, 1_568), r
@@ -937,7 +986,7 @@ def phase_2pc10_tiered(ph, torch):
     model = TensorTwoPhaseSys(10)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     t0 = time.monotonic()
     c = model.checker().spawn_cuda(
         batch_size=BATCH_2PC10, table_log2=TABLE_TIERED, queue_log2=QUEUE_2PC10,
@@ -945,7 +994,7 @@ def phase_2pc10_tiered(ph, torch):
     ).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_2PC10, got
@@ -1085,7 +1134,7 @@ def profile_window(ph, torch, chk, tag, name, model, K, table_log2, queue_log2, 
         "properties": lambda: [p.condition(model, states) for p in model.properties()],
         "expand + boundary": lambda: (model.expand(states), model.within_boundary(flat)),
         "fingerprint": lambda: state_fingerprint(model, flat),
-        "insert kernel": lambda: ph.insert_kernel(c["t_key"], c["t_parent"], succ_keys, parents, validf),
+        "insert kernel": lambda: ph.insert_op(c["t_key"], c["t_parent"], succ_keys, parents, validf),
         "append": lambda: append_new(queue, tail, rows, is_new),
     }
     total = 0.0
@@ -1209,11 +1258,11 @@ def chunk_without_sync(torch, model, batch_size, table_log2):
 
 def phase_breadth(ph, torch):
     for name, model, kw, (gen_want, uniq_want), disc_want in breadth_anchors():
-        ph.insert_kernel.launches = 0
+        ph.launch_kernel.launches = 0
         t0 = time.monotonic()
         c = model.checker().spawn_cuda(**kw).join()
         sec = time.monotonic() - t0
-        launches = ph.insert_kernel.launches
+        launches = ph.launch_kernel.launches
         r = c.result()
         got = (r.state_count, r.unique_state_count)
         assert got[1] == uniq_want and gen_want in (None, got[0]), (name, got)
@@ -1252,12 +1301,12 @@ def phase_paxos3(ph, torch, chk):
     model = TensorPaxos(3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     c = model.checker().spawn_cuda(batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_PAXOS3, got
@@ -1312,13 +1361,13 @@ def lowered_deep(ph, torch, chk, tag, build, K, table_log2, depth, golden):
     assert (s["generated"], s["unique"]) == golden, (tag, s)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     c = model.checker().target_max_depth(depth).spawn_cuda(
         batch_size=K, table_log2=table_log2).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == golden, (tag, got)
@@ -1372,11 +1421,11 @@ def phase_lowering(ph, torch, chk):
         properties=register_properties, closure="exact",
     )
     closure_sec = time.monotonic() - t0
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     c = lowered.checker().spawn_cuda(batch_size=2048, table_log2=18).join()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_PAXOS2 and r.complete, got
@@ -1401,7 +1450,7 @@ def phase_lowering(ph, torch, chk):
     del c, hand, rows
     # (b) refine_check on paxos-1, restart and warm.
     for warm in (False, True):
-        ph.insert_kernel.launches = 0
+        ph.launch_kernel.launches = 0
         rounds = []
         t0 = time.monotonic()
         r, lw = refine_check(
@@ -1410,7 +1459,7 @@ def phase_lowering(ph, torch, chk):
             progress=lambda rnd, ng, res: rounds.append(ng),
         )
         sec = time.monotonic() - t0
-        launches = ph.insert_kernel.launches
+        launches = ph.launch_kernel.launches
         got = (r.state_count, r.unique_state_count)
         assert got == GOLDEN_PAXOS1 and r.complete, (warm, got)
         assert set(r.discoveries) == {"value chosen"}, (warm, r.discoveries)
@@ -1544,12 +1593,12 @@ def phase_checkpoint(ph, torch, chk, device_path, tiered_path):
         os.unlink(path + ".prev")
         del rs, c
         torch.cuda.empty_cache()
-        ph.insert_kernel.launches = 0
+        ph.launch_kernel.launches = 0
         t0 = time.monotonic()
         rs = ResidentSearch.load_checkpoint(model, path, table_log2=CKPT_TABLE,
                                             queue_log2=QUEUE_2PC10)
         load_s = time.monotonic() - t0
-        regrow_launches = ph.insert_kernel.launches
+        regrow_launches = ph.launch_kernel.launches
         ls = rs.load_seconds
         assert regrow_launches == -(-at[1] // BATCH_2PC10), regrow_launches
         log(f"[checkpoint] file {w['bytes']} bytes, written in {w['write_s']:.3f} s "
@@ -1558,12 +1607,12 @@ def phase_checkpoint(ph, torch, chk, device_path, tiered_path):
             f"{regrow_launches} kernel calls")
         regrow_batch_vs_plain(ph, torch, chk, path, rs)
         queue_head_vs_plain(torch, chk, "[checkpoint] resumed step:", rs)
-        ph.insert_kernel.launches = 0
+        ph.launch_kernel.launches = 0
         t0 = time.monotonic()
         r = rs.run()
         torch.cuda.synchronize()
         resume_s = time.monotonic() - t0
-        resume_launches = ph.insert_kernel.launches
+        resume_launches = ph.launch_kernel.launches
         assert (r.state_count, r.unique_state_count) == GOLDEN_2PC10 and r.complete, r
         assert resume_launches > 0
         if device_path is not None:
@@ -1600,16 +1649,16 @@ def phase_checkpoint(ph, torch, chk, device_path, tiered_path):
         wt = checkpoint_timed(rs, path)
         del rs
         torch.cuda.empty_cache()
-        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
         t0 = time.monotonic()
         rs = ResidentSearch.load_checkpoint(model, path)
         load_t = time.monotonic() - t0
         r = rs.run()
         torch.cuda.synchronize()
         resume_t = time.monotonic() - t0 - load_t
-        fused = ph.insert_kernel.bloom_launches
+        fused = ph.launch_kernel.bloom_launches
         assert (r.state_count, r.unique_state_count) == GOLDEN_2PC10 and r.complete, r
-        assert fused > 0 and ph.insert_kernel.launches == 0, (fused, ph.insert_kernel.launches)
+        assert fused > 0 and ph.launch_kernel.launches == 0, (fused, ph.launch_kernel.launches)
         if tiered_path is not None:
             assert r.discoveries == tiered_path["discoveries"], r.discoveries
         lengths = {n: len(rs.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
@@ -1696,13 +1745,13 @@ def phase_engine_surface(ph, torch, chk, device_path, paxos3, profile2pc10):
     model = TensorPaxos(3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     c = model.checker().spawn_cuda(resident=False, batch_size=BATCH_PAXOS3,
                                    table_log2=TABLE_PAXOS3).join()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     r = c.result()
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_PAXOS3 and r.complete, got
@@ -1753,10 +1802,10 @@ def phase_engine_surface(ph, torch, chk, device_path, paxos3, profile2pc10):
     torch.cuda.empty_cache()
 
     kw = dict(store="tiered", high_water=0.6, summary_log2=14)
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     fs = FrontierSearch(TensorTwoPhaseSys(4), 32, 11, **kw)
     rt = fs.run()
-    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
     cpu = FrontierSearch(TensorTwoPhaseSys(4), 32, 11, device="cpu", **kw)
     rc = cpu.run()
     assert (rt.state_count, rt.unique_state_count) == (8_258, 1_568), rt
@@ -1875,13 +1924,13 @@ def phase_simulation(ph, torch, chk):
               walks=65_536)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     sim = DeviceSimulation(model, **kw)
     t0 = time.monotonic()
     r1 = sim.run()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     peak = torch.cuda.max_memory_allocated()
     tel = r1.detail["telemetry"]
     assert "election safety" not in r1.discoveries, r1.discoveries
@@ -2058,12 +2107,12 @@ def sharded_2pc10(ph, torch, chk, device_path, profile2pc10):
     torch.cuda.reset_peak_memory_stats()
     ss = ShardedSearch(model, device="cuda:0", batch_size=K, table_log2=TABLE_2PC10)
     assert ss.n_chips * ss.dest_capacity == nc, ss.dest_capacity
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     r1 = ss.run(max_steps=SHARDED_PAUSE)
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     assert r1.steps == SHARDED_PAUSE and not r1.complete, r1
     # The run's own peak: (a)'s table copies and the captured chunk's
     # graph pool fall between the two halves and are left out.
@@ -2072,12 +2121,12 @@ def sharded_2pc10(ph, torch, chk, device_path, profile2pc10):
     chunk = chunk_launches(torch, ss) / CHUNK_STEPS
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     r = ss.run()
     torch.cuda.synchronize()
     sec += time.monotonic() - t0
-    launches += ph.insert_kernel.launches
+    launches += ph.launch_kernel.launches
     peak = max(peak, torch.cuda.max_memory_allocated())
     got = (r.state_count, r.unique_state_count)
     assert got == GOLDEN_2PC10 and r.complete, got
@@ -2121,12 +2170,12 @@ def sharded_paxos3(ph, torch, paxos3, tmp):
 
     ss = ShardedSearch(TensorPaxos(3), device="cuda:0", batch_size=BATCH_PAXOS3,
                        table_log2=TABLE_PAXOS3)
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     r = ss.run()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
     assert set(r.discoveries) == {"value chosen"} and launches > 0, (r.discoveries, launches)
     if paxos3 is not None:
@@ -2146,14 +2195,14 @@ def sharded_paxos3(ph, torch, paxos3, tmp):
     size = os.path.getsize(file)
     del ss
     torch.cuda.empty_cache()
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     g = ShardedSearch.load_checkpoint(TensorPaxos(3), file, device="cuda:0",
                                       table_log2=TABLE_PAXOS3 + 1)
     load_s = time.monotonic() - t0
-    regrow = ph.insert_kernel.launches
+    regrow = ph.launch_kernel.launches
     assert regrow == -(-r1.unique_state_count // BATCH_PAXOS3), (regrow, r1.unique_state_count)
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     rg = g.run()
     torch.cuda.synchronize()
@@ -2164,7 +2213,7 @@ def sharded_paxos3(ph, torch, paxos3, tmp):
         f"{size} B written in {write_s:.3f} s; loaded with the table regrown 2^{TABLE_PAXOS3} "
         f"-> 2^{TABLE_PAXOS3 + 1} in {load_s:.3f} s ({regrow} kernel calls); resumed to "
         f"generated={rg.state_count} unique={rg.unique_state_count} in {resume_s:.3f} s "
-        f"({ph.insert_kernel.launches} insert launches), discoveries equal (c)'s")
+        f"({ph.launch_kernel.launches} insert launches), discoveries equal (c)'s")
     del g
     os.unlink(file)
     torch.cuda.empty_cache()
@@ -2183,7 +2232,7 @@ def sharded_tiered(ph, torch, chk):
 
     ss = ShardedSearch(TensorTwoPhaseSys(7), device="cuda:0", batch_size=BATCH_TIERED7,
                        table_log2=TABLE_TIERED7, store="tiered", summary_log2=SUMMARY_TIERED7)
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     sec, pause = 0.0, 0
     while True:
         pause += CHUNK_STEPS
@@ -2194,7 +2243,7 @@ def sharded_tiered(ph, torch, chk):
         if r1.detail["spill_events"] >= 1:
             break
         assert not r1.complete, "tiered 2pc-7 finished without a spill"
-    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
     c = ss._c
     assert int((c["summary"] != 0).sum()) > 0, "the summary is empty after a spill"
     r_key, r_parent, r_valid = received_buffer(torch, ss)[2:]
@@ -2209,13 +2258,13 @@ def sharded_tiered(ph, torch, chk):
         f"summary of {c['summary'].numel() * 32} bits ({int((c['summary'] != 0).sum())} words "
         f"set): {int(is_new.sum())} new, {int(suspect.sum())} suspect; the verdicts, suspects "
         "and stored pairs agree")
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     t0 = time.monotonic()
     r = ss.run()
     torch.cuda.synchronize()
     sec += time.monotonic() - t0
-    plain += ph.insert_kernel.launches
-    fused += ph.insert_kernel.bloom_launches
+    plain += ph.launch_kernel.launches
+    fused += ph.launch_kernel.bloom_launches
     assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
     d = r.detail
     assert d["spill_events"] >= 1 and d["spilled_states"] > 0, d
@@ -2243,7 +2292,7 @@ def sharded_lowering(ph, torch):
     from stateright_tpu_torch.parallel import ShardedSearch
     from stateright_tpu_torch.tensor.lowering import lower_actor_model, refine_check
 
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     rounds = []
     t0 = time.monotonic()
     r, _ = refine_check(
@@ -2252,7 +2301,7 @@ def sharded_lowering(ph, torch):
         device="cuda:0", progress=lambda rnd, ng, res: rounds.append(ng),
     )
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS1 and r.complete, r
     assert set(r.discoveries) == {"value chosen"} and rounds and launches > 0
     log(f"[sharded lowering] refine_check(engine='sharded') paxos-1: generated={r.state_count} "
@@ -2264,17 +2313,17 @@ def sharded_lowering(ph, torch):
         properties=register_properties, closure="exact",
     )
     ss = ShardedSearch(lowered, device="cuda:0", batch_size=2048, table_log2=18)
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     r = ss.run()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
     assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS2 and r.complete, r
-    assert set(r.discoveries) == {"value chosen"} and ph.insert_kernel.launches > 0
+    assert set(r.discoveries) == {"value chosen"} and ph.launch_kernel.launches > 0
     path = ss.reconstruct_path(r.discoveries["value chosen"])
     log(f"[sharded lowering] lowered paxos-2: generated={r.state_count} "
         f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} "
-        f"launches={ph.insert_kernel.launches}; value chosen Path[{len(path) - 1}]")
+        f"launches={ph.launch_kernel.launches}; value chosen Path[{len(path) - 1}]")
 
 
 def phase_sharded(ph, torch, chk, device_path, profile2pc10, paxos3):
@@ -2345,12 +2394,12 @@ def capture_insert(eng, summary=False):
 def compare_quietly(ph, chk, log2, got, **kw):
     """chk.compare on captured operands; the comparison's own launch is not
     the path's."""
-    saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+    saved = (ph.launch_kernel.launches, ph.launch_kernel.bloom_launches)
     try:
         return chk.compare(log2, got["key"], got["parent"], got["active"], tables=got["tables"],
                            **kw)
     finally:
-        ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+        ph.launch_kernel.launches, ph.launch_kernel.bloom_launches = saved
 
 
 def capture_widest_fused(eng):
@@ -2400,7 +2449,7 @@ def service_served(ph, torch):
                            registry=ModelRegistry({k: (lambda m=m: m) for k, m in models.items()}))
     base = "http://" + server.address
     try:
-        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
         t0 = time.monotonic()
         jobs = [(name, http_json(base, "/jobs", {"model": name})["job"])
                 for name, n in SERVICE_JOBS.items() for _ in range(n)]
@@ -2416,7 +2465,7 @@ def service_served(ph, torch):
             assert time.monotonic() - t0 < 200, "the service jobs did not finish in 200 s"
             time.sleep(0.05)
         sec = time.monotonic() - t0
-        launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        launches, bloom = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
         peak = torch.cuda.max_memory_allocated()
         assert launches > 0 and bloom == 0, (launches, bloom)
         generated = 0
@@ -2581,7 +2630,7 @@ def service_tiered(ph, torch, chk):
     store.evict = timed("evict", store.evict)
     store.resolve_suspects = timed("resolve", store.resolve_suspects)
     try:
-        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
         t0 = time.monotonic()
         hs = [svc.submit(model) for _ in range(2)]
         while store.spill_events == 0:
@@ -2600,7 +2649,7 @@ def service_tiered(ph, torch, chk):
             f"{int(suspect.sum())} suspects; the verdicts, suspects and stored pairs agree")
         svc.drain(timeout=600)
         sec = time.monotonic() - t0
-        plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
         rs = [h.result() for h in hs]
         st = svc.store_stats()
         steps = svc.stats()["device_steps"]
@@ -2899,7 +2948,7 @@ def fleet_served(ph, torch, chk, refs, served17):
         base = "http://" + server.address
         router = fleet.router
         try:
-            ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+            ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
             t0 = time.monotonic()
             jobs = [(name, http_json(base, "/jobs", {"model": name})["job"])
                     for name, n in SERVICE_JOBS.items() for _ in range(n)]
@@ -2921,7 +2970,7 @@ def fleet_served(ph, torch, chk, refs, served17):
                     assert time.monotonic() - t0 < 500, fleet.stats()
             torch.cuda.synchronize()
             sec = time.monotonic() - t0
-            launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+            launches, bloom = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
             peak = torch.cuda.max_memory_allocated()
             assert plan.injected_total() == 1 and launches > 0 and bloom == 0, (launches, bloom)
             generated = 0
@@ -3013,7 +3062,7 @@ def fleet_tiered(ph, torch, chk):
             lease_dir=os.path.join(tmp, "leases"))
         probe = FleetProbe(fleet, capture="after")
         try:
-            ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+            ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
             t0 = time.monotonic()
             hs = [fleet.submit(model) for _ in range(2)]
             victim = hs[0]._job.replica
@@ -3026,7 +3075,7 @@ def fleet_tiered(ph, torch, chk):
                 fleet.drain(timeout=600)
             torch.cuda.synchronize()
             sec = time.monotonic() - t0
-            plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+            plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
             rs = [h.result() for h in hs]
             survivor = fleet.replicas[1 - victim].service
             sst = survivor.store_stats()
@@ -3381,17 +3430,17 @@ def corpus_simulation(ph, torch, chk, entry, tmp):
         return real_insert(key, parent, active)
 
     table.insert = insert
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     t0 = time.monotonic()
     try:
         preloaded = sim.warm_start(entry)
     finally:
         table.insert = real_insert
     preload_sec = time.monotonic() - t0
-    preload_calls = ph.insert_kernel.launches
+    preload_calls = ph.launch_kernel.launches
     r = sim.run()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     keys = table.t_key[table.t_key != 0].cpu().numpy()
     unsalted = np.sort(salt_keys(keys, np.int64(sim._salt_key)).view(np.uint64))
     assert preloaded == entry.states and np.array_equal(unsalted, np.sort(entry.fps)), preloaded
@@ -3434,11 +3483,11 @@ def phase_corpus(ph, torch, chk):
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
         dirs = {k: os.path.join(tmp, k) for k in ("a", "fresh", "c")}
-        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
         exact = corpus_exact(ph, torch, chk, dirs["a"])
         delta = corpus_delta(torch, dirs["a"], dirs["fresh"])
         partial = corpus_partial(ph, torch, chk, dirs["c"])
-        launches, bloom = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+        launches, bloom = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
         assert launches > 0 and bloom > 0, (launches, bloom)
         log(f"[corpus] insert launches over (a)-(c): {launches} plain-form, {bloom} fused")
         devices, entry = corpus_devices(torch, tmp)
@@ -3919,11 +3968,11 @@ def quiet_launches(ph):
     comparison's own kernel calls are not the path's."""
     @contextlib.contextmanager
     def keep():
-        saved = (ph.insert_kernel.launches, ph.insert_kernel.bloom_launches)
+        saved = (ph.launch_kernel.launches, ph.launch_kernel.bloom_launches)
         try:
             yield
         finally:
-            ph.insert_kernel.launches, ph.insert_kernel.bloom_launches = saved
+            ph.launch_kernel.launches, ph.launch_kernel.bloom_launches = saved
     return keep()
 
 
@@ -3963,7 +4012,7 @@ def supervised_paxos3(ph, torch, chk, tmp, paxos3):
                 restored.append(eng.device)
             return eng
 
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     sup = Watched(TensorPaxos(3), engine="resident", plan=plan, config=cfg,
                   checkpoint_path=os.path.join(tmp, "paxos3.npz"),
@@ -3971,7 +4020,7 @@ def supervised_paxos3(ph, torch, chk, tmp, paxos3):
     r = sup.run()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    launches = ph.insert_kernel.launches
+    launches = ph.launch_kernel.launches
     f = r.detail["faults"]
     assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
     want = paxos3["result"].discoveries if paxos3 else None
@@ -4023,7 +4072,7 @@ def supervised_tiered(ph, torch, chk, tmp):
                 eng.insert = insert
             return eng
 
-    ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
     t0 = time.monotonic()
     sup = Watched(TensorTwoPhaseSys(7), engine="resident", plan=plan, config=cfg,
                   checkpoint_path=os.path.join(tmp, "tiered7.npz"),
@@ -4032,7 +4081,7 @@ def supervised_tiered(ph, torch, chk, tmp):
     r = sup.run()
     torch.cuda.synchronize()
     sec = time.monotonic() - t0
-    plain, fused = ph.insert_kernel.launches, ph.insert_kernel.bloom_launches
+    plain, fused = ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
     f = r.detail["faults"]
     assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
     assert r.detail["spill_events"] >= 1 and r.detail["suspects_checked"] > 0, r.detail
@@ -4078,13 +4127,13 @@ def supervised_regrow(ph, torch, chk, tmp):
             eng = super()._restore()
             if grow and eng is not None:
                 regrown.append((eng.table_log2, eng.load_seconds.get("regrow", 0.0),
-                                ph.insert_kernel.launches))
+                                ph.launch_kernel.launches))
                 with quiet_launches(ph):
                     regrow_batch_vs_plain(ph, torch, chk, side, eng)
                 os.remove(side)
             return eng
 
-    ph.insert_kernel.launches = 0
+    ph.launch_kernel.launches = 0
     t0 = time.monotonic()
     r = Watched(TensorPaxos(3), engine="resident", plan=None,
                 config=SupervisorConfig(backoff_base_s=0.0,
@@ -4158,7 +4207,7 @@ def supervised_sharded(ph, torch, tmp):
     dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
                             rank=0, world_size=1)
     try:
-        ph.insert_kernel.launches = ph.insert_kernel.bloom_launches = 0
+        ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
         t0 = time.monotonic()
         r = run_supervised(
             TensorTwoPhaseSys(7), engine="sharded",
@@ -4176,10 +4225,10 @@ def supervised_sharded(ph, torch, tmp):
     f = r.detail["faults"]
     assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
     assert f["injected"] == {"shard.transfer:shard": 1} and f["retries"] == 1, f
-    assert ph.insert_kernel.bloom_launches > 0
+    assert ph.launch_kernel.bloom_launches > 0
     log(f"[supervisor] (e) sharded tiered 2pc-7 on one NCCL rank: generated={r.state_count} "
         f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} "
-        f"fused_launches={ph.insert_kernel.bloom_launches}; {faults_line(f)}")
+        f"fused_launches={ph.launch_kernel.bloom_launches}; {faults_line(f)}")
     return dict(sec=sec, faults=f)
 
 
@@ -4331,6 +4380,133 @@ def phase_supervisor(ph, torch, chk, paxos3):
     return out
 
 
+AUDIT_STEPS_PAXOS3 = 64  # paxos-3 steps before the audited one (phase 11's window)
+
+
+def audit_anchors_both(torch):
+    """(b): every anchor audited on the card and on the CPU (the sharded
+    one on a world of one in this process, both sides)."""
+    from stateright_tpu_torch.analysis.anchors import audit_anchors
+
+    card, cpu = audit_anchors("cuda"), audit_anchors("cpu", sharded_ranks=1)
+    out = {}
+    for name, ar in card.items():
+        rep, ref = ar.report, cpu[name].report
+        diff = {k: (rep.totals.ops[k], ref.totals.ops[k])
+                for k in set(rep.totals.ops) | set(ref.totals.ops)
+                if rep.totals.ops[k] != ref.totals.ops[k]}
+        assert not diff, f"{name}: op census differs card vs CPU: {diff}"
+        leaves = {k: n for k, n in rep.totals.ops.items() if k.startswith("stateright_tpu_torch.")}
+        assert list(leaves.values()) == [1], (name, leaves)
+        assert rep.clean and ar.ratio_ok, (name, [str(v) for v in rep.violations], ar.ratio)
+        s = rep.summary()
+        log(f"[analysis] (b) {name}: {sum(rep.totals.ops.values())} ops ({len(rep.totals.ops)} "
+            f"kinds) equal on the card and the CPU, insert leaf {list(leaves)[0]}; card step "
+            f"{s['step_hbm_bytes']:,} B, {s['step_flops']:,} flop, {s['ops_per_step']} ops a "
+            f"step, {s['transfer_bytes']:,} B re-uploaded; costmodel ratio {ar.ratio:.2f}; "
+            "no violation")
+        out[name] = dict(s, ratio=ar.ratio)
+    return out
+
+
+def audit_paxos3(ph, torch, chk):
+    """(c): one resident paxos-3 step at full width, audited at its queue
+    head after AUDIT_STEPS_PAXOS3 steps."""
+    from stateright_tpu_torch.analysis.auditor import audit_fn
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+    from stateright_tpu_torch.tensor.resident import CHUNK_STEPS, ResidentSearch
+
+    rs = ResidentSearch(TensorPaxos(3), BATCH_PAXOS3, TABLE_PAXOS3)
+    r = rs.run(max_steps=AUDIT_STEPS_PAXOS3)
+    assert not r.complete and r.steps == AUDIT_STEPS_PAXOS3, (r.steps, r.complete)
+    c = rs._c
+    with quiet_launches(ph):  # a comparison's kernel call, not the path's
+        queue_head_vs_plain(torch, chk, "[analysis] (c)", rs,
+                            tables=(c["t_key"].clone(), c["t_parent"].clone()))
+    names = list(c)  # the carry's order, which audit_step's operands keep
+    fn, args, _ = rs.audit_step()
+    twin = tuple(t.clone() for t in args)
+    lib = ph.load_library()
+    torch.cuda.synchronize()
+    calls0, lib0 = ph.launch_kernel.launches, lib.visited_insert_launch_count()
+    t0 = time.monotonic()
+    with no_host_sync(torch):
+        rep = audit_fn(fn, args, name="resident/paxos-3")
+    torch.cuda.synchronize()
+    audit_s = time.monotonic() - t0
+    calls, launches = ph.launch_kernel.launches - calls0, lib.visited_insert_launch_count() - lib0
+    assert (calls, launches) == (1, 3), (calls, launches)
+    with quiet_launches(ph):  # the unaudited twin, for the comparison
+        out_b = fn(*twin)
+    torch.cuda.synchronize()
+    # What the audited and the unaudited step return (the stepped carry)
+    # and what each leaves in its operands. The kernel may place a claimed
+    # key in another slot from call to call where keys race (its parity
+    # contract): the table compares as its stored (key, parent) pairs,
+    # every other carry tensor bit for bit.
+    n_pairs = 0
+    for what, got, want in (("returned carry", rep.out, out_b),
+                            ("operands", dict(zip(names, args)), dict(zip(names, twin)))):
+        assert got.keys() == want.keys(), (what, set(got) ^ set(want))
+        differs = [k for k in got if k not in ("t_key", "t_parent")
+                   and not torch.equal(got[k], want[k])]
+        (ka, pa), (kb, pb) = (stored_pairs(torch, d["t_key"], d["t_parent"])
+                              for d in (got, want))
+        assert not differs and torch.equal(ka, kb) and torch.equal(pa, pb), (what, differs)
+        n_pairs = ka.numel()
+    assert rep.clean, [str(v) for v in rep.violations]
+    rep.out = out_b = None
+    del args, twin
+    with quiet_launches(ph):  # captured into a graph, never run
+        nodes = chunk_launches(torch, rs) / CHUNK_STEPS
+    s = rep.summary()
+    log(f"[analysis] (c) paxos-3, batch {BATCH_PAXOS3}, 2^{TABLE_PAXOS3} slots, the step after "
+        f"{r.steps}: audited in {audit_s:.2f} s under no_host_sync, clean; the carry it returns "
+        f"and its operands equal an unaudited step's (the table as its {n_pairs} stored pairs, "
+        f"every other tensor bit for bit); one insert call, "
+        f"{launches} CUDA launches; ops_per_step "
+        f"{rep.ops_per_step} against {nodes:.2f} CUDA-graph nodes a step within a chunk; "
+        f"{s['step_hbm_bytes']:,} B and {s['step_flops']:,} flop by the auditor's count")
+    for site, n in rep.top_sites:
+        log(f"[analysis] (c)   {n:4d} ops  {site}")
+    del rs, c
+    torch.cuda.empty_cache()
+    return dict(ops_per_step=rep.ops_per_step, graph_nodes=nodes, top_sites=rep.top_sites,
+                step_hbm_bytes=s["step_hbm_bytes"], audit_s=audit_s)
+
+
+def phase_analysis(ph, torch, chk):
+    """Static analysis on the card (see the module docstring, phase 22).
+    The insert calls counted are the path's: (a)'s and (b)'s anchor runs
+    on the card (each anchor's warm-up steps and its audited step), and
+    (c)'s paxos-3 steps and its audited step; the comparisons' calls are
+    not counted."""
+    from stateright_tpu_torch.analysis.__main__ import main as analysis_main
+
+    def counts():
+        return ph.launch_kernel.launches, ph.launch_kernel.bloom_launches
+
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
+    t0 = time.monotonic()
+    rc = analysis_main(["--skip-tools"])
+    assert rc == 0, f"python -m stateright_tpu_torch.analysis --skip-tools exited {rc}"
+    log(f"[analysis] (a) the analysis CLI on the card: exit 0 in {time.monotonic() - t0:.1f} s")
+    parts = dict(a=counts())
+    t0 = time.monotonic()
+    out = dict(anchors=audit_anchors_both(torch))
+    log(f"[analysis] (b) wall {time.monotonic() - t0:.1f} s")
+    parts["b"] = tuple(n - m for n, m in zip(counts(), parts["a"]))
+    t0 = time.monotonic()
+    out["paxos3"] = audit_paxos3(ph, torch, chk)
+    log(f"[analysis] (c) wall {time.monotonic() - t0:.1f} s")
+    parts["c"] = tuple(n - m - k for n, m, k in zip(counts(), parts["a"], parts["b"]))
+    out.update(launches=ph.launch_kernel.launches, tiered_launches=ph.launch_kernel.bloom_launches,
+               launch_parts=parts)
+    log(f"[analysis] insert calls of the path (plain, fused): {counts()}; by part {parts}")
+    assert out["launches"] > 0 and out["tiered_launches"] > 0, out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4401,6 +4577,7 @@ def main() -> int:
     corpus = phase(19, "corpus warm start", phase_corpus, ph, torch, chk)
     remote = phase(20, "fleet across processes", phase_remote, ph, torch, chk, service)
     sup = phase(21, "supervisor and calibration", phase_supervisor, ph, torch, chk, paxos3)
+    audit = phase(22, "static analysis", phase_analysis, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -4425,6 +4602,7 @@ def main() -> int:
         "launches_corpus_sim": corpus["sim"]["launches"],
         "launches_fleet_remote": remote["launches"],
         "launches_supervised": sup["a"]["launches"],
+        "launches_audit": audit["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -4434,6 +4612,8 @@ def main() -> int:
         "scan_floor_ms": timing["scan_floor_ms"],
         "device_ms": timing["device_ms"],
         "launches_per_call": timing["launches_per_call"],
+        "op_ms": timing["op_ms"],
+        "op_direct_ms": timing["op_direct_ms"],
     }, {
         "name": "visited_insert_bloom",
         "route": "cuda",
@@ -4447,6 +4627,7 @@ def main() -> int:
         "launches_corpus_tiered": corpus["bloom_launches"],
         "launches_fleet_remote_tiered": remote["tiered_launches"],
         "launches_supervised_tiered": sup["b"]["launches"],
+        "launches_audit_tiered": audit["tiered_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],
@@ -4456,6 +4637,8 @@ def main() -> int:
         "scan_floor_ms": fused["scan_floor_ms"],
         "device_ms": fused["device_ms"],
         "launches_per_call": fused["launches_per_call"],
+        "op_ms": fused["op_ms"],
+        "op_direct_ms": fused["op_direct_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -21,7 +21,17 @@ from .core.discovery import HasDiscoveries
 from .core.model import Expectation
 from .core.path import Path
 from .core.report import ReportData, Reporter, WriteReporter
-from .tensor.model import TensorModel, TensorProperty
+
+
+def __getattr__(name):
+    # The tensor model imports torch; the host-only modules (the knob
+    # registry, the lint pass of analysis/) load without it.
+    if name in ("TensorModel", "TensorProperty"):
+        from .tensor import model
+
+        return getattr(model, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Expectation",

@@ -280,6 +280,7 @@ class CredentialChain:
             if creds is not None:
                 return creds
             tried.append(name)
+        # srlint: fault-ok its chaos point is maybe_fault("creds.refresh") in _refresh, one frame up
         raise CredentialError(
             f"no {self.provider} credentials found (tried: "
             f"{', '.join(tried)})"

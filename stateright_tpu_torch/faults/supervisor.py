@@ -61,11 +61,13 @@ from dataclasses import dataclass
 from typing import Optional
 
 from ..core.discovery import HasDiscoveries
+from ..knobs import SUPERVISED_ENGINES
 from ..obs import REGISTRY, as_tracer
 from .ckptio import CheckpointCorrupt, latest_generation
 from .plan import FaultError, FaultPlan, WatchdogTimeout, active, deterministic_backoff
 
-ENGINES = ("frontier", "resident", "sharded")
+#: The engines run_supervised drives (knobs.py, aliased: check_registry).
+ENGINES = SUPERVISED_ENGINES
 
 #: Degrade ladder rung names, in escalation order.
 RUNGS = ("retry", "shrink_batch", "tiered", "cpu")

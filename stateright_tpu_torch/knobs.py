@@ -13,6 +13,16 @@ INSERT_VARIANTS = ("pallas",)
 #: (store/tiered.py) behind a Bloom summary of the spilled set.
 STORE_KINDS = ("device", "tiered")
 
+#: Engine spines (the supervisor's and the chaos plane's `engine=`
+#: selectors, the calibration's engine names): the JAX package's four.
+#: "simulation" is the random-walk mode (tensor/simulation.py), a spine for
+#: faults and observability, which the supervisor does not drive.
+ENGINES = ("frontier", "resident", "sharded", "simulation")
+
+#: The spines `run_supervised` drives (faults/supervisor.py): the three
+#: exhaustive searches. Derived, not restated.
+SUPERVISED_ENGINES = tuple(e for e in ENGINES if e != "simulation")
+
 #: HasDiscoveries kinds (core/discovery.py), the early-finish policies the
 #: resident engine encodes as required/any bitmasks (tensor/resident.py).
 FINISH_KINDS = ("all", "any", "any_failures", "all_failures", "all_of", "any_of")
@@ -49,14 +59,28 @@ BLOB_BACKENDS = ("file", "blob", "s3", "gs")
 
 
 def check_registry() -> list:
-    """The warm seam's drift probe: every engine, and the service
-    scheduler, must alias THE `WARM_KINDS` tuple and the one preload seam
-    (store/warm.py), not a restated copy. Returns the problems found (an
-    empty list: no drift). Imports are local, so reading a knob never
-    imports torch."""
+    """The drift probe of `python -m stateright_tpu_torch.analysis`: the
+    modules that use a knob universe must alias the registry's tuple, not
+    a restated copy — the cost model's insert variants, the supervisor's
+    engines, and every engine's and the service scheduler's `WARM_KINDS`
+    and warm seam (store/warm.py). Returns the problems found (an empty
+    list: no drift). Imports are local, so reading a knob never imports
+    torch."""
+    from .faults import supervisor
     from .store import warm
+    from .tensor import costmodel
 
     problems: list[str] = []
+    if costmodel.INSERT_VARIANTS is not INSERT_VARIANTS:
+        problems.append("tensor.costmodel.INSERT_VARIANTS is a restated copy, not the "
+                        "knobs.INSERT_VARIANTS alias")
+    for (_layout, variant), cost in costmodel.ENGINE_VARIANTS.items():
+        if variant not in INSERT_VARIANTS or cost not in INSERT_VARIANTS:
+            problems.append(f"costmodel.ENGINE_VARIANTS maps {variant!r} -> {cost!r}, "
+                            "outside knobs.INSERT_VARIANTS")
+    if supervisor.ENGINES is not SUPERVISED_ENGINES:
+        problems.append("faults.supervisor.ENGINES is a restated copy, not the "
+                        "knobs.SUPERVISED_ENGINES alias")
     if warm.WARM_KINDS is not WARM_KINDS:
         problems.append("store.warm.WARM_KINDS is a restated copy, not the "
                         "knobs.WARM_KINDS alias")

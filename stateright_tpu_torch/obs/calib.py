@@ -22,7 +22,8 @@
 The port's step is host-bound, so its prediction counts the step's
 launches: `launch_scope` counts the aten ops of an engine's first step
 under a TorchDispatchMode that calls every op unchanged (host only, once an
-engine build), plus the insert kernel's launches.
+engine build), and the insert kernel's launches for each registered insert
+op it sees.
 
 The observatory observes and never steers: results are bit-identical with
 the comparator on and off (``SR_TPU_CALIB=0``), and a fitted overlay
@@ -248,6 +249,7 @@ class Comparator:
     def set_launches(self, launches: float) -> None:
         """The step's counted launches (`launch_scope`). The window that
         holds the counted step is not observed: counting slows it."""
+        # srlint: host-ok a Python int (the counted launches), not a tensor: no wait
         self.config = replace(self.config, launches=float(launches))
         self._cache.clear()
         self._skip_window = True
@@ -451,7 +453,7 @@ def make_comparator(engine: str, model, batch: int, table_log2: int, device, *,
 # -- the launch count ------------------------------------------------------------
 
 # aten ops that launch nothing on the card: views, allocation, host reads.
-_NO_LAUNCH = frozenset({
+NO_LAUNCH_OPS = frozenset({
     "empty", "empty_strided", "_local_scalar_dense", "lift_fresh", "detach", "alias",
     "set_", "resize_", "_unsafe_view", "unbind", "split", "split_with_sizes",
 })
@@ -465,6 +467,8 @@ def _dispatch_mode():
     global _MODE_CLASS
     if _MODE_CLASS is None:
         from torch.utils._python_dispatch import TorchDispatchMode
+
+        from ..tensor.pallas_hashtable import OP_NAMESPACE
 
         class _Count(TorchDispatchMode):
             @classmethod
@@ -480,7 +484,9 @@ def _dispatch_mode():
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 name = func.overloadpacket.__name__
-                if not (getattr(func, "is_view", False) or name in _NO_LAUNCH):
+                if func.namespace == OP_NAMESPACE:  # the insert: its kernel's launches
+                    self.launches += costmodel.INSERT_LAUNCHES
+                elif not (getattr(func, "is_view", False) or name in NO_LAUNCH_OPS):
                     self.launches += 1
                 return func(*args, **(kwargs or {}))
 
@@ -488,32 +494,21 @@ def _dispatch_mode():
     return _MODE_CLASS()
 
 
-def _insert_calls() -> int:
-    """Insert kernel calls so far, either form (the wrapper's own counts;
-    its kernel is called outside aten, so the mode cannot see it)."""
-    from ..tensor.pallas_hashtable import insert_kernel
-
-    return insert_kernel.launches + insert_kernel.bloom_launches
-
-
 @contextlib.contextmanager
 def launch_scope(comp: Optional[Comparator]):
     """Count the launches of the block (an engine's first step) into
     `comp`'s prediction: every aten op that is not a view, an allocation or
-    a host read, and INSERT_LAUNCHES for each insert kernel call the
-    wrapper counted meanwhile (the process's count: an insert on another
-    thread meanwhile counts too; on the CPU the insert's plain version is
-    aten ops, counted as such). A no-op when `comp` is None or has its
-    count.
+    a host read, and INSERT_LAUNCHES for each registered insert op (either
+    form, on either device: the op's body is not recorded). A no-op when
+    `comp` is None or has its count.
     The ops run unchanged; counting costs host time only, once an engine
     build."""
     if comp is None or comp.config.launches > 0:
         yield
         return
-    calls0 = _insert_calls()
     with _dispatch_mode() as mode:
         yield
-    comp.set_launches(mode.launches + (_insert_calls() - calls0) * costmodel.INSERT_LAUNCHES)
+    comp.set_launches(mode.launches)
 
 
 # -- durable record I/O (through the ckptio CRC seam) --------------------------------

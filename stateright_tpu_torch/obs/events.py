@@ -191,6 +191,7 @@ class EventJournal:
             # chaos=False: an injected blob.put fault would be recorded as a
             # `fault.injected` event into this very journal, mid-sync,
             # re-entering the journal and plan locks.
+            # srlint: ckpt-ok append-only JSONL journal mirror; readers skip a torn tail
             put_blob(self.sync_uri, data, rotate=False, chaos=False,
                      deadline_s=self.sync_deadline_s)
         except OSError:

@@ -81,8 +81,8 @@ supervisor restores together. With no plan active nothing is added: no
 collective, no launch. The calibration comparator prices one shard's step
 (per-shard batch and table) from the chunk summaries already gathered.
 
-Left out of the port (ROADMAP): `audit_step` (A16), `donate_chunks` and
-the `append` variants.
+`audit_step()` hands one step to the step auditor (analysis/auditor.py).
+Left out of the port (ROADMAP): `donate_chunks` and the `append` variants.
 """
 
 from __future__ import annotations
@@ -98,11 +98,11 @@ import torch.distributed as dist
 
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
-from ..faults.ckptio import atomic_savez, load_latest, normalize_ckpt_path
+from ..faults.ckptio import fenced_savez, load_latest, normalize_ckpt_path
 from ..faults.plan import FaultError, ShardFault, active_plan, maybe_fault
 from ..knobs import STORE_KINDS, WARM_KINDS
-from ..obs import N_COLS, REGISTRY, StepRing, as_tracer
-from ..obs.calib import launch_scope, make_comparator
+# `calib` as a module: obs.calib imports the tensor package, which imports this.
+from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, calib
 from ..store import warm as warm_seam
 from ..tensor.fingerprint import MASK32, from_host_fp, to_host_fp
 from ..tensor.frontier import (
@@ -181,11 +181,13 @@ def _rank_device(device, group) -> torch.device:
                 "the collectives never copy tensors between the device and the host"
             )
     if dev.type == "cuda" and not torch.cuda.is_available():
+        # srlint: fault-ok caller-contract guard (no CUDA device), not an I/O/device surface
         raise RuntimeError(
             "device='cuda' but torch.cuda.is_available() is False; pass device='cpu' "
             "(in a gloo group) to run the sharded search on the CPU"
         )
     if not dist.is_initialized():
+        # srlint: fault-ok caller-contract guard (no process group), not an I/O/device surface
         raise RuntimeError(
             "no torch.distributed process group: join one with "
             "stateright_tpu_torch.parallel.init_world() (under torchrun) or run the "
@@ -311,8 +313,9 @@ class ShardedSearch:
         self._metrics_name = REGISTRY.register("sharded", self.metrics)
         # The calibration comparator (obs/calib.py): one shard's step, fed
         # by the gathered chunk summaries; observes, never steers.
-        self._calib = (make_comparator("sharded", model, batch_size, table_log2, self.device,
-                                       spill=store == "tiered") if telemetry else None)
+        self._calib = (calib.make_comparator("sharded", model, batch_size, table_log2,
+                                             self.device, spill=store == "tiered")
+                       if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -476,6 +479,7 @@ class ShardedSearch:
             raise ValueError("warm_start requires store='tiered' (the preloaded set "
                              "lives in the per-shard spill tiers)")
         if self._c is not None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("cannot warm-start a suspended search; reset() first")
         lo, _hi = warm_seam.split_fps(entry.fps)
         owners = lo % np.uint32(self.n_chips)
@@ -567,7 +571,7 @@ class ShardedSearch:
         dist.all_to_all_single(recv, send, group=self.group)
         return recv
 
-    def _step(self, c, go, tmd: int) -> torch.Tensor:
+    def _step(self, c, go, tmd: int) -> torch.Tensor:  # srlint: step-region
         """One step of this rank (see the module docstring); a no-op unless
         `go`, but for its collective. Returns the step's generated count."""
         model, props = self.model, self.props
@@ -660,6 +664,7 @@ class ShardedSearch:
             go &= c["gen"] < target
         return go
 
+    # srlint: step-region
     def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> torch.Tensor:
         """A snapshot of the counters (the chunk's undo point), a sync that
         derives `go` under this run's options, then `n_steps` steps, each
@@ -669,7 +674,7 @@ class ShardedSearch:
         for i in range(n_steps):
             # An engine's first step is counted for the calibration's
             # prediction (host only; obs/calib.py launch_scope).
-            with launch_scope(self._calib if i == 0 else None):
+            with calib.launch_scope(self._calib if i == 0 else None):
                 gen = self._step(c, go, tmd)
                 go = self._sync(c, gen, req, anym, target, max_steps)
         return go
@@ -705,6 +710,33 @@ class ShardedSearch:
             # prices one shard's step).
             self._calib.observe(self._ring.steps, window_us,
                                 self._ring.generated_total // self.n_chips)
+
+    # -- static analysis -----------------------------------------------------------
+
+    def audit_step(self):
+        """(step_fn, operands, host_slots) for the step auditor
+        (analysis/auditor.py): one iteration of the chunk loop under the
+        default finish policy — this rank's step (the route, the
+        all-to-all, the insert of the received keys) and the global sync
+        after it — as a function of the carry's tensors and the step's
+        `go`. A collective: every rank audits together. The operands are a
+        copy of the carry (seeded first when there is none) after the
+        chunk's opening sync, so an audited step changes nothing here;
+        `step_fn` returns the stepped carry dict. The chunked dispatch
+        re-uploads nothing per step (host_slots empty)."""
+        if self._c is None:
+            self._seed()
+        names = tuple(self._c)
+        req, anym = _finish_masks(HasDiscoveries.ALL, self.props)
+        c = {k: t.clone() for k, t in self._c.items()}
+        go = self._sync(c, self._zero, req, anym, 0, 1 << 62)
+
+        def step(*tensors):
+            c = dict(zip(names, tensors[:-1]))
+            self._sync(c, self._step(c, tensors[-1], 0), req, anym, 0, 1 << 62)
+            return c
+
+        return step, (*c.values(), go), ()
 
     # -- host entry ---------------------------------------------------------------
 
@@ -770,6 +802,7 @@ class ShardedSearch:
             if codes:
                 undo_chunk(self)
                 self._steps = steps0
+                # srlint: fault-ok capacity abort; the chaos point is _fault_point above
                 raise RuntimeError(
                     f"sharded search overflow — {_abort_reason(codes)}; every shard was "
                     "kept at the last chunk boundary — checkpoint(path) then "
@@ -912,11 +945,13 @@ class ShardedSearch:
         if bad.size:
             i = int(bad[0])
             if failed[i] == ABORT_QUEUE:
+                # srlint: fault-ok deterministic capacity wall of the tiered service
                 raise RuntimeError(
                     f"sharded tiered store: shard {i}'s live frontier exceeds its "
                     "compacted queue — raise table_log2 (the per-shard queue is "
                     "table-sized)"
                 )
+            # srlint: fault-ok deterministic capacity wall of the tiered service
             raise RuntimeError(
                 f"sharded tiered store: shard {i} could not free any bucket (every "
                 "bucket full and pinned); raise table_log2 or lower high_water"
@@ -935,6 +970,7 @@ class ShardedSearch:
         not). Queue rows are written up to the longest shard's tail, the
         suspect buffers whole; both packages' loaders pad the queue."""
         if self._c is None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("nothing to checkpoint: run() has not been called")
         with self._tracer.span("checkpoint", cat="engine", path=path):
             return self._checkpoint(path)
@@ -975,7 +1011,7 @@ class ShardedSearch:
         ok = 1
         if self.rank == 0:
             try:
-                atomic_savez(path, self._checkpoint_arrays(gathered, col, sm))
+                fenced_savez(path, self._checkpoint_arrays(gathered, col, sm))
             except Exception:
                 ok = 0
                 raise
@@ -983,6 +1019,7 @@ class ShardedSearch:
                 # Every rank learns whether the file was written.
                 self._from_root(ok)
         elif not self._from_root(ok):
+            # srlint: fault-ok rank 0's write failure, re-raised on the other ranks
             raise RuntimeError("rank 0 failed to write the sharded checkpoint")
         return normalize_ckpt_path(path)
 
@@ -1173,6 +1210,7 @@ class ShardedSearch:
 
     def _carry(self):
         if self._c is None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("no search to read: run() has not been called")
         return self._c
 
@@ -1198,6 +1236,7 @@ class ShardedSearch:
         end = int(c["head"] if evaluated_only else c["tail"])
         g = self._gather_ints([end, int(self._q_compacted)])
         if g[:, 1].any():
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError(
                 "dump_states is unavailable once the tiered store has compacted a "
                 "shard's frontier queue (rows [0, tail) no longer cover every unique "

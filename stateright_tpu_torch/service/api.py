@@ -264,6 +264,7 @@ class CheckService:
                 prefetch = None
         with self._work:
             if self._closed:
+                # srlint: fault-ok caller-contract guard, not an I/O/device surface
                 raise RuntimeError("service is closed")
             if self._failed:
                 raise ServiceError(self._failed)
@@ -340,6 +341,7 @@ class CheckService:
         elif not job.event.is_set():
             return None
         if job.status == JobStatus.CANCELLED:
+            # srlint: fault-ok caller-contract guard (cancellation is the caller's own act)
             raise RuntimeError(f"job {job_id} was cancelled")
         if job.status == JobStatus.ERROR:
             raise ServiceError(job.error or f"job {job_id} failed")

@@ -143,6 +143,7 @@ class LeaseStore:
             write_record(path, payload, LEASE_MAGIC)
             if self._read(member) == (int(epoch), state):
                 return
+        # srlint: fault-ok the chaos point is write_record's seam; this is its degrade path
         raise OSError(
             f"lease record for {member!r} failed post-write verification "
             "(torn writes exhausted retries); the transition is NOT durable"

@@ -37,7 +37,7 @@ from typing import Optional
 import numpy as np
 
 from ..core.discovery import HasDiscoveries
-from ..faults.ckptio import atomic_savez, load_latest
+from ..faults.ckptio import fenced_savez, load_latest
 from ..tensor.fingerprint import MASK32, job_salt, pack_salt
 from .metrics import JobMetrics
 
@@ -310,7 +310,7 @@ class Job:
     def spill_frontier(self, path: str) -> None:
         """Park the pending frontier on disk (crash-atomic, CRC footer:
         faults/ckptio.py) and free its host memory."""
-        self._spill_path = atomic_savez(path, self._frontier_arrays(), keep_prev=False)
+        self._spill_path = fenced_savez(path, self._frontier_arrays(), keep_prev=False)
         self.drop_frontier()
 
     def load_frontier(self) -> None:

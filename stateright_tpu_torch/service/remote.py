@@ -797,6 +797,7 @@ def start_replica_proc(
     ]
     if incarnation:
         cmd += ["--incarnation", str(incarnation)]
+    # srlint: ckpt-ok child log sink, not persistent checkpoint state
     log_f = open(log_path, "ab")  # the child's stdout and stderr
     try:
         proc = subprocess.Popen(cmd, stdout=log_f, stderr=subprocess.STDOUT, env=env)
@@ -822,6 +823,7 @@ def poll_replica_proc(idx: int, directory, proc, log_path: str) -> Optional[str]
                 tail = f.read()[-2000:]
         except OSError:
             pass
+        # srlint: fault-ok a boot-time spawn failure, before the chaos plane has a replica
         raise RuntimeError(
             f"replica {idx} process exited during startup "
             f"(rc={proc.returncode}); log tail:\n{tail}"

@@ -487,8 +487,10 @@ class FleetRouter:
         elif not fj.event.is_set():
             return None
         if fj.status == FleetJobStatus.CANCELLED:
+            # srlint: fault-ok caller-contract guard (cancellation is the caller's own act)
             raise RuntimeError(f"fleet job {job_id} was cancelled")
         if fj.status == FleetJobStatus.ERROR:
+            # srlint: fault-ok re-raising a job failure the fleet already absorbed
             raise RuntimeError(fj.error or f"fleet job {job_id} failed")
         return fj.result
 

@@ -58,8 +58,8 @@ import torch
 from ..core.model import Expectation
 from ..faults.plan import maybe_fault
 from ..knobs import STORE_KINDS, WARM_KINDS
-from ..obs import StepRing, as_events, as_tracer
-from ..obs.calib import launch_scope
+# `calib` as a module: obs.calib imports the tensor package, which imports this.
+from ..obs import StepRing, as_events, as_tracer, calib
 from ..store import warm as warm_seam
 from ..tensor.fingerprint import from_host_fp, salt_keys, to_host_fp
 from ..tensor.frontier import (
@@ -249,16 +249,14 @@ class ServiceEngine:
     def _configure_calib(self) -> None:
         """(Re)point the comparator at the widest live group geometry: the
         fused step is padded to it."""
-        from ..obs.calib import calib_enabled, make_comparator
-
-        if self._ring is None or not calib_enabled() or not self.groups:
+        if self._ring is None or not calib.calib_enabled() or not self.groups:
             return
         lanes = max(g.model.lanes for g in self.groups.values())
         acts = max(g.model.max_actions for g in self.groups.values())
         if self._calib is None:
             widest = max((g.model for g in self.groups.values()),
                          key=lambda m: (m.lanes, m.max_actions))
-            self._calib = make_comparator(
+            self._calib = calib.make_comparator(
                 "service", widest, self.batch_size, self.table.size.bit_length() - 1,
                 self.device, spill=self._store is not None, events=self._events,
                 record_root=self._calib_root)
@@ -777,7 +775,7 @@ class ServiceEngine:
 
     # -- one fused step --------------------------------------------------------
 
-    def _device_step(self, group: _Group, states, keys, salts, active):
+    def _device_step(self, group: _Group, states, keys, salts, active):  # srlint: step-region
         """The fused step on the device: property masks, then expand,
         fingerprint and the salted insert (expand_insert), then the new
         rows first (compact_new). Returns (head int64 [new count, overflow,
@@ -872,7 +870,7 @@ class ServiceEngine:
             maybe_fault("service.step", job=[j.id for j, _s, _e in segments],
                         group=type(model).__name__)
             with self._tracer.span("service.step", cat="service", jobs=len(jobs), lanes=m):
-                with launch_scope(self._calib):  # the engine's first step (host only)
+                with calib.launch_scope(self._calib):  # the engine's first step (host only)
                     head, flags, out = self._device_step(group, *self._upload(group))
                     head, flags = _to_host(self.device, head, flags)
                 self.total_steps += 1

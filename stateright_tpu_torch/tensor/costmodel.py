@@ -43,10 +43,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
-from ..knobs import SIM_DEDUP_KINDS
-
-#: The one priced insert design, under the JAX package's variant name.
-INSERT_VARIANTS = ("pallas",)
+# INSERT_VARIANTS: the priced insert designs, the registry's own tuple
+# (knobs.check_registry pins the alias).
+from ..knobs import INSERT_VARIANTS, SIM_DEDUP_KINDS
 
 #: (table_layout, insert_variant) engine options -> cost-model variant name.
 ENGINE_VARIANTS = {("split", "pallas"): "pallas"}

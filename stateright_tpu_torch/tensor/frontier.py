@@ -34,11 +34,11 @@ import torch
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..core.path import Path
-from ..faults.ckptio import atomic_savez, load_latest
+from ..faults.ckptio import fenced_savez, load_latest
 from ..knobs import STORE_KINDS, WARM_KINDS
 from ..faults.plan import maybe_fault
-from ..obs import REGISTRY, StepRing, as_tracer, build_detail
-from ..obs.calib import launch_scope, make_comparator
+# `calib` as a module: obs.calib imports the tensor package, which imports this.
+from ..obs import REGISTRY, StepRing, as_tracer, build_detail, calib
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
 from .inserts import resolve_insert
@@ -211,6 +211,7 @@ def replay_fp_chain(model: TensorModel, chain: list, device="cpu") -> Path:
     init_fps = to_host_fp(state_fingerprint(model, init))
     rows = np.nonzero(init_fps == np.uint64(chain[0]))[0]
     if len(rows) == 0:
+        # srlint: fault-ok host-side path replay after the search; nothing to recover
         raise RuntimeError(
             "failed to reconstruct init state from device fingerprint; "
             "the tensor model may be nondeterministic"
@@ -223,6 +224,7 @@ def replay_fp_chain(model: TensorModel, chain: list, device="cpu") -> Path:
         valid = valid[0].cpu().numpy()
         hits = np.nonzero(valid & (sfps == np.uint64(next_fp)))[0]
         if len(hits) == 0:
+            # srlint: fault-ok host-side path replay after the search; nothing to recover
             raise RuntimeError(
                 "failed to reconstruct a step from device fingerprints; "
                 "the tensor model may be nondeterministic"
@@ -286,6 +288,7 @@ def reinsert(insert, t_key, t_parent, keys, parents, batch_size: int) -> None:
         ovf |= insert(t_key, t_parent, k, parents[i:i + batch_size],
                       active[:k.shape[0]])[-1]
     if bool(ovf):
+        # srlint: fault-ok deterministic capacity wall of a host-side regrow
         raise RuntimeError("table overflow while re-inserting; raise table_log2")
 
 
@@ -378,8 +381,9 @@ class FrontierSearch:
         self._metrics_name = REGISTRY.register("frontier", self.metrics)
         # The calibration comparator (obs/calib.py): fed by the step times
         # the engine already measures; observes, never steers.
-        self._calib = (make_comparator("frontier", model, batch_size, table_log2, self.device,
-                                       spill=store == "tiered") if telemetry else None)
+        self._calib = (calib.make_comparator("frontier", model, batch_size, table_log2,
+                                             self.device, spill=store == "tiered")
+                       if telemetry else None)
         self.properties = model.properties()
         # Host staging of one padded batch: pinned on a card, so that each
         # operand goes up in one asynchronous copy.
@@ -444,18 +448,18 @@ class FrontierSearch:
 
     # -- the device step -----------------------------------------------------
 
-    def _step(self, states, keys, active):
+    def _step(self, t_key, t_parent, states, keys, active):  # srlint: step-region
         """One step on the device: the property masks of the batch, then
-        expand, fingerprint and insert. Returns (scalars [new, generated,
-        overflow], flags [P*K masks, then K has-successor bits], and the
-        new-first permutations of the successor rows, keys, source lanes and
-        suspect bits)."""
+        expand, fingerprint and insert into the table (t_key, t_parent).
+        Returns (scalars [new, generated, overflow], flags [P*K masks, then
+        K has-successor bits], and the new-first permutations of the
+        successor rows, keys, source lanes and suspect bits)."""
         model, props = self.model, self.properties
         masks = (torch.stack([p.condition(model, states) for p in props]) if props
                  else torch.zeros((0, states.shape[0]), dtype=torch.bool, device=states.device))
         tiered = self._store is not None
         flat, succ_keys, is_new, suspect, gen_rows, has_succ, ovf = expand_insert(
-            model, self.insert, self.table.t_key, self.table.t_parent, states, keys, active,
+            model, self.insert, t_key, t_parent, states, keys, active,
             summary=self._store.summary if tiered else None,
             summary_cfg=self._store.summary_cfg if tiered else None,
         )
@@ -478,6 +482,24 @@ class FrontierSearch:
         if self.device.type == "cpu":
             return st.clone(), ks.clone(), act.clone()
         return tuple(t.to(self.device, non_blocking=True) for t in self._up)
+
+    # -- static analysis -----------------------------------------------------
+
+    def audit_step(self):
+        """(step_fn, operands, host_slots) for the step auditor
+        (analysis/auditor.py): `_step` on a copy of the table and the next
+        batch as run() would upload it (the queue head, seeded first when
+        there is none), so an audited step changes nothing here. host_slots
+        are what the host re-uploads every step: the padded batch's states,
+        keys and active mask."""
+        if self._q is None:
+            self._seed()
+        if not self._q:
+            raise ValueError("the search is complete: no batch to audit")
+        chunk = self._q[0]
+        batch = self._upload(chunk, 0, min(self.batch_size, chunk.keys.shape[0]))
+        args = (self.table.t_key.clone(), self.table.t_parent.clone(), *batch)
+        return self._step, args, (2, 3, 4)
 
     # -- host orchestration --------------------------------------------------
 
@@ -569,8 +591,9 @@ class FrontierSearch:
                 maybe_fault("engine.step", engine="frontier", step=steps)
                 t_step0 = time.monotonic()
                 with self._tracer.span("frontier.step", cat="engine"):
-                    with launch_scope(self._calib):
-                        scalars, flags, out = self._step(*self._upload(chunk, b0, b1))
+                    with calib.launch_scope(self._calib):
+                        scalars, flags, out = self._step(self.table.t_key, self.table.t_parent,
+                                                         *self._upload(chunk, b0, b1))
                         scalars, flags = _to_host(self.device, scalars, flags)
                     steps += 1
                     run_steps += 1
@@ -720,6 +743,7 @@ class FrontierSearch:
         with self._tracer.span("tiered.evict", cat="store"):
             freed = store.evict(t_key, t_parent, self._hot_claims)
         if freed == 0:
+            # srlint: fault-ok deterministic capacity wall of the tiered store
             raise RuntimeError(
                 "tiered store could not free any bucket (every bucket is full "
                 "and pinned); raise table_log2 or lower high_water"
@@ -767,6 +791,7 @@ class FrontierSearch:
         table's slot layout). Valid whenever run() has returned, after a
         suspension too; `load_checkpoint` in either package continues it."""
         if self._q is None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("nothing to checkpoint: run() has not started")
         self._tracer.instant("checkpoint", cat="engine", path=path)
         chunks = list(self._q)
@@ -801,7 +826,7 @@ class FrontierSearch:
                 "store": self._store.meta() if self._store is not None else None,
             }).encode(), dtype=np.uint8),
         )
-        return atomic_savez(path, arrays)
+        return fenced_savez(path, arrays)
 
     @classmethod
     def load_checkpoint(cls, model: TensorModel, path: str, batch_size: int = 1024,

@@ -1,28 +1,27 @@
 """The insert-variant dispatch: variant name -> insert function, the one
 resolution point the engine and the table handle call (the JAX package's
-`tensor/inserts.py`). This slice has one variant, "pallas": the CUDA kernel
-for tensors on a CUDA device, its plain torch version for tensors on the
-CPU. There is no other rule and no fallback: a CUDA tensor always goes to
-the kernel, and a failed build or launch raises. Both forms of the insert go
-the same way: with a `summary` (the tiered store's Bloom words) the call is
-the fused Bloom-suspect form, on the card too — never the plain kernel
-followed by a separate `maybe_contains` pass.
+`tensor/inserts.py`). This slice has one variant, "pallas": the registered
+op `stateright_tpu_torch::visited_insert` (tensor/pallas_hashtable.py),
+whose CUDA implementation is the kernel and whose CPU implementation is its
+plain torch version. There is no other rule and no fallback: a CUDA tensor
+always goes to the kernel, a failed build or launch raises, and any other
+device raises here. Both forms of the insert go the same way: with a
+`summary` (the tiered store's Bloom words) the call is the fused
+Bloom-suspect form, `::visited_insert_bloom`, on the card too — never the
+plain kernel followed by a separate `maybe_contains` pass.
 """
 
 from __future__ import annotations
 
 from ..knobs import INSERT_VARIANTS
-from .pallas_hashtable import insert_kernel, insert_plain, partitions
+from .pallas_hashtable import insert_op, partitions
 
 
 def _insert_pallas(t_key, t_parent, key, parent, active, n_partitions=None,
                    summary=None, summary_cfg=None):
-    args = (t_key, t_parent, key, parent, active, n_partitions, summary, summary_cfg)
-    if t_key.device.type == "cuda":
-        return insert_kernel(*args)
-    if t_key.device.type == "cpu":
-        return insert_plain(*args)
-    raise ValueError(f"no visited-set insert for device {t_key.device}")
+    if t_key.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no visited-set insert for device {t_key.device}")
+    return insert_op(t_key, t_parent, key, parent, active, n_partitions, summary, summary_cfg)
 
 
 INSERT_TABLE = {"pallas": _insert_pallas}

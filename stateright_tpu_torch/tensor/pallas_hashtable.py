@@ -225,16 +225,17 @@ def _check_operands(t_key, t_parent, key, parent, active, summary, summary_cfg) 
         )
 
 
-def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None,
-                  summary=None, summary_cfg=None):
-    """Launch the CUDA kernel on the current stream (CUDA tensors only).
-    Returns (t_key, t_parent, is_new, overflow), or with a summary
-    (t_key, t_parent, is_new, suspect, overflow); the tables are updated in
-    place. Counts each plain-form call in `insert_kernel.launches` and each
-    fused (summary) call in `insert_kernel.bloom_launches`."""
+def launch_kernel(t_key, t_parent, key, parent, active, n_partitions, summary,
+                  summary_cfg):
+    """Launch the CUDA kernel on the current stream (CUDA tensors only): the
+    registered op's CUDA implementation. Updates the tables in place and
+    returns the new tensors only, (is_new, overflow bool[1]) or with a
+    summary (is_new, suspect, overflow bool[1]). Counts each plain-form
+    call in `launch_kernel.launches` and each fused (summary) call in
+    `launch_kernel.bloom_launches`."""
     _check_operands(t_key, t_parent, key, parent, active, summary, summary_cfg)
     if t_key.device.type != "cuda":
-        raise ValueError(f"insert_kernel needs CUDA tensors, got {t_key.device}")
+        raise ValueError(f"the insert kernel needs CUDA tensors, got {t_key.device}")
     P, V = _geometry(t_key.shape[0], n_partitions)
     n = key.shape[0]
     if n >= 1 << 31:
@@ -264,18 +265,18 @@ def insert_kernel(t_key, t_parent, key, parent, active, n_partitions=None,
                 + lib.visited_insert_error(err).decode()
             )
         if summary is None:
-            insert_kernel.launches += 1
+            launch_kernel.launches += 1
         else:
-            insert_kernel.bloom_launches += 1
+            launch_kernel.bloom_launches += 1
     else:
         overflow = torch.zeros(1, **empty)
     if summary is None:
-        return t_key, t_parent, is_new, overflow[0]
-    return t_key, t_parent, is_new, suspect, overflow[0]
+        return is_new, overflow
+    return is_new, suspect, overflow
 
 
-insert_kernel.launches = 0
-insert_kernel.bloom_launches = 0
+launch_kernel.launches = 0
+launch_kernel.bloom_launches = 0
 
 
 # -- the plain PyTorch version -----------------------------------------------
@@ -398,6 +399,95 @@ def lookup(t_key, t_parent, key, n_partitions=None):
     """Parent keys of `key` (int64[n]) in the table; 0 where absent."""
     slot = find_slots(t_key, key, n_partitions)
     return torch.where(slot >= 0, t_parent[slot.clamp(min=0)], torch.zeros_like(key))
+
+
+# -- the insert as a registered op ------------------------------------------
+#
+# Both forms are operators of their own, `stateright_tpu_torch::visited_insert`
+# and `::visited_insert_bloom`, so that a dispatch-mode recorder (the step
+# auditor, analysis/auditor.py), a profiler trace and a CUDA graph each see
+# one named op where the engines insert. The CUDA implementation is the
+# kernel's launch above, the CPU implementation the plain version; any
+# other device has no implementation, and neither falls back on the other.
+# An op may not return its inputs: the tables are declared mutated, the op
+# returns the new tensors only (overflow as bool[1]), and `insert_op` hands
+# back the engines' tuple. A `torch.library.Library` definition, not
+# `custom_op`, whose Python wrapper costs more host time a call.
+
+OP_NAMESPACE = "stateright_tpu_torch"
+_LIB = torch.library.Library(OP_NAMESPACE, "DEF")
+_LIB.define(
+    "visited_insert(Tensor(a!) t_key, Tensor(b!) t_parent, Tensor key, "
+    "Tensor parent, Tensor active, int? n_partitions) -> (Tensor, Tensor)"
+)
+_LIB.define(
+    "visited_insert_bloom(Tensor(a!) t_key, Tensor(b!) t_parent, Tensor key, "
+    "Tensor parent, Tensor active, int? n_partitions, Tensor summary, "
+    "int summary_log2, int hashes) -> (Tensor, Tensor, Tensor)"
+)
+
+
+def _op_cuda(t_key, t_parent, key, parent, active, n_partitions):
+    return launch_kernel(t_key, t_parent, key, parent, active, n_partitions, None, None)
+
+
+def _op_bloom_cuda(t_key, t_parent, key, parent, active, n_partitions, summary,
+                   summary_log2, hashes):
+    return launch_kernel(t_key, t_parent, key, parent, active, n_partitions, summary,
+                   (summary_log2, hashes))
+
+
+def _op_cpu(t_key, t_parent, key, parent, active, n_partitions):
+    _, _, is_new, overflow = insert_plain(t_key, t_parent, key, parent, active,
+                                          n_partitions)
+    return is_new, overflow.reshape(1)
+
+
+def _op_bloom_cpu(t_key, t_parent, key, parent, active, n_partitions, summary,
+                  summary_log2, hashes):
+    _, _, is_new, suspect, overflow = insert_plain(
+        t_key, t_parent, key, parent, active, n_partitions, summary,
+        (summary_log2, hashes))
+    return is_new, suspect, overflow.reshape(1)
+
+
+def _op_fake(t_key, t_parent, key, parent, active, n_partitions):
+    return torch.empty_like(active), active.new_empty(1)
+
+
+def _op_bloom_fake(t_key, t_parent, key, parent, active, n_partitions, summary,
+                   summary_log2, hashes):
+    return torch.empty_like(active), torch.empty_like(active), active.new_empty(1)
+
+
+_LIB.impl("visited_insert", _op_cuda, "CUDA")
+_LIB.impl("visited_insert", _op_cpu, "CPU")
+_LIB.impl("visited_insert_bloom", _op_bloom_cuda, "CUDA")
+_LIB.impl("visited_insert_bloom", _op_bloom_cpu, "CPU")
+torch.library.register_fake(f"{OP_NAMESPACE}::visited_insert", _op_fake, lib=_LIB)
+torch.library.register_fake(f"{OP_NAMESPACE}::visited_insert_bloom", _op_bloom_fake, lib=_LIB)
+_OPS = getattr(torch.ops, OP_NAMESPACE)
+#: the two registered ops (their OpOverloads, as a recorder sees them).
+VISITED_INSERT = _OPS.visited_insert.default
+VISITED_INSERT_BLOOM = _OPS.visited_insert_bloom.default
+
+
+def insert_op(t_key, t_parent, key, parent, active, n_partitions=None,
+              summary=None, summary_cfg=None):
+    """The insert through its registered op: the kernel for CUDA tensors,
+    the plain version for CPU tensors. Returns (t_key, t_parent, is_new,
+    overflow), or with a summary (t_key, t_parent, is_new, suspect,
+    overflow); the tables are updated in place."""
+    if summary is None:
+        if summary_cfg is not None:
+            raise ValueError("summary_cfg given without a summary")
+        is_new, overflow = VISITED_INSERT(t_key, t_parent, key, parent, active, n_partitions)
+        return t_key, t_parent, is_new, overflow[0]
+    if summary_cfg is None:
+        raise ValueError("a summary needs summary_cfg=(summary_log2, hashes)")
+    is_new, suspect, overflow = VISITED_INSERT_BLOOM(
+        t_key, t_parent, key, parent, active, n_partitions, summary, *summary_cfg)
+    return t_key, t_parent, is_new, suspect, overflow[0]
 
 
 # -- carrying tables across the two packages ---------------------------------

@@ -63,11 +63,11 @@ import torch
 
 from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
-from ..faults.ckptio import atomic_savez, load_latest
+from ..faults.ckptio import fenced_savez, load_latest
 from ..faults.plan import maybe_fault
 from ..knobs import FINISH_KINDS, STORE_KINDS, WARM_KINDS
-from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail
-from ..obs.calib import launch_scope, make_comparator
+# `calib` as a module: obs.calib imports the tensor package, which imports this.
+from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail, calib
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
@@ -240,6 +240,7 @@ def undo_chunk(eng) -> None:
     keys = torch.cat(claimed)
     slots = torch.cat([find_slots(c["t_key"], part) for part in keys.split(1 << 22)])
     if bool((slots < 0).any()):
+        # srlint: fault-ok the undo's invariant (a claimed key is in the table), not infra
         raise RuntimeError("undo of an aborted chunk: a claimed key is not in the table")
     c["t_key"].index_fill_(0, slots, 0)
     c["t_parent"].index_fill_(0, slots, 0)
@@ -389,6 +390,7 @@ class ResidentSearch:
         `tracer` (obs.Tracer) records host phases as Chrome trace spans."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
+            # srlint: fault-ok caller-contract guard (no CUDA device), not an I/O/device surface
             raise RuntimeError(
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the search on the CPU"
@@ -462,8 +464,9 @@ class ResidentSearch:
         self._metrics_name = REGISTRY.register("resident", self.metrics)
         # The calibration comparator (obs/calib.py): fed by the counter read
         # each chunk already makes; observes, never steers.
-        self._calib = (make_comparator("resident", model, batch_size, table_log2, self.device,
-                                       spill=store == "tiered") if telemetry else None)
+        self._calib = (calib.make_comparator("resident", model, batch_size, table_log2,
+                                             self.device, spill=store == "tiered")
+                       if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -630,7 +633,7 @@ class ResidentSearch:
         self.service_seconds = {}
         return n0, n_raw
 
-    def _should_continue(self, c, req, anym, target, max_steps):
+    def _should_continue(self, c, req, anym, target, max_steps):  # srlint: step-region
         d = c["discovered"]
         go = (c["head"] < c["tail"]) & (c["overflow"] == 0) & (c["steps"] < max_steps)
         if self.props:
@@ -643,7 +646,7 @@ class ResidentSearch:
             go &= c["gen"] < target
         return go
 
-    def _step(self, c, go, tmd: int) -> None:
+    def _step(self, c, go, tmd: int) -> None:  # srlint: step-region
         """One BFS step on the device (no host sync); a no-op unless `go`."""
         model, props = self.model, self.props
         K, A = self.batch_size, model.max_actions
@@ -717,6 +720,28 @@ class ResidentSearch:
             slot = c["steps"] % self._TMR
             c["tm_dev"].index_put_((go64.view(1), slot.view(1)), row.view(1, -1))
         c["steps"] = c["steps"] + go64
+
+    # -- static analysis -----------------------------------------------------
+
+    def audit_step(self):
+        """(step_fn, operands, host_slots) for the step auditor
+        (analysis/auditor.py): one step of the search under the default
+        finish policy, as a function of the carry's tensors. The operands
+        are a copy of the carry (seeded first when there is none), so an
+        audited step changes nothing here; `step_fn` returns the stepped
+        carry dict. The chunked dispatch re-uploads nothing per step
+        (host_slots empty)."""
+        if self._c is None:
+            self._seed()
+        names = tuple(self._c)
+        req, anym = _finish_masks(HasDiscoveries.ALL, self.props)
+
+        def step(*tensors):
+            c = dict(zip(names, tensors))
+            self._step(c, self._should_continue(c, req, anym, 0, 1 << 62), 0)
+            return c
+
+        return step, tuple(t.clone() for t in self._c.values()), ()
 
     # -- host entry ------------------------------------------------------------
 
@@ -899,7 +924,7 @@ class ResidentSearch:
                 self._calib.flush_records()
         return detail
 
-    def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:
+    def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:  # srlint: step-region
         """`n_steps` steps queued on the device with no host sync, after a
         snapshot of the carry's counters and discovery keys: the undo point
         of the chunk (one stack and one clone)."""
@@ -908,7 +933,7 @@ class ResidentSearch:
         for i in range(n_steps):
             # An engine's first step is counted for the calibration's
             # prediction (host only; obs/calib.py launch_scope).
-            with launch_scope(self._calib if i == 0 else None):
+            with calib.launch_scope(self._calib if i == 0 else None):
                 go = self._should_continue(c, req, anym, target, max_steps)
                 self._step(c, go, tmd)
 
@@ -978,6 +1003,7 @@ class ResidentSearch:
         the JAX queue's slack; the one exception, a queue abort in the
         service, needs a larger queue_log2 to load in either package."""
         if self._c is None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("nothing to checkpoint: run() has not been called")
         with self._tracer.span("checkpoint", cat="engine", path=path):
             return self._checkpoint(path)
@@ -1041,7 +1067,7 @@ class ResidentSearch:
             # refuse a resume that would hit the same wall.
             "abort_reason": self._last_abort,
         }).encode(), dtype=np.uint8)
-        return atomic_savez(path, arrays)
+        return fenced_savez(path, arrays)
 
     @classmethod
     def load_checkpoint(
@@ -1196,6 +1222,7 @@ class ResidentSearch:
 
     def _carry(self):
         if self._c is None:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("no search to read: run() has not been called")
         return self._c
 
@@ -1240,6 +1267,7 @@ class ResidentSearch:
         it has not scanned yet."""
         c = self._carry()
         if self._q_compacted:
+            # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError(
                 "dump_states is unavailable once the tiered store has "
                 "compacted the frontier queue (rows [0, tail) no longer "

@@ -376,3 +376,26 @@ def sharded_calib() -> dict:
     r = engine(tm.TensorTwoPhaseSys(3), batch_size=16, table_log2=12).run(budget=4)
     d = r.detail["calib"]
     return {"engine": d["engine"], "chunks": d["chunks"], "counts": summary(r)["counts"]}
+
+
+def audited_step_matches() -> bool:
+    """The step auditor on a rank (analysis/auditor.py): the audited step
+    of `audit_step()` against an unaudited one on the same copy of the
+    carry (the stepped carry each returns and the operands each leaves,
+    bit for bit), and the engine's own carry untouched. Every rank audits
+    together (the step holds collectives)."""
+    import torch
+
+    from stateright_tpu_torch.analysis.auditor import audit_fn
+
+    eng = engine(tm.TensorTwoPhaseSys(3), batch_size=64, table_log2=10)
+    eng.run(max_steps=3, budget=3)
+    before = {k: t.clone() for k, t in eng._c.items()}
+    fn, args, _ = eng.audit_step()
+    a, b = [t.clone() for t in args], [t.clone() for t in args]
+    rep = audit_fn(fn, tuple(a))
+    out_b = fn(*b)
+    return (rep.clean and rep.out.keys() == out_b.keys()
+            and all(torch.equal(rep.out[k], out_b[k]) for k in out_b)
+            and all(torch.equal(x, y) for x, y in zip(a, b))
+            and all(torch.equal(before[k], eng._c[k]) for k in before))

@@ -120,7 +120,8 @@ def test_jax_table_round_trip_and_probe():
 
 def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     # The dispatch keys on the tensor's device alone: a CUDA table goes to
-    # the kernel wrapper (here a stand-in, as this box has no card).
+    # the registered op (here a stand-in, as this box has no card), whose
+    # CUDA implementation is the kernel's launch and only that.
     from stateright_tpu_torch.tensor import inserts
 
     seen = []
@@ -131,14 +132,23 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     class FakeTable:
         device = FakeDevice()
 
-    monkeypatch.setattr(inserts, "insert_kernel", lambda *a: seen.append(("kernel", a[6])))
-    monkeypatch.setattr(inserts, "insert_plain", lambda *a: seen.append(("plain", a[6])))
+    monkeypatch.setattr(inserts, "insert_op", lambda *a: seen.append(("op", a[6])))
     insert = resolve_insert("pallas")
     insert(FakeTable(), None, None, None, None)
-    # The fused form goes to the same kernel, summary and all: never to the
+    # The fused form goes to the same op, summary and all: never to the
     # plain kernel followed by a separate probe.
     insert(FakeTable(), None, None, None, None, summary="words", summary_cfg=(14, 4))
+    assert seen == [("op", None), ("op", "words")]
+    seen.clear()
+    monkeypatch.setattr(ph, "launch_kernel", lambda *a: seen.append(("kernel", a[6])))
+    monkeypatch.setattr(ph, "insert_plain", lambda *a: seen.append(("plain", a[6])))
+    ph._op_cuda(*[None] * 6)
+    ph._op_bloom_cuda(*[None] * 6, "words", 14, 4)
     assert seen == [("kernel", None), ("kernel", "words")]
+    dump = torch._C._dispatch_dump(f"{ph.OP_NAMESPACE}::visited_insert")
+    assert "CUDA: registered" in dump and "CPU: registered" in dump
+    with pytest.raises(ValueError):
+        insert(type("MetaTable", (), {"device": torch.device("meta")})(), None, None, None, None)
     with pytest.raises(ValueError):
         resolve_insert("sort")
 
