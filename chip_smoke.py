@@ -270,7 +270,25 @@ seconds on a line of its own:
     steps) and of (c)'s paxos-3 steps and audited step, each part logged;
     the comparisons' calls are not counted. Phase 3 also times the
     insert through its registered op (`op_ms`) beside the bare kernel
-    launch (`op_direct_ms`).
+    launch (`op_direct_ms`). (d) `audit_fn` of a copy of a card tensor to
+    the host (`x.cpu() + 1`) reports exactly one `host-sync` (on the CPU
+    the copy is no op, so only the card can show it).
+23. host checkers and Explorer (checker/{bfs,dfs,on_demand}.py,
+    explorer/, tensor/adapter.py): (a) the host BFS of the host 2PC model
+    with 5 RMs (examples/two_phase_commit.py) on the card's host CPU gives
+    the generated and unique counts (58,146 / 8,832), depth and discovery
+    names of `TensorTwoPhaseSys(5)`'s `spawn_cuda()` on the card, and one
+    queue-head insert of that search is held against the plain version;
+    (b) the symmetric host DFS of 2PC with 7 RMs through the full-key
+    representative reaches the card's symmetric search's 920 unique
+    states; (c) `as_host_model(TensorTwoPhaseSys(3))` on the card behind
+    the host BFS, DFS and on-demand checkers: each 1,146 / 288, equal to
+    `spawn_cuda()`, every one-row expand on the card (counted), and the
+    host BFS's recorded rows equal the card `ResidentSearch.dump_states()`
+    set; (d) the Explorer served over HTTP on the card adapter: `/.status`,
+    `/.states/` and one child path equal a CPU adapter's JSON,
+    fingerprints included. Each part prints its seconds and counts; the
+    insert calls of (a)-(c)'s card searches are `launches_host`.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -4504,6 +4522,197 @@ def phase_analysis(ph, torch, chk):
                launch_parts=parts)
     log(f"[analysis] insert calls of the path (plain, fused): {counts()}; by part {parts}")
     assert out["launches"] > 0 and out["tiered_launches"] > 0, out
+    out["copy_sync"] = card_copy_is_one_host_sync(torch)
+    return out
+
+
+def card_copy_is_one_host_sync(torch):
+    """(d): a copy of a card tensor to the host is exactly one host-sync
+    finding (on the CPU `.cpu()` is no op at all, so only the card shows
+    it)."""
+    from stateright_tpu_torch.analysis.auditor import audit_fn
+
+    rep = audit_fn(lambda x: x.cpu() + 1, (torch.arange(8, device="cuda"),))
+    rules = [v.rule for v in rep.violations]
+    assert rules == ["host-sync"], [str(v) for v in rep.violations]
+    log(f"[analysis] (d) audit_fn of a card-to-host copy: {len(rules)} finding, "
+        f"{rep.violations[0]}")
+    return rules
+
+
+# -- phase 23: the host checkers and the Explorer ------------------------------------
+
+
+def full_key_rep(state):
+    """The full-key orbit representative of a host 2PC state: RMs sorted by
+    (state, prepared flag, prepared message), the messages renumbered — the
+    host twin of TensorTwoPhaseSys(n, symmetry=True)'s canonicalization."""
+    from stateright_tpu_torch.examples.two_phase_commit import TwoPhaseState
+
+    n = len(state.rm_state)
+    order = sorted(range(n), key=lambda i: (
+        state.rm_state[i], state.tm_prepared[i], ("prepared", i) in state.msgs))
+    inv = {old: new for new, old in enumerate(order)}
+    return TwoPhaseState(
+        rm_state=tuple(state.rm_state[i] for i in order),
+        tm_state=state.tm_state,
+        tm_prepared=tuple(state.tm_prepared[i] for i in order),
+        msgs=frozenset(("prepared", inv[m[1]]) if isinstance(m, tuple) else m
+                       for m in state.msgs),
+    )
+
+
+def counted_expands(model):
+    """Wrap `model.expand` to record the device of every call."""
+    devices = []
+    expand = model.expand
+
+    def counted(states):
+        devices.append(states.device)
+        return expand(states)
+
+    model.expand = counted
+    return devices
+
+
+def host_vs_card(ph, torch, chk):
+    """(a) host BFS of 2pc-5 against the card's search of the same system,
+    and one queue-head insert of that search held against the plain
+    version; (b) symmetric host DFS of 2pc-7 against the card's symmetric
+    search."""
+    from stateright_tpu_torch.examples.two_phase_commit import TwoPhaseSys
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    out = {}
+    t0 = time.monotonic()
+    host = TwoPhaseSys(5).checker().spawn_bfs().join()
+    host_s = time.monotonic() - t0
+    n0 = ph.launch_kernel.launches
+    t0 = time.monotonic()
+    card = TensorTwoPhaseSys(5).checker().spawn_cuda(batch_size=2048, table_log2=16).join()
+    card_s = time.monotonic() - t0
+    got = [(c.state_count(), c.unique_state_count(), c.max_depth(), sorted(c.discoveries()))
+           for c in (host, card)]
+    assert got[0] == got[1] and got[0][:2] == (58_146, 8_832), got
+    with quiet_launches(ph):  # a comparison's kernel calls, not the path's
+        rs = ResidentSearch(TensorTwoPhaseSys(5), 2048, 16)
+        rs.run(max_steps=3)
+        queue_head_vs_plain(torch, chk, "[host] (a)", rs)
+    del rs
+    out["a"] = dict(host_s=host_s, card_s=card_s, launches=ph.launch_kernel.launches - n0)
+    log(f"[host] (a) 2pc-5 host BFS: generated={got[0][0]} unique={got[0][1]} "
+        f"depth={got[0][2]} in {host_s:.3f} s; the card's spawn_cuda the same, discoveries "
+        f"{got[1][3]}, in {card_s:.3f} s with {out['a']['launches']} insert calls")
+    t0 = time.monotonic()
+    host = TwoPhaseSys(7).checker().symmetry_fn(full_key_rep).spawn_dfs().join()
+    host_s = time.monotonic() - t0
+    host.assert_properties()
+    n0 = ph.launch_kernel.launches
+    t0 = time.monotonic()
+    card = TensorTwoPhaseSys(7, symmetry=True).checker().spawn_cuda(
+        batch_size=2048, table_log2=18).join()
+    card_s = time.monotonic() - t0
+    assert host.unique_state_count() == card.unique_state_count() == 920, (
+        host.unique_state_count(), card.unique_state_count())
+    assert set(host.discoveries()) == set(card.discoveries())
+    out["b"] = dict(host_s=host_s, card_s=card_s, launches=ph.launch_kernel.launches - n0)
+    log(f"[host] (b) 2pc-7 symmetric host DFS (full-key representative): "
+        f"generated={host.state_count()} unique={host.unique_state_count()} in {host_s:.3f} s; "
+        f"the card's symmetric search unique={card.unique_state_count()} in {card_s:.3f} s "
+        f"with {out['b']['launches']} insert calls")
+    return out
+
+
+def adapter_on_card(ph, torch):
+    """(c) the host checkers over `as_host_model(TensorTwoPhaseSys(3))`, its
+    one-row expands on the card, against the card's search; the host BFS's
+    recorded rows against the card engine's dump."""
+    from stateright_tpu_torch import StateRecorder
+    from stateright_tpu_torch.tensor import as_host_model
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    n0 = ph.launch_kernel.launches
+    t0 = time.monotonic()
+    card = TensorTwoPhaseSys(3).checker().spawn_cuda(table_log2=12).join()
+    rs = ResidentSearch(TensorTwoPhaseSys(3), 256, 14)
+    assert rs.run().complete
+    dump = set(rs.dump_states(decode=False))
+    card_s = time.monotonic() - t0
+    want = (card.state_count(), card.unique_state_count())
+    assert want == (1_146, 288) and len(dump) == 288, (want, len(dump))
+    parts, rec = {}, StateRecorder()
+    for spawn in ("spawn_bfs", "spawn_dfs", "spawn_on_demand"):
+        tm = TensorTwoPhaseSys(3)
+        devices = counted_expands(tm)
+        adapter = as_host_model(tm)
+        assert adapter.device.type == "cuda", adapter.device
+        b = adapter.checker()
+        if spawn == "spawn_bfs":
+            b = b.visitor(rec)
+        t0 = time.monotonic()
+        c = getattr(b, spawn)().join()
+        sec = time.monotonic() - t0
+        assert (c.state_count(), c.unique_state_count()) == want, (spawn, c.state_count())
+        assert set(c.discoveries()) == set(card.discoveries()), spawn
+        assert devices and {d.type for d in devices} == {"cuda"}, (spawn, set(devices))
+        parts[spawn] = dict(sec=sec, expands=len(devices))
+        log(f"[host] (c) adapter {spawn}: generated={want[0]} unique={want[1]} in {sec:.3f} s, "
+            f"{len(devices)} one-row expands, all on {sorted({str(d) for d in devices})}")
+    states = {tuple(s) for s in rec.states}
+    assert len(rec.states) == 288 and states == dump, (len(rec.states), len(states ^ dump))
+    log(f"[host] (c) the host BFS's 288 recorded rows equal the card ResidentSearch's "
+        f"dump_states() set; the card's searches took {card_s:.3f} s")
+    return dict(parts, card_s=card_s, launches=ph.launch_kernel.launches - n0)
+
+
+def explorer_on_card(torch):
+    """(d) the Explorer over HTTP on a card adapter against the same views
+    from a CPU adapter, fingerprints included."""
+    from stateright_tpu_torch.tensor import as_host_model
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    t0 = time.monotonic()
+    servers = [as_host_model(TensorTwoPhaseSys(3), device=d).checker().serve("localhost:0")
+               for d in ("cuda", "cpu")]
+    try:
+        bases = [f"http://{srv.address}" for srv in servers]
+        status = [http_json(b, "/.status") for b in bases]
+        init = [http_json(b, "/.states/") for b in bases]
+        fp = init[0][0]["fingerprint"]
+        child = [http_json(b, f"/.states/{fp}") for b in bases]
+        assert status[0] == status[1] and init[0] == init[1] and child[0] == child[1], (
+            status, init, child)
+        assert len(init[0]) == 1 and "working" in init[0][0]["state"]
+        assert all(v["fingerprint"] for v in child[0]) and len(child[0]) == 7, child[0]
+    finally:
+        for srv in servers:
+            srv.shutdown()
+    sec = time.monotonic() - t0
+    log(f"[host] (d) Explorer on the card adapter: /.status, /.states/ and /.states/{fp} "
+        f"equal the CPU adapter's JSON ({len(child[0])} child views, fingerprints included) "
+        f"in {sec:.3f} s")
+    return dict(sec=sec)
+
+
+def phase_host(ph, torch, chk):
+    """The host checkers and the Explorer (see the module docstring, phase
+    23). The insert calls counted are those of the card searches of
+    (a)-(c); the queue-head comparison's are not."""
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
+    out = {}
+    for name, fn, args in (("ab", host_vs_card, (ph, torch, chk)),
+                           ("c", adapter_on_card, (ph, torch)),
+                           ("d", explorer_on_card, (torch,))):
+        t0 = time.monotonic()
+        out[name] = fn(*args)
+        log(f"[host] ({name}) wall {time.monotonic() - t0:.1f} s")
+    out["launches"] = ph.launch_kernel.launches
+    assert out["launches"] > 0 and ph.launch_kernel.bloom_launches == 0, out
+    log(f"[host] insert calls of (a)-(c)'s card searches: {out['launches']} (a: "
+        f"{out['ab']['a']['launches']}, b: {out['ab']['b']['launches']}, c: "
+        f"{out['c']['launches']})")
     return out
 
 
@@ -4578,6 +4787,7 @@ def main() -> int:
     remote = phase(20, "fleet across processes", phase_remote, ph, torch, chk, service)
     sup = phase(21, "supervisor and calibration", phase_supervisor, ph, torch, chk, paxos3)
     audit = phase(22, "static analysis", phase_analysis, ph, torch, chk)
+    host = phase(23, "host checkers and Explorer", phase_host, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -4603,6 +4813,7 @@ def main() -> int:
         "launches_fleet_remote": remote["launches"],
         "launches_supervised": sup["a"]["launches"],
         "launches_audit": audit["launches"],
+        "launches_host": host["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

@@ -1,7 +1,10 @@
 """stateright_tpu_torch — the PyTorch/CUDA port of the stateright_tpu model
 checker, for NVIDIA Hopper cards.
 
-The port runs the breadth-first device search: a `TensorModel`'s
+The host checkers of the reference run a plain `Model` on the host
+(`Model.checker()`: `spawn_bfs`, `spawn_dfs`, `spawn_on_demand`,
+`spawn_simulation()`, and the Explorer web UI through `serve`); they import
+no torch. The port runs the breadth-first device search: a `TensorModel`'s
 `checker().spawn_cuda()` starts it on the CUDA card (or on the CPU with
 `device="cpu"`), with the visited-set insert as a hand-written CUDA kernel
 (csrc/visited_insert.cu), in the resident engine or, with
@@ -13,33 +16,53 @@ tensor/paxos.py, with symmetry reduction through a model's
 `representative`. Any bounded actor system (actor/, with the consistency
 testers of semantics/ as its history) lowers to a tensor model through
 `tensor.lower_actor_model` or `tensor.refine_check` and is checked the same
-way. It imports torch, never jax, and nothing of the stateright_tpu
-package.
+way, and `tensor.as_host_model` puts a tensor model behind the host
+checkers and the Explorer, its expands on the card. It imports torch, never
+jax, and nothing of the stateright_tpu package.
 """
 
-from .core.discovery import HasDiscoveries
-from .core.model import Expectation
+from .core.model import Model, Property, Expectation
+from .core.fingerprint import fingerprint, fingerprint_bytes, stable_encode
 from .core.path import Path
-from .core.report import ReportData, Reporter, WriteReporter
+from .core.visitor import CheckerVisitor, PathRecorder, StateRecorder
+from .core.report import Reporter, WriteReporter, ReportData
+from .core.discovery import HasDiscoveries
+from .checker.builder import CheckerBuilder
+from .checker.base import Checker
 
 
 def __getattr__(name):
-    # The tensor model imports torch; the host-only modules (the knob
-    # registry, the lint pass of analysis/) load without it.
+    # Lazy: the tensor model and the check service import torch; a
+    # host-only user (a plain `Model` on the host checkers) and the lint
+    # pass of analysis/ load without it.
     if name in ("TensorModel", "TensorProperty"):
         from .tensor import model
 
         return getattr(model, name)
+    if name in ("CheckService", "JobHandle", "ServiceChecker"):
+        from . import service
+
+        return getattr(service, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = [
+    "Model",
+    "Property",
     "Expectation",
-    "HasDiscoveries",
+    "fingerprint",
+    "fingerprint_bytes",
+    "stable_encode",
     "Path",
-    "ReportData",
+    "CheckerVisitor",
+    "PathRecorder",
+    "StateRecorder",
     "Reporter",
+    "WriteReporter",
+    "ReportData",
+    "HasDiscoveries",
+    "CheckerBuilder",
+    "Checker",
     "TensorModel",
     "TensorProperty",
-    "WriteReporter",
 ]

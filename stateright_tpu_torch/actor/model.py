@@ -1,14 +1,14 @@
 """`ActorModel`: lowers an actor system + network + timers + crashes + random
 choices + history into the generic `Model` interface — the bridge that makes
 actor systems checkable (ref: src/actor/model.rs). The port's copy of the
-JAX package's `actor/model.py`, without the symmetry representative of a
-host state and the SVG sequence diagram (neither is on the lowering's path).
+JAX package's `actor/model.py`, without the SVG sequence diagram of a path
+(`as_svg` is the host `Model`'s None until the actor runtime is ported).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 from ..core.model import Expectation, Model, Property
 from . import (
@@ -143,6 +143,22 @@ class ActorModelState:
                 (self.actor_states, self.history, self.timers_set, self.network)
             )
         return h
+
+    def representative(self) -> "ActorModelState":
+        """Canonical member of this state's symmetry equivalence class: sort
+        actor states, then rewrite every Id accordingly
+        (ref: src/actor/model_state.rs:163-182)."""
+        from ..symmetry import RewritePlan, rewrite
+
+        plan = RewritePlan.from_values_to_sort(self.actor_states)
+        return ActorModelState(
+            actor_states=plan.reindex(self.actor_states),
+            network=rewrite(self.network, plan),
+            timers_set=plan.reindex(self.timers_set),
+            random_choices=plan.reindex(self.random_choices),
+            crashed=plan.reindex(self.crashed),
+            history=rewrite(self.history, plan),
+        )
 
     def __repr__(self) -> str:
         return (
@@ -399,3 +415,50 @@ class ActorModel(Model):
 
     def within_boundary(self, state: ActorModelState) -> bool:
         return self.within_boundary_(self.cfg, state)
+
+    # -- display (ref: src/actor/model.rs:428-548) -----------------------------
+
+    def format_action(self, action) -> str:
+        if isinstance(action, Deliver):
+            return f"{action.src!r} → {action.msg!r} → {action.dst!r}"
+        if isinstance(action, SelectRandom):
+            return f"{action.actor!r} select random {action.random!r}"
+        return repr(action)
+
+    def format_step(self, last_state: ActorModelState, action) -> Optional[str]:
+        if isinstance(action, DropEnv):
+            return f"DROP: {action.envelope!r}"
+        if isinstance(action, Crash):
+            index = int(action.id)
+            if index >= len(last_state.actor_states):
+                return None
+            return f"CRASH: {last_state.actor_states[index]!r}"
+        handlers = {
+            Deliver: lambda s, o: self.actors[int(action.dst)].on_msg(
+                action.dst, s, action.src, action.msg, o
+            ),
+            Timeout: lambda s, o: self.actors[int(action.id)].on_timeout(
+                action.id, s, action.timer, o
+            ),
+            SelectRandom: lambda s, o: self.actors[int(action.actor)].on_random(
+                action.actor, s, action.random, o
+            ),
+        }
+        handler = handlers.get(type(action))
+        if handler is None:
+            return None
+        target = action.dst if isinstance(action, Deliver) else (
+            action.id if isinstance(action, Timeout) else action.actor
+        )
+        index = int(target)
+        if index >= len(last_state.actor_states):
+            return None
+        last_actor_state = last_state.actor_states[index]
+        out = Out()
+        next_actor_state = handler(last_actor_state, out)
+        lines = [f"OUT: {out!r}", ""]
+        if next_actor_state is not None:
+            lines += [f"NEXT_STATE: {next_actor_state!r}", "", f"PREV_STATE: {last_actor_state!r}"]
+        else:
+            lines.append(f"UNCHANGED: {last_actor_state!r}")
+        return "\n".join(lines)

@@ -60,6 +60,13 @@ class Network:
         return n
 
     @staticmethod
+    def new_unordered_duplicating_with_last_msg(
+        envelopes=(), last_msg: Optional[Envelope] = None
+    ) -> "Network":
+        n = Network.new_unordered_duplicating(envelopes)
+        return Network(UNORDERED_DUPLICATING, n._data, last_msg)
+
+    @staticmethod
     def new_unordered_nonduplicating(envelopes=()) -> "Network":
         n = Network(UNORDERED_NONDUPLICATING, {})
         for env in envelopes:
@@ -164,6 +171,38 @@ class Network:
         else:
             del data[key]  # canonicalize: no empty flows
         return Network(self.kind, data, self.last_msg)
+
+    def __rewrite__(self, plan) -> "Network":
+        """Apply a symmetry rewrite plan to every envelope
+        (ref: src/actor/network.rs:333-348)."""
+        from ..symmetry import rewrite
+
+        if self.kind == ORDERED:
+            n = Network(self.kind, {})
+            for (src, dst) in sorted(self._data):
+                key = (plan.rewrite_id(src), plan.rewrite_id(dst))
+                n._data[key] = tuple(rewrite(m, plan) for m in self._data[(src, dst)])
+            return n
+        n = Network(self.kind, {})
+        for env in self._data:
+            new_env = Envelope(
+                plan.rewrite_id(env.src), plan.rewrite_id(env.dst), rewrite(env.msg, plan)
+            )
+            if self.kind == UNORDERED_DUPLICATING:
+                n._data[new_env] = None
+            else:
+                n._data[new_env] = n._data.get(new_env, 0) + self._data[env]
+        if self.kind == UNORDERED_DUPLICATING:
+            n.last_msg = (
+                None
+                if self.last_msg is None
+                else Envelope(
+                    plan.rewrite_id(self.last_msg.src),
+                    plan.rewrite_id(self.last_msg.dst),
+                    rewrite(self.last_msg.msg, plan),
+                )
+            )
+        return n
 
     # -- identity --------------------------------------------------------------
 

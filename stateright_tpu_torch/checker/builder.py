@@ -1,13 +1,25 @@
 """Checker configuration builder (ref: src/checker.rs:65-288).
 
-Instantiated via `TensorModel.checker()`; fluent config, then `spawn_cuda()`
-starts the batched device search (or, with `mode="simulation"`, the device
-random walks), and `spawn_service(service)` submits the check as a job of a
-shared check service, each behind the standard `Checker` interface.
+Instantiated via `Model.checker()` or `TensorModel.checker()`; fluent
+config, then one of the spawns, each behind the standard `Checker`
+interface. A host `Model` runs on the host checkers of the reference
+(`spawn_bfs`, `spawn_dfs`, `spawn_on_demand`, `spawn_simulation()`) or
+behind the Explorer (`serve`); a `TensorModel` runs the batched device
+search (`spawn_cuda()`, or with `mode="simulation"` the device random
+walks), or is submitted as a job of a shared check service
+(`spawn_service(service)`). `tensor/adapter.py::as_host_model` puts a
+tensor model behind the host checkers too.
+
+Memory note: consistency-tester properties (linearizability / sequential
+consistency) memoize serialization verdicts in bounded process-global caches
+that retain tester histories after a run completes; a long-lived process
+checking many unrelated models can call
+`semantics.clear_serialization_caches()` between runs to release them.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 from ..core.discovery import HasDiscoveries
@@ -28,9 +40,9 @@ class CheckerBuilder:
 
     def symmetry(self) -> "CheckerBuilder":
         """Symmetry reduction through the state's `representative()`
-        (ref: src/checker.rs:222-227). A host-level callable: the device
-        checkers refuse it; a tensor model reduces through its
-        `representative` instead."""
+        (ref: src/checker.rs:222-227). A host-level callable, honored by
+        the DFS and simulation checkers; the device checkers refuse it, and
+        a tensor model reduces through its `representative` instead."""
         return self.symmetry_fn(lambda state: state.representative())
 
     def symmetry_fn(self, representative: Callable) -> "CheckerBuilder":
@@ -65,9 +77,37 @@ class CheckerBuilder:
         """Record the spawned search's host phases (chunks of steps, the
         tiered store's service, checkpoints) as Chrome trace-event JSON at
         `path`, viewable in Perfetto (obs/trace.py). Honored by
-        `spawn_cuda()`'s search mode."""
+        `spawn_cuda()`'s search mode; the host checkers ignore it."""
         self.trace_out_ = path
         return self
+
+    @property
+    def close_at(self) -> Optional[float]:
+        return None if self.timeout_ is None else time.monotonic() + self.timeout_
+
+    # -- the host checkers (ref: src/checker.rs:144-217) -----------------------
+
+    def spawn_bfs(self):
+        from .bfs import BfsChecker
+
+        return BfsChecker(self)
+
+    def spawn_dfs(self):
+        from .dfs import DfsChecker
+
+        return DfsChecker(self)
+
+    def spawn_on_demand(self):
+        from .on_demand import OnDemandChecker
+
+        return OnDemandChecker(self)
+
+    def serve(self, address: str = "localhost:3000", block: bool = False):
+        """Start the Explorer web service over an on-demand check
+        (ref: src/checker.rs:144-151)."""
+        from ..explorer.server import serve
+
+        return serve(self, address, block=block)
 
     def spawn_cuda(self, mode: str = "search", **kwargs):
         """Spawn a batched device checker. It runs on the CUDA card unless
@@ -158,24 +198,24 @@ class CheckerBuilder:
 
     def spawn_simulation(self, seed: int = 0, chooser=None, device=False, **kwargs):
         """Spawn the random-simulation checker (ref: src/checker/simulation.rs).
-        `device=True` runs the device walk engine (tensor/simulation.py) on
-        the CUDA card (raising without one), and `device="cuda"` or
-        `device="cpu"` on that torch device; `kwargs` go to
-        `DeviceSimulation` (traces, max_depth, dedup, cycle_log2, ring,
-        table_log2, walks, stale_limit, continuous, telemetry).
-        `device=False` is the host walker, which this package does not have
-        yet (ROADMAP A17): it raises NotImplementedError, and device knobs
-        without a device raise TypeError."""
+        `device=False` (the default) runs the host walker over a host
+        `Model`, on `chooser` (a `UniformChooser` when None) and the
+        builder's thread count. `device=True` runs the device walk engine
+        (tensor/simulation.py) over a `TensorModel` on the CUDA card
+        (raising without one), and `device="cuda"` or `device="cpu"` on that
+        torch device; `kwargs` go to `DeviceSimulation` (traces, max_depth,
+        dedup, cycle_log2, ring, table_log2, walks, stale_limit, continuous,
+        telemetry). Device options without a device raise TypeError, and a
+        chooser with one ValueError."""
         if device is False:
+            from .simulation import SimulationChecker, UniformChooser
+
             if kwargs:
                 raise TypeError(
                     f"options {sorted(kwargs)} require the device engine "
                     "(spawn_simulation(device=True, ...))"
                 )
-            raise NotImplementedError(
-                "the host simulation walker is not ported yet (ROADMAP A17); "
-                "pass device=True for the device engine"
-            )
+            return SimulationChecker(self, seed, chooser or UniformChooser())
         if chooser is not None:
             raise ValueError(
                 "chooser is a host-walker hook; the device engine draws from "

@@ -1,19 +1,16 @@
-"""Property expectations and the host `Model` (ref: src/lib.rs:152-338).
+"""The `Model` abstraction: a nondeterministic transition system plus properties.
 
-The port's copy of what the device checker and the actor lowering need
-from the host model module: how a property's condition relates to
-discoveries, the named-predicate record, and the `Model` base that
-`actor/model.py::ActorModel` subclasses (the lowering's exact closure walks
-a host model breadth-first through `actions` / `next_state`). The host
-checkers themselves are not part of the port, so a host model has no
-`checker()` here: lower it (tensor/lowering.py) and check that.
+Mirrors the reference's core trait (ref: src/lib.rs:152-338): implementations
+define initial states, the actions available in a state, a (possibly ignored)
+transition per action, named properties with always/sometimes/eventually
+expectations, and an optional search boundary.
 """
 
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass
-from typing import Any, Callable, Generic, TypeVar
+from dataclasses import dataclass, field
+from typing import Any, Callable, Generic, Iterable, Optional, TypeVar
 
 State = TypeVar("State")
 Action = TypeVar("Action")
@@ -84,3 +81,76 @@ class Model(Generic[State, Action]):
         """Search boundary: states outside it are not expanded
         (ref: src/lib.rs:245)."""
         return True
+
+    # -- display hooks (ref: src/lib.rs:176-196) ------------------------------
+
+    def format_action(self, action) -> str:
+        return repr(action)
+
+    def format_step(self, last_state, action) -> Optional[str]:
+        """Human-readable outcome of taking `action` in `last_state`, or None if
+        the action is ignored."""
+        next_state = self.next_state(last_state, action)
+        return None if next_state is None else repr(next_state)
+
+    def as_svg(self, path) -> Optional[str]:
+        """Optional SVG visualization of a path (sequence diagrams for actor
+        models; ref: src/lib.rs:194-196)."""
+        return None
+
+    # -- helpers (ref: src/lib.rs:199-224) ------------------------------------
+
+    def next_steps(self, state) -> list:
+        """All (action, next_state) pairs from `state`, ignored actions elided."""
+        acts: list = []
+        self.actions(state, acts)
+        steps = []
+        for a in acts:
+            ns = self.next_state(state, a)
+            if ns is not None:
+                steps.append((a, ns))
+        return steps
+
+    def next_states(self, state) -> list:
+        return [ns for _, ns in self.next_steps(state)]
+
+    def property_by_name(self, name: str) -> Property:
+        for p in self.properties():
+            if p.name == name:
+                return p
+        raise KeyError(f"no property named {name!r}")
+
+    def checker(self):
+        """Begin configuring a checker run (ref: src/lib.rs:250-257)."""
+        from ..checker.builder import CheckerBuilder
+
+        return CheckerBuilder(self)
+
+
+@dataclass
+class FnModel(Model):
+    """A model from plain functions — the reference implements `Model` for
+    `fn(Option<&T>, &mut Vec<T>)` generators (ref: src/test_util.rs:118-137);
+    this is the explicit equivalent, handy for tests and quick experiments."""
+
+    init: Callable[[], Iterable]
+    step: Callable[[Any], Iterable]  # state -> iterable of successor states
+    props: list[Property] = field(default_factory=list)
+    boundary: Optional[Callable[[Any], bool]] = None
+
+    def init_states(self) -> list:
+        return list(self.init())
+
+    def actions(self, state, actions: list) -> None:
+        # The "action" is the index of the chosen successor.
+        actions.extend(range(len(list(self.step(state)))))
+
+    def next_state(self, state, action):
+        succs = list(self.step(state))
+        return succs[action] if action < len(succs) else None
+
+    def properties(self) -> list[Property]:
+        return self.props
+
+    def within_boundary(self, state) -> bool:
+        return True if self.boundary is None else self.boundary(state)

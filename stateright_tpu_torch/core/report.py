@@ -15,6 +15,7 @@ from typing import Optional, TextIO
 class ReportData:
     """Snapshot of checker progress (ref: src/report.rs:10-21). `rate` is
     states/sec over the last reporting window, None on the first tick;
+    `fill` the visited-table fill fraction when the checker reports one;
     `drift` the calibration comparator's measured/predicted step cost
     (obs/calib.py), None until a chunk closes or with calibration off."""
 
@@ -24,6 +25,7 @@ class ReportData:
     duration: float  # seconds
     done: bool
     rate: Optional[float] = None
+    fill: Optional[float] = None
     drift: Optional[float] = None
 
 
@@ -61,6 +63,8 @@ class WriteReporter(Reporter):
             )
             if data.rate is not None:
                 line += f", rate={data.rate:.0f}"
+            if data.fill is not None:
+                line += f", fill={100.0 * data.fill:.1f}%"
             if data.drift is not None:
                 line += f", drift={data.drift:.2f}"
             self.stream.write(line + "\n")
@@ -72,3 +76,4 @@ class WriteReporter(Reporter):
             self.stream.write(f'Discovered "{name}" {classification} {path}')
             self.stream.write(f"Fingerprint path: {path.encode()}\n")
         self.stream.flush()
+

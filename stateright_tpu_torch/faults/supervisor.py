@@ -400,6 +400,12 @@ class Supervisor:
                 self.engine_kwargs["high_water"] = max(hw - 0.15, 0.3)
             else:
                 self.engine_kwargs["store"] = "tiered"
+            # The engine refuses a tiered store whose table, less one
+            # step's claims, leaves no room above the low-water mark: grow
+            # the table until it fits rather than build an engine that must
+            # raise.
+            while not self._tiered_fits():
+                self._table_log2 += 1
             # A store change cannot ride a resume (the store travels in the
             # checkpoint's meta): restart fresh.
             self._drop_checkpoint()
@@ -407,6 +413,23 @@ class Supervisor:
             # Recorded, and the retries start fresh as the JAX rung's do;
             # the next engine keeps the caller's device (no fallback).
             self._drop_checkpoint()
+
+    def _tiered_fits(self) -> bool:
+        """Whether the resident or frontier engine accepts a tiered store at
+        the current batch and table size (their constructors' check:
+        min(high-water slots, S - batch x max_actions) above the low-water
+        slots). The sharded engine's bound is per receive batch; it is left
+        to that engine."""
+        if self.engine == "sharded":
+            return True
+        from ..store.tiered import TieredConfig
+
+        kw = self.engine_kwargs
+        cfg = TieredConfig(**{k: kw[k] for k in ("high_water", "low_water") if k in kw})
+        S = 1 << self._table_log2
+        claims = self._batch * self.model.max_actions
+        high = max(int(cfg.high_water * S), 1)
+        return min(high, S - claims) > int(cfg.resolved_low_water() * S)
 
     def _drop_checkpoint(self) -> None:
         if self.ckpt is None:

@@ -81,6 +81,14 @@ def world_of_2() -> dict:
     return out
 
 
+def dump_2pc3() -> list:
+    """Every rank's `dump_states` of a sharded 2pc-3 search (a collective:
+    the union of the shards' queues)."""
+    ss = engine(tm.TensorTwoPhaseSys(3), batch_size=64, table_log2=12)
+    assert ss.run(budget=4).complete
+    return ss.dump_states(decode=False)
+
+
 def world_of_1() -> dict:
     return {"2pc4": two_pc(4, 128, 13)}
 

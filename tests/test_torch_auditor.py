@@ -107,16 +107,10 @@ def test_fixture_verdicts_match_the_jax_auditor(name, fn, text):
 
 def test_cpu_copy_leaves_no_op():
     # On the CPU `.cpu()` is no op at all, so the copy half of host-sync
-    # can fire only on the card (chip_smoke.py phase 22 audits there).
+    # can fire only on the card: chip_smoke.py phase 22 asserts there that
+    # a card-to-host copy is exactly one host-sync.
     rep = audit_fn(lambda x: x.cpu() + 1, (torch.arange(8),))
     assert rep.clean and "aten._to_copy" not in rep.totals.ops
-
-
-@pytest.mark.cuda
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA card")
-def test_card_to_host_copy_is_a_host_sync():
-    rep = audit_fn(lambda x: x.cpu() + 1, (torch.arange(8, device="cuda"),))
-    assert [v.rule for v in rep.violations] == ["host-sync"]
 
 
 def test_data_dependent_shape_is_a_host_sync():

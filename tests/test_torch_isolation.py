@@ -395,3 +395,34 @@ def test_replica_processes_run_without_jax(tmp_path):
     lines = [ln for ln in log.splitlines() if ln.startswith(("REPLICA_READY", "REPLICA_EXIT"))]
     assert [ln.split()[0] for ln in lines] == ["REPLICA_READY", "REPLICA_EXIT"], log
     assert all(ln.endswith("foreign_modules=[]") for ln in lines), lines
+
+
+def test_host_checkers_load_neither_torch_nor_jax():
+    """A plain host `Model` on the host checkers and the Explorer loads no
+    torch (the tensor model stays a lazy import) and nothing of jax."""
+    code = (
+        "import json, sys, urllib.request\n"
+        "import stateright_tpu_torch as sr\n"
+        "from stateright_tpu_torch.fixtures import LinearEquation\n"
+        "from stateright_tpu_torch.examples.two_phase_commit import TwoPhaseSys\n"
+        "m = LinearEquation(2, 10, 14)\n"
+        "assert m.checker().spawn_bfs().join().unique_state_count() == 12\n"
+        "assert m.checker().spawn_dfs().join().unique_state_count() == 55\n"
+        "assert m.checker().spawn_simulation(7).join().state_count() == 4\n"
+        "c = TwoPhaseSys(3).checker().symmetry().spawn_on_demand().join()\n"
+        "assert c.unique_state_count() == 288\n"
+        "srv = TwoPhaseSys(3).checker().serve('localhost:0')\n"
+        "v = json.loads(urllib.request.urlopen('http://' + srv.address + '/.states/').read())\n"
+        "srv.shutdown()\n"
+        "assert len(v) == 1 and sr.Model and sr.CheckerBuilder\n"
+        "bad = [m for m in sys.modules if m in ('torch', 'jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('torch.', 'jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -126,5 +126,12 @@ def test_spawn_simulation_device_and_spawn_cuda_mode():
     with pytest.raises(TypeError):
         # device knobs without a device are refused, not ignored
         pm.TensorTwoPhaseSys(3).checker().spawn_simulation(dedup="shared")
-    with pytest.raises(NotImplementedError, match="A17"):
-        pm.TensorTwoPhaseSys(3).checker().spawn_simulation()
+    # device=False is the host walker, over host models: a tensor model
+    # goes behind it through as_host_model, its expands on the adapter's
+    # device.
+    from stateright_tpu_torch.checker.simulation import SimulationChecker
+    from stateright_tpu_torch.tensor import as_host_model
+
+    h = (as_host_model(pm.TensorTwoPhaseSys(3), device="cpu").checker()
+         .target_state_count(200).spawn_simulation(5).join())
+    assert isinstance(h, SimulationChecker) and h.state_count() >= 200

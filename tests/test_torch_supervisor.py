@@ -369,6 +369,41 @@ def test_targeted_regrow_after_table_full(tmp_path):
     assert f["retries"] >= 1 and f["restores"] >= 1 and f["injected_total"] == 0
 
 
+def test_tiered_rung_regrows_a_table_too_small_for_spilling(tmp_path, monkeypatch):
+    # Six faults walk 2pc-5 down the ladder. Its batch of 2048 halves to
+    # 1024 on the shrink_batch rung; at the tiered rung 2^16 slots less one
+    # step's claims (1024 x 27) leave no room above the low-water mark.
+    # The JAX supervisor builds that engine, whose constructor raises
+    # ValueError, and the run ends; the port's regrows the table to 2^17
+    # first and reaches the golden.
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    spec = "seed=23;engine.step:oom:times=6"
+    cfg = dict(backoff_base_s=0.0, checkpoint_every_steps=8, retries_per_rung=2,
+               max_retries=10, seed=7)
+    ekw = dict(batch_size=2048, table_log2=16)
+    with pytest.raises(ValueError, match="too small for tiered spilling"):
+        jax_run_supervised(jm.TensorTwoPhaseSys(5), engine="resident",
+                           plan=JaxPlan.from_env(spec), config=JaxConfig(**cfg),
+                           checkpoint_path=str(tmp_path / "jax.npz"), engine_kwargs=ekw)
+    built = []
+    orig = Supervisor._build
+
+    def build(self):
+        eng = orig(self)
+        built.append((eng.batch_size, eng.table_log2, eng.store))
+        return eng
+
+    monkeypatch.setattr(Supervisor, "_build", build)
+    r = run_supervised(pm.TensorTwoPhaseSys(5), engine="resident", plan=FaultPlan.from_env(spec),
+                       config=SupervisorConfig(**cfg), checkpoint_path=str(tmp_path / "port.npz"),
+                       engine_kwargs=dict(ekw, device="cpu"))
+    f = r.detail["faults"]
+    assert (r.state_count, r.unique_state_count) == (58_146, 8_832) and r.complete
+    assert f["degrade_rung"] == 3 and f["degrade_steps"] == 3 and f["injected_total"] == 6
+    assert built[0] == (2048, 16, "device")
+    assert (1024, 16, "tiered") not in built and built[-1] == (1024, 17, "tiered")
+
+
 def test_builder_run_supervised_and_store_append_fault(tmp_path):
     plan = FaultPlan(seed=2).rule("store.append", "io", times=1)
     r = pm.TensorTwoPhaseSys(3).checker().run_supervised(
