@@ -289,6 +289,34 @@ seconds on a line of its own:
     `/.states/` and one child path equal a CPU adapter's JSON,
     fingerprints included. Each part prints its seconds and counts; the
     insert calls of (a)-(c)'s card searches are `launches_host`.
+24. the actor runtime, the native serializer and the example CLIs
+    (actor/spawn.py, _native/, semantics/_native_bridge.py, examples/
+    __main__.py): (a) `serialize.cpp` built with g++ on the card's host
+    into `stateright_tpu_torch/_build/`, held against the Python search on
+    300 seeded random histories over Register, WORegister and VecSpec and
+    both tester kinds (the same serialization and the same canonical
+    steps), then lowered paxos-2 with exact closure and the "linearizable"
+    property through `spawn_cuda()` with the bridge wired in, to 32,971 /
+    16,668, with the closure's seconds, the insert calls and the tester
+    searches that took the native path (histories under the gates,
+    NATIVE_MIN_OPS and PLANE_NATIVE_MIN_OPS, both 16, stay in Python, so
+    0 is a finding, not a failure), the insert at its queue head held
+    against the plain version; the native and the Python searches timed
+    on seeded Register histories of 4 to 16 ops, on both the testers' and
+    the plane's path, for where the gates should sit, and `search_steps`
+    on 64 roots of 16 ops (past the gate) in 4 threads against one after
+    another, for what a pool in `evaluate_batch` would gain; (b) three `PaxosActor`s and a
+    `ScriptedActor` client (a Put, then a Get) spawned over localhost UDP
+    at ports the OS hands out, the client's history linearizable in the
+    port's `LinearizabilityTester`, the native verdict on it (`min_ops=0`)
+    equal to the Python search's, every thread stopped and joined; (c)
+    `2pc check-cuda 3` (unique=288) and `increment_lock check-cuda-sym 3`
+    (unique=13) through the CLIs' `main` in this process, on the card,
+    and each one's insert at its queue head, at its own batch and table,
+    held against the plain version; (d) the SVG of (a)'s card "value chosen" path, replayed on the host
+    `ActorModel`, equal to the SVG of the same search's path on the CPU.
+    The insert calls of (a)'s and (c)'s card searches are
+    `launches_native_bridge` and `launches_cli`.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -1372,9 +1400,15 @@ def lowered_deep(ph, torch, chk, tag, build, K, table_log2, depth, golden):
     (host), the search through spawn_cuda() to `depth` at the golden counts
     (closure_stats and the JAX package's), a chunk with no host sync, and a
     profiled window over the whole chunks in the first half of its steps."""
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+    from stateright_tpu_torch.semantics.canonical import CACHE
+
+    native0, full0 = nb.native_searches(), CACHE.counters["full_searches"]
     t0 = time.monotonic()
     model = build()
     closure_sec = time.monotonic() - t0
+    native = nb.native_searches() - native0
+    full = CACHE.counters["full_searches"] - full0
     s = model.closure_stats
     assert (s["generated"], s["unique"]) == golden, (tag, s)
     torch.cuda.synchronize()
@@ -1393,7 +1427,8 @@ def lowered_deep(ph, torch, chk, tag, build, K, table_log2, depth, golden):
     assert not r.discoveries, (tag, r.discoveries)
     assert launches > 0, f"{tag} never launched the insert kernel"
     peak = torch.cuda.max_memory_allocated()
-    log(f"{tag} closure_sec={closure_sec:.3f} (host; {s}) generated={got[0]} "
+    log(f"{tag} closure_sec={closure_sec:.3f} (host; {s}; {full} full plane searches, "
+        f"{native} tester searches in C++) generated={got[0]} "
         f"unique={got[1]} depth={r.max_depth} steps={r.steps} search_sec={sec:.3f} "
         f"generated_per_s={got[0] / sec:.0f} max_memory_allocated={peak} "
         f"insert_launches={launches} lanes={model.lanes} actions={model.max_actions}; "
@@ -3591,10 +3626,17 @@ def children_on_card(fleet, tag):
 
 
 def run_timeline_cli(root):
-    """The port's timeline CLI in a process of its own; its --json report."""
+    """The port's timeline CLI in a process of its own; its --json report.
+    On an exit other than 0 (2: anomalies) the assertion carries the
+    report's anomalies and the CLI's stderr."""
     proc = subprocess.run([sys.executable, "-m", "stateright_tpu_torch.obs.timeline", root,
                            "--json"], capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, (proc.returncode, proc.stderr[-2000:])
+    if proc.returncode != 0:
+        try:
+            found = json.loads(proc.stdout.strip().splitlines()[-1])["anomalies"]
+        except (IndexError, ValueError, KeyError, TypeError):
+            found = proc.stdout[-4000:]
+        raise AssertionError((proc.returncode, found, proc.stderr[-2000:]))
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
@@ -4716,6 +4758,455 @@ def phase_host(ph, torch, chk):
     return out
 
 
+# -- phase 24: the actor runtime, the native serializer, the example CLIs --------
+
+#: Seeded random histories part (a) holds the native serializer against the
+#: Python search on, spread over the three specs and both tester kinds.
+NATIVE_HISTORIES = 300
+
+
+@contextlib.contextmanager
+def python_search_only():
+    """The testers' and the canonical plane's searches with the native
+    serializer turned off: the Python search the bridge is held against."""
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+
+    saved = nb.native_serialized_history, nb.native_serialize_steps
+    nb.native_serialized_history = lambda *a, **k: nb.NOT_SUPPORTED
+    nb.native_serialize_steps = lambda *a, **k: nb.NOT_SUPPORTED
+    try:
+        yield
+    finally:
+        nb.native_serialized_history, nb.native_serialize_steps = saved
+
+
+def random_tester(rng, tester_cls, spec, vec):
+    """A tester of a seeded random history: invokes and returns alternate per
+    thread (the recorders' discipline), 4 to 16 events over 3 threads."""
+    from stateright_tpu_torch import semantics as sem
+
+    t, pending = tester_cls(spec), {}
+    for _ in range(rng.randrange(4, 17)):
+        tid = rng.randrange(3)
+        if tid in pending:
+            op = pending.pop(tid)
+            if vec:
+                ret = (sem.PushOk() if isinstance(op, sem.Push) else
+                       sem.PopOk(rng.choice(["x", "y", None])) if isinstance(op, sem.Pop)
+                       else sem.LenOk(rng.randrange(3)))
+            elif isinstance(op, sem.Write):
+                ret = (sem.WriteFail() if isinstance(spec, sem.WORegister) and rng.random() < 0.3
+                       else sem.WriteOk())
+            else:
+                ret = sem.ReadOk(rng.choice(["A", "B", None]))
+            t = t.on_return(tid, ret)
+        else:
+            r = rng.random()
+            if vec:
+                op = sem.Push(rng.choice(["x", "y"])) if r < 0.5 else (
+                    sem.Pop() if r < 0.8 else sem.Len())
+            else:
+                op = sem.Write(rng.choice(["A", "B"])) if r < 0.6 else sem.Read()
+            t = t.on_invoke(tid, op)
+            pending[tid] = op
+    return t
+
+
+#: Op counts (completed + in flight) at which part (a) times the native
+#: serializer against the Python search, and the histories at each.
+CROSSOVER_OPS = (4, 5, 6, 8, 10, 12, 14, 16)
+CROSSOVER_HISTORIES = 200
+
+
+def tester_of_ops(rng, n_ops, threads=3):
+    """A linearizability tester of a seeded random Register history with
+    exactly `n_ops` ops over `threads` threads (the last ones may stay in
+    flight)."""
+    from stateright_tpu_torch import semantics as sem
+
+    t, pending, invoked = sem.LinearizabilityTester(sem.Register("A")), {}, 0
+    while invoked < n_ops or (pending and rng.random() < 0.7):
+        tid = rng.randrange(threads)
+        if tid in pending:
+            op = pending.pop(tid)
+            t = t.on_return(tid, sem.WriteOk() if isinstance(op, sem.Write)
+                            else sem.ReadOk(rng.choice(["A", "B", None])))
+        elif invoked < n_ops:
+            op = sem.Write(rng.choice(["A", "B"])) if rng.random() < 0.6 else sem.Read()
+            t = t.on_invoke(tid, op)
+            pending[tid] = op
+            invoked += 1
+    return t
+
+
+def native_crossover(seed=17):
+    """The native serializer against the Python search, timed on
+    CROSSOVER_HISTORIES seeded histories at each op count of CROSSOVER_OPS:
+    the testers' path (`native_serialized_history`, its decode included,
+    against `_serialized_uncached` in Python) and the plane's
+    (`search_steps` with the gate at 0, its marshalling included, against
+    the Python search). Returns {n_ops: (tester native us, tester Python
+    us, plane native us, plane Python us)}, means a search."""
+    import random
+
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+    from stateright_tpu_torch.semantics import canonical
+
+    rng = random.Random(seed)
+    out = {}
+    for n_ops in CROSSOVER_OPS:
+        testers = [tester_of_ops(rng, n_ops) for _ in range(CROSSOVER_HISTORIES)]
+        forms = [canonical.canonical_form(t) for t in testers]
+        assert all(f.n_ops == n_ops for f in forms), n_ops
+        times = [0.0] * 4
+        for t, form in zip(testers, forms):
+            t0 = time.perf_counter()
+            native = nb.native_serialized_history(
+                t.init_ref_obj, t.history_by_thread, t.in_flight_by_thread, True, min_ops=0)
+            t1 = time.perf_counter()
+            with python_search_only():
+                t2 = time.perf_counter()
+                python = t._serialized_uncached()
+                t3 = time.perf_counter()
+            assert native == python, (t, native, python)
+            saved, canonical.PLANE_NATIVE_MIN_OPS = canonical.PLANE_NATIVE_MIN_OPS, 0
+            try:
+                t4 = time.perf_counter()
+                steps = canonical.search_steps(form)
+                t5 = time.perf_counter()
+            finally:
+                canonical.PLANE_NATIVE_MIN_OPS = saved
+            with python_search_only():
+                t6 = time.perf_counter()
+                py_steps = canonical.search_steps(form)
+                t7 = time.perf_counter()
+            assert steps == py_steps, (t, steps, py_steps)
+            for i, dt in enumerate((t1 - t0, t3 - t2, t5 - t4, t7 - t6)):
+                times[i] += dt
+        out[n_ops] = tuple(x / len(testers) * 1e6 for x in times)
+    return out
+
+
+def first_native_win(rows, native_col, python_col):
+    """The least op count from which the native search's mean stays under
+    the Python one's, or None."""
+    best = None
+    for n_ops in sorted(rows, reverse=True):
+        if rows[n_ops][native_col] >= rows[n_ops][python_col]:
+            break
+        best = n_ops
+    return best
+
+
+def pooled_vs_serial(n=64, n_ops=16, seed=29, repeats=5, workers=4):
+    """What a thread pool would gain `semantics.batch.evaluate_batch`, which
+    searches its independent roots serially: `search_steps` on `n` seeded
+    roots of `n_ops` ops (past the gate, so each runs in C++) in `workers`
+    threads and one after another, the least of `repeats` each. Returns
+    (pooled s, serial s)."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stateright_tpu_torch.semantics import canonical
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+
+    rng = random.Random(seed)
+    forms = [canonical.canonical_form(tester_of_ops(rng, n_ops)) for _ in range(n)]
+    assert all(canonical.takes_native_path(f) for f in forms), n_ops
+    best, results = [float("inf")] * 2, []
+    native0 = nb.native_searches()
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            results.append(list(pool.map(canonical.search_steps, forms)))
+        best[0] = min(best[0], time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        results.append([canonical.search_steps(f) for f in forms])
+        best[1] = min(best[1], time.perf_counter() - t0)
+    assert all(r == results[0] for r in results), "pooled and serial steps differ"
+    assert nb.native_searches() - native0 == 2 * repeats * n
+    return best[0], best[1]
+
+
+def native_vs_python(n, seed=24):
+    """(a) the native serializer against the Python search on `n` seeded
+    random histories: the tester's serialization (the same interleaving of
+    the same ops) and the canonical plane's steps, every one through the
+    C++ search (counted). Returns (histories, serializable, native calls)."""
+    import random
+
+    from stateright_tpu_torch import semantics as sem
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+    from stateright_tpu_torch.semantics import canonical
+
+    rng = random.Random(seed)
+    specs = ((lambda: sem.Register("A"), False), (sem.WORegister, False), (sem.VecSpec, True))
+    kinds = (sem.LinearizabilityTester, sem.SequentialConsistencyTester)
+    before, ok = nb.native_searches(), 0
+    for i in range(n):
+        make, vec = specs[i % 3]
+        kind = kinds[(i // 3) % 2]
+        t = random_tester(rng, kind, make(), vec)
+        lin = kind is sem.LinearizabilityTester
+        native = nb.native_serialized_history(
+            t.init_ref_obj, t.history_by_thread, t.in_flight_by_thread, lin, min_ops=0)
+        assert native is not nb.NOT_SUPPORTED, (i, t)
+        with python_search_only():
+            python = t._serialized_uncached()
+        assert native == python, (i, t, native, python)
+        form = canonical.canonical_form(t)
+        hist = {k: tuple(e if lin else e[1:] for e in form.history[k])
+                for k in range(len(form.history))}
+        ifl = {k: (v if lin else v[1]) for k, v in form.in_flight.items()}
+        steps = nb.native_serialize_steps(form.spec, hist, ifl, lin, min_ops=0)
+        assert steps is not nb.NOT_SUPPORTED, (i, t)
+        with python_search_only():
+            py_steps = canonical.search_steps(form)
+        assert (None if steps is None else tuple(steps)) == py_steps, (i, t, steps, py_steps)
+        ok += python is not None
+    return n, ok, nb.native_searches() - before
+
+
+def host_path(model, labels):
+    """Replay a card search's discovery (its action labels) on the host
+    `ActorModel`: the Path of host states and actions `as_svg` draws."""
+    from stateright_tpu_torch.core.path import Path
+
+    (state,) = model.init_states()
+    pairs = []
+    for label in labels:
+        actions = []
+        model.actions(state, actions)
+        (action,) = [a for a in actions if repr(a) == label]
+        pairs.append((state, action))
+        state = model.next_state(state, action)
+    pairs.append((state, None))
+    return Path(pairs)
+
+
+def spawned_paxos():
+    """(b) three port PaxosActors on localhost UDP at ports the OS hands out,
+    driven by a ScriptedActor client (a Put, then a Get): the client's
+    history in the port's LinearizabilityTester, linearizable, and the
+    native serializer's verdict on it (below the gates, so min_ops=0) equal
+    to the Python search's. Every thread is stopped and joined."""
+    import threading
+
+    from stateright_tpu_torch.actor import Envelope, ScriptedActor
+    from stateright_tpu_torch.actor.register import Get, GetOk, Put, record_invocations, record_returns
+    from stateright_tpu_torch.actor.spawn import local_ids, spawn
+    from stateright_tpu_torch.examples.__main__ import paxos_msg_types
+    from stateright_tpu_torch.examples.paxos import NULL_VALUE, PaxosActor
+    from stateright_tpu_torch.semantics import LinearizabilityTester, Register
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+
+    *servers, client = local_ids(4)
+    script = [(servers[0], Put(1, "X")), (servers[0], Get(2))]
+    envs, lock, done = [], threading.Lock(), threading.Event()
+
+    class RecordingClient(ScriptedActor):
+        """The script's client, recording each send and each reply as an
+        envelope for the register recorders."""
+
+        def on_start(self, id, out):
+            state = super().on_start(id, out)
+            with lock:
+                envs.extend(Envelope(id, c.dst, c.msg) for c in out)
+            return state
+
+        def on_msg(self, id, state, src, msg, out):
+            nxt = super().on_msg(id, state, src, msg, out)
+            with lock:
+                envs.append(Envelope(src, id, msg))
+                envs.extend(Envelope(id, c.dst, c.msg) for c in out)
+            if isinstance(msg, GetOk):
+                done.set()
+            return nxt
+
+    t0 = time.monotonic()
+    threads, stop = spawn(
+        [(sid, PaxosActor([p for p in servers if p != sid])) for sid in servers]
+        + [(client, RecordingClient(script))],
+        msg_types=paxos_msg_types(), block=False)
+    try:
+        assert done.wait(timeout=20.0), ("no GetOk within 20 s", envs)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=5.0)
+    assert not any(t.is_alive() for t in threads), "an actor thread outlived its stop"
+    wall = time.monotonic() - t0
+    history = LinearizabilityTester(Register(NULL_VALUE))
+    with lock:
+        recorded = list(envs)
+    for env in recorded:
+        record = record_invocations if env.src == client else record_returns
+        nxt = record(None, history, env)
+        history = history if nxt is None else nxt
+    assert [type(e.msg).__name__ for e in recorded] == ["Put", "PutOk", "Get", "GetOk"], recorded
+    assert recorded[-1].msg.value == "X", recorded
+    native = nb.native_serialized_history(history.init_ref_obj, history.history_by_thread,
+                                          history.in_flight_by_thread, True, min_ops=0)
+    assert native is not nb.NOT_SUPPORTED, history
+    with python_search_only():
+        python = history._serialized_uncached()
+    assert native == python and python is not None, (history, native, python)
+    assert history.serialized_history() is not None
+    log(f"[spawn] (b) 3 PaxosActors + a scripted client over localhost UDP (ports "
+        f"{[s.to_addr()[1] for s in servers]}, client {client.to_addr()[1]}): "
+        f"{len(recorded)} client messages, history {history!r} linearizable; native "
+        f"serialization {native!r} equal to the Python search's; {len(threads)} threads "
+        f"stopped and joined; wall {wall:.3f} s")
+    return dict(wall=wall, messages=len(recorded))
+
+
+def head_vs_plain_at(torch, chk, tag, model, K, table_log2, steps):
+    """The insert at a path's own shapes: a fresh search of `model` at batch
+    `K` into 2^table_log2 slots after `steps` steps, its queue-head step held
+    against the plain version."""
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    rs = ResidentSearch(model, K, table_log2)
+    rs.run(max_steps=steps)
+    assert int(rs._c["head"]) < int(rs._c["tail"]), (tag, "queue drained")
+    queue_head_vs_plain(torch, chk, tag, rs)
+
+
+def cli_on_card(ph, argv, needle):
+    """(c) one example CLI command in this process, on the card: its report
+    holds `needle`; returns its insert calls."""
+    import io
+
+    from stateright_tpu_torch.examples.__main__ import main as examples_main
+
+    n0 = ph.launch_kernel.launches
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        rc = examples_main(list(argv))
+    sec = time.monotonic() - t0
+    out = buf.getvalue()
+    assert rc == 0 and needle in out, (argv, rc, out[-2000:])
+    launches = ph.launch_kernel.launches - n0
+    assert launches > 0, (argv, "never launched the insert kernel")
+    done = [ln for ln in out.splitlines() if ln.startswith("Done.")][-1]
+    log(f"[spawn] (c) python -m stateright_tpu_torch.examples {' '.join(argv)}: {done} "
+        f"({launches} insert calls, {sec:.3f} s)")
+    return launches
+
+
+def phase_spawn(ph, torch, chk):
+    """The actor runtime, the native serializer and the example CLIs (see
+    the module docstring, phase 24). The insert calls counted are those of
+    (a)'s lowered paxos-2 search and (c)'s CLI searches on the card; (d)'s
+    CPU run launches none."""
+    from stateright_tpu_torch import _native
+    from stateright_tpu_torch.actor import Network
+    from stateright_tpu_torch.examples.paxos import PaxosModelCfg
+    from stateright_tpu_torch.semantics import _native_bridge as nb
+    from stateright_tpu_torch.semantics import canonical, clear_serialization_caches
+    from stateright_tpu_torch.tensor.lowering import lower_actor_model
+    from stateright_tpu_torch.tensor.models import TensorIncrementLock, TensorTwoPhaseSys
+
+    out = {}
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
+    # (a) the native serializer: built with g++ on this host, held against
+    # the Python search, then wired into lowered paxos-2 on the card.
+    t_a = t0 = time.monotonic()
+    so = _native.build("serialize")
+    lib = nb._load()
+    build_s = time.monotonic() - t0
+    assert lib._name == str(so) and so.parent == _native.BUILD_DIR, (lib._name, so)
+    t0 = time.monotonic()
+    n, ok, calls = native_vs_python(NATIVE_HISTORIES)
+    assert calls == 2 * n, (calls, n)
+    log(f"[spawn] (a) serialize.cpp built and loaded in {build_s:.3f} s ({so.name}); "
+        f"{n} seeded histories over Register, WORegister and VecSpec ({ok} serializable): "
+        f"the native serializer's serialization and canonical steps equal the Python "
+        f"search's for each ({calls} C++ searches, {time.monotonic() - t0:.3f} s)")
+    t0 = time.monotonic()
+    rows = native_crossover()
+    for n_ops, (tn, tp, pn, pp) in rows.items():
+        log(f"[spawn] (a) {n_ops:2d} ops, {CROSSOVER_HISTORIES} Register histories, mean "
+            f"us a search: tester native {tn:.1f} python {tp:.1f}; plane native {pn:.1f} "
+            f"python {pp:.1f}")
+    cross = dict(tester=first_native_win(rows, 0, 1), plane=first_native_win(rows, 2, 3))
+    log(f"[spawn] (a) the native search's mean stays under Python's from {cross['tester']} "
+        f"ops on the testers' path (gate NATIVE_MIN_OPS={nb.NATIVE_MIN_OPS}) and from "
+        f"{cross['plane']} on the plane's (gate PLANE_NATIVE_MIN_OPS="
+        f"{canonical.PLANE_NATIVE_MIN_OPS}); timed in {time.monotonic() - t0:.3f} s")
+    pooled_s, serial_s = pooled_vs_serial()
+    log(f"[spawn] (a) search_steps on 64 roots of 16 ops, each in C++: in 4 threads "
+        f"{pooled_s * 1e3:.3f} ms, one after another (as evaluate_batch runs them) "
+        f"{serial_s * 1e3:.3f} ms (least of 5 each), the same steps")
+    out["crossover"] = dict(rows=rows, **cross, pooled_ms=pooled_s * 1e3,
+                            serial_ms=serial_s * 1e3)
+    clear_serialization_caches()
+    native0 = nb.native_searches()
+    t0 = time.monotonic()
+    actor_model = PaxosModelCfg(client_count=2, server_count=3,
+                                network=Network.new_unordered_nonduplicating()).into_model()
+    lowered = lower_actor_model(actor_model, properties=register_properties, closure="exact")
+    closure_s = time.monotonic() - t0
+    native_closure = nb.native_searches() - native0
+    t0 = time.monotonic()
+    c = lowered.checker().spawn_cuda(batch_size=2048, table_log2=18).join()
+    search_s = time.monotonic() - t0
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == GOLDEN_PAXOS2 and r.complete, got
+    assert set(r.discoveries) == {"value chosen"}, r.discoveries
+    launches_a = ph.launch_kernel.launches
+    assert launches_a > 0, "lowered paxos-2 never launched the insert kernel"
+    native_total = nb.native_searches() - native0
+    log(f"[spawn] (a) lowered paxos-2, exact closure, bridge wired: generated={got[0]} "
+        f"unique={got[1]}, closure {closure_s:.3f} s, search {search_s:.3f} s, "
+        f"{launches_a} insert calls; tester searches on the native path: {native_total} "
+        f"({native_closure} in the closure; gates NATIVE_MIN_OPS="
+        f"{nb.NATIVE_MIN_OPS}, PLANE_NATIVE_MIN_OPS={canonical.PLANE_NATIVE_MIN_OPS})")
+    with quiet_launches(ph):  # a comparison's kernel calls, not the path's
+        head_vs_plain_at(torch, chk, "[spawn] (a) lowered paxos-2:", lowered, 2048, 18, 3)
+    out["a"] = dict(build_s=build_s, histories=n, closure_s=closure_s, search_s=search_s,
+                    launches=launches_a, native_searches=native_total,
+                    wall=time.monotonic() - t_a)
+    log(f"[spawn] (a) wall {out['a']['wall']:.3f} s")
+    # (b) the same Paxos for real, over UDP.
+    out["b"] = spawned_paxos()
+    # (c) the example CLIs on the card.
+    t0 = time.monotonic()
+    launches_c = sum(cli_on_card(ph, argv, needle) for argv, needle in (
+        (("2pc", "check-cuda", "3"), "unique=288"),
+        (("increment_lock", "check-cuda-sym", "3"), "unique=13")))
+    with quiet_launches(ph):  # each CLI search's insert at its own batch and table
+        head_vs_plain_at(torch, chk, "[spawn] (c) 2pc check-cuda 3:", TensorTwoPhaseSys(3),
+                         1024, 20, 2)
+        head_vs_plain_at(torch, chk, "[spawn] (c) increment_lock check-cuda-sym 3:",
+                         TensorIncrementLock(3, symmetry=True), 1024, 14, 1)
+    out["c"] = dict(launches=launches_c, wall=time.monotonic() - t0)
+    log(f"[spawn] (c) wall {out['c']['wall']:.3f} s")
+    # (d) as_svg of (a)'s card discovery against the same path on the CPU.
+    t0 = time.monotonic()
+    card_labels = c.discoveries()["value chosen"].actions()
+    n0 = ph.launch_kernel.launches
+    cpu = lowered.checker().spawn_cuda(batch_size=2048, table_log2=18, device="cpu").join()
+    assert ph.launch_kernel.launches == n0, "a CPU search launched the kernel"
+    cpu_labels = cpu.discoveries()["value chosen"].actions()
+    svg_card = actor_model.as_svg(host_path(actor_model, card_labels))
+    svg_cpu = actor_model.as_svg(host_path(actor_model, cpu_labels))
+    assert svg_card is not None and svg_card.startswith("<svg"), svg_card
+    assert card_labels == cpu_labels and svg_card == svg_cpu
+    out["d"] = dict(steps=len(card_labels), svg_bytes=len(svg_card), wall=time.monotonic() - t0)
+    log(f"[spawn] (d) as_svg of the card's \"value chosen\" path ({len(card_labels)} "
+        f"steps, replayed on the host ActorModel): {len(svg_card)} bytes, equal to the SVG "
+        f"of the CPU search's path; wall {out['d']['wall']:.3f} s")
+    out["launches"] = ph.launch_kernel.launches
+    assert out["launches"] == launches_a + launches_c, out
+    assert ph.launch_kernel.bloom_launches == 0, ph.launch_kernel.bloom_launches
+    log(f"[spawn] insert calls of (a) and (c)'s card searches: {out['launches']} "
+        f"(a: {launches_a}, c: {launches_c})")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4788,6 +5279,7 @@ def main() -> int:
     sup = phase(21, "supervisor and calibration", phase_supervisor, ph, torch, chk, paxos3)
     audit = phase(22, "static analysis", phase_analysis, ph, torch, chk)
     host = phase(23, "host checkers and Explorer", phase_host, ph, torch, chk)
+    spawned = phase(24, "actor runtime, native bridge, CLIs", phase_spawn, ph, torch, chk)
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0
@@ -4814,6 +5306,8 @@ def main() -> int:
         "launches_supervised": sup["a"]["launches"],
         "launches_audit": audit["launches"],
         "launches_host": host["launches"],
+        "launches_native_bridge": spawned["a"]["launches"],
+        "launches_cli": spawned["c"]["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],

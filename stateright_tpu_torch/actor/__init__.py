@@ -1,12 +1,11 @@
 """Actor framework (ref: src/actor.rs) — the port's copy of the JAX
-package's `actor/`, trimmed to what the device lowering uses.
+package's `actor/`.
 
 An `Actor` is an event-driven state machine: it initializes via `on_start` and
 reacts to messages/timeouts/random choices, emitting `Out` commands. Actor
 systems are model checked by lowering: `ActorModel` turns them into the
 generic host `Model`, and tensor/lowering.py turns that into a `TensorModel`
-for the device search. (Running actors over UDP and the sequence-diagram
-SVG are not part of the port yet.)
+for the device search. They also run for real over UDP (`spawn`).
 
 Handler convention (the Python analogue of the reference's `Cow<State>`
 copy-on-write, ref: src/actor.rs:270-287): handlers receive the current state
@@ -27,8 +26,8 @@ from typing import Any, Iterable, Tuple
 
 
 class Id(int):
-    """Actor identity: an index for model checking
-    (ref: src/actor.rs:109-157)."""
+    """Actor identity: an index for model checking, an encoded IPv4+port for
+    spawned actors (ref: src/actor.rs:109-157, src/actor/spawn.rs:10-34)."""
 
     def __repr__(self) -> str:
         return f"Id({int(self)})"
@@ -36,6 +35,21 @@ class Id(int):
     @staticmethod
     def vec_from(ids: Iterable) -> list["Id"]:
         return [Id(i) for i in ids]
+
+    @staticmethod
+    def from_addr(ip: str, port: int) -> "Id":
+        """Encode an IPv4 address + port into an Id (spawn runtime)."""
+        parts = [int(p) for p in ip.split(".")]
+        ip_num = (parts[0] << 24) | (parts[1] << 16) | (parts[2] << 8) | parts[3]
+        return Id((ip_num << 16) | port)
+
+    def to_addr(self) -> Tuple[str, int]:
+        """Decode an Id into (ip, port) (spawn runtime)."""
+        v = int(self)
+        port = v & 0xFFFF
+        ip_num = v >> 16
+        ip = f"{(ip_num >> 24) & 255}.{(ip_num >> 16) & 255}.{(ip_num >> 8) & 255}.{ip_num & 255}"
+        return ip, port
 
 
 # -- commands (ref: src/actor.rs:159-266) -------------------------------------
@@ -149,6 +163,29 @@ class Actor:
         return ""
 
 
+@dataclass
+class ScriptedActor(Actor):
+    """Sends a series of messages in sequence, waiting for any delivery between
+    each — useful for driving actor systems under test (the reference implements
+    `Actor` for `Vec<(Id, Msg)>`, ref: src/actor.rs:565-602)."""
+
+    script: list  # [(dst_id, msg), ...]
+
+    def on_start(self, id: Id, out: Out):
+        if self.script:
+            dst, msg = self.script[0]
+            out.send(dst, msg)
+            return 1
+        return 0
+
+    def on_msg(self, id: Id, state, src: Id, msg, out: Out):
+        if state < len(self.script):
+            dst, m = self.script[state]
+            out.send(dst, m)
+            return state + 1
+        return None
+
+
 # Re-exports for a flat `stateright_tpu.actor` namespace mirroring the
 # reference's `use stateright::actor::*`.
 from .network import Envelope, Network  # noqa: E402
@@ -172,6 +209,7 @@ __all__ = [
     "CancelTimer",
     "ChooseRandom",
     "Actor",
+    "ScriptedActor",
     "model_timeout",
     "model_peers",
     "majority",

@@ -1,8 +1,7 @@
 """`ActorModel`: lowers an actor system + network + timers + crashes + random
 choices + history into the generic `Model` interface — the bridge that makes
 actor systems checkable (ref: src/actor/model.rs). The port's copy of the
-JAX package's `actor/model.py`, without the SVG sequence diagram of a path
-(`as_svg` is the host `Model`'s None until the actor runtime is ported).
+JAX package's `actor/model.py`.
 """
 
 from __future__ import annotations
@@ -462,3 +461,9 @@ class ActorModel(Model):
         else:
             lines.append(f"UNCHANGED: {last_actor_state!r}")
         return "\n".join(lines)
+
+    def as_svg(self, path) -> Optional[str]:
+        """Sequence diagram of a path (ref: src/actor/model.rs:551-754)."""
+        from .svg import sequence_diagram
+
+        return sequence_diagram(self, path)

@@ -80,6 +80,22 @@ class Network:
             n = n.send(env)
         return n
 
+    @staticmethod
+    def names() -> list[str]:
+        """CLI-selectable names (ref: src/actor/network.rs:140-166)."""
+        return [ORDERED, UNORDERED_DUPLICATING, UNORDERED_NONDUPLICATING]
+
+    @staticmethod
+    def from_str(s: str) -> "Network":
+        """ref: src/actor/network.rs:318-331"""
+        if s == ORDERED:
+            return Network.new_ordered()
+        if s == UNORDERED_DUPLICATING:
+            return Network.new_unordered_duplicating()
+        if s == UNORDERED_NONDUPLICATING:
+            return Network.new_unordered_nonduplicating()
+        raise ValueError(f"unable to parse network name: {s}")
+
     # -- iteration -------------------------------------------------------------
 
     def iter_deliverable(self) -> Iterator[Envelope]:

@@ -10,9 +10,12 @@ Given a batch of consistency testers in one call, the plane:
    witness guidance off parents (shorter histories are evaluated first, so a
    child's parent is usually already resolved a few iterations earlier),
 3. runs the full canonical search only for the surviving classes, serially
-   in the same deterministic order. (The JAX package runs the independent
-   roots through a thread pool when its native serializer is loaded;
-   verdicts are order-independent pure functions of the canonical class, so
+   in the same deterministic order; `search_steps` hands a class past the
+   native gate to the C++ search. (The JAX package runs the independent
+   roots through a thread pool when its native serializer is loaded. In the
+   port the pool was slower than the serial loop at every size timed, as
+   the ctypes marshalling holds the GIL: `chip_smoke.py` phase 24 (a).
+   Verdicts are order-independent pure functions of the canonical class, so
    the results are the same.)
 
 The corpus round-trip: `export_verdicts` is the table a corpus entry

@@ -50,9 +50,10 @@ exploits that three ways:
    verdict.
 
 3. **A process-global bounded verdict cache** keyed by canonical fingerprint,
-   shared by both tester kinds (the kind is folded into the fingerprint) and
-   batch-populated by `semantics.batch`. (The JAX package also warm-starts
-   it across jobs through its corpus; the port has no corpus yet.)
+   shared by both tester kinds (the kind is folded into the fingerprint),
+   batch-populated by `semantics.batch` and warm-started across jobs through
+   the corpus (store/corpus.py packs the (fingerprint, verdict-bit) table
+   into every published entry).
 
 This is the port's copy of the JAX package's `semantics/canonical.py`.
 
@@ -316,15 +317,51 @@ def canonical_form(tester) -> CanonForm:
 # -- canonical-space search ----------------------------------------------------
 
 
+#: The canonical plane's native-search gate, the same crossover as the
+#: testers' `_native_bridge.NATIVE_MIN_OPS`: below it the ctypes marshalling
+#: costs more than the Python search saves. `chip_smoke.py` phase 24 (a)
+#: times both on seeded Register histories; on an H100 machine's host the
+#: C++ search's mean (marshalling included) was 2-3x Python's at 4-8 ops,
+#: still above it at 12 and 14 in one of two runs, and under it at 16 in
+#: both. (The JAX package gates at 5.)
+PLANE_NATIVE_MIN_OPS = 16
+
+
+def takes_native_path(form: CanonForm) -> bool:
+    """Whether `search_steps` asks the native serializer first: `form` has
+    at least PLANE_NATIVE_MIN_OPS ops over a reference object the C++
+    encodes. Below the gate the search stays in Python."""
+    from ._native_bridge import encodes_spec
+
+    return form.n_ops >= PLANE_NATIVE_MIN_OPS and encodes_spec(form.spec)
+
+
 def search_steps(form: CanonForm):
     """The full backtracking search in canonical space, returning the witness
     as ((thread, from_in_flight), ...) steps or None. Deterministic: threads
     are visited in canonical order (dict insertion order below), so the same
     equivalence class yields the same steps in every process — which is what
-    lets the corpus replay verdicts bit-identically. (The JAX package tries
-    its native serializer first, which visits interleavings in the same
-    order; the port runs this search only.)"""
+    lets the corpus replay verdicts bit-identically. Tries the native
+    serializer first (it visits interleavings in the same order as the
+    Python search) when `takes_native_path(form)`."""
     T = len(form.history)
+    if takes_native_path(form):
+        from ._native_bridge import NOT_SUPPORTED, native_serialize_steps
+
+        if form.linearizable:
+            hist = {t: tuple((lc, op, ret) for lc, op, ret in form.history[t])
+                    for t in range(T)}
+            ifl = dict(form.in_flight)
+        else:
+            hist = {t: tuple((op, ret) for _lc, op, ret in form.history[t])
+                    for t in range(T)}
+            ifl = {t: op for t, (_lc, op) in form.in_flight.items()}
+        native = native_serialize_steps(
+            form.spec, hist, ifl, linearizable=form.linearizable, min_ops=0
+        )
+        if native is not NOT_SUPPORTED:
+            return None if native is None else tuple(native)
+
     remaining = {t: tuple(enumerate(form.history[t])) for t in range(T)}
     out = _serialize_steps([], form.spec, remaining, form.in_flight)
     return None if out is None else tuple(out)

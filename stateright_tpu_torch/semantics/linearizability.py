@@ -133,8 +133,16 @@ class LinearizabilityTester(ConsistencyTester):
         return None if cached is None else list(cached)
 
     def _serialized_uncached(self) -> Optional[list]:
-        # The JAX package tries its native (C++) serializer first; it returns
-        # the same results as this search, which the port always runs.
+        from ._native_bridge import NOT_SUPPORTED, native_serialized_history
+
+        native = native_serialized_history(
+            self.init_ref_obj,
+            self.history_by_thread,
+            self.in_flight_by_thread,
+            linearizable=True,
+        )
+        if native is not NOT_SUPPORTED:
+            return native
         remaining = {
             tid: tuple(enumerate(hist))
             for tid, hist in self.history_by_thread.items()

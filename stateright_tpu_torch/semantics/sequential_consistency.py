@@ -103,7 +103,16 @@ class SequentialConsistencyTester(ConsistencyTester):
         return None if cached is None else list(cached)
 
     def _serialized_uncached(self) -> Optional[list]:
-        # Python search only (see LinearizabilityTester._serialized_uncached).
+        from ._native_bridge import NOT_SUPPORTED, native_serialized_history
+
+        native = native_serialized_history(
+            self.init_ref_obj,
+            self.history_by_thread,
+            self.in_flight_by_thread,
+            linearizable=False,
+        )
+        if native is not NOT_SUPPORTED:
+            return native
         return _serialize(
             [],
             self.init_ref_obj,

@@ -426,3 +426,53 @@ def test_host_checkers_load_neither_torch_nor_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_actor_runtime_native_bridge_and_clis_run_without_jax():
+    """Spawned actors over UDP, the native serializer (its library built
+    into the port's `_build/`, never the JAX package's `_native/build/`),
+    the example CLIs and the sequence diagram load neither jax nor the JAX
+    package."""
+    code = (
+        "import contextlib, io, sys\n"
+        "from pathlib import Path\n"
+        "from stateright_tpu_torch.actor.spawn import local_ids, spawn\n"
+        "from stateright_tpu_torch.actor.test_util import Ping, PingPongActor, Pong\n"
+        "from stateright_tpu_torch.examples.__main__ import main\n"
+        "from stateright_tpu_torch.examples.paxos import PaxosModelCfg\n"
+        "from stateright_tpu_torch.semantics import LinearizabilityTester, Register\n"
+        "from stateright_tpu_torch.semantics import Read, ReadOk, Write, WriteOk\n"
+        "from stateright_tpu_torch.semantics import _native_bridge as nb\n"
+        "a, b = local_ids(2)\n"
+        "threads, stop = spawn([(a, PingPongActor(serve_to=b)), (b, PingPongActor())],\n"
+        "    msg_types=[Ping, Pong], block=False)\n"
+        "stop.set()\n"
+        "[t.join(timeout=3) for t in threads]\n"
+        "assert not any(t.is_alive() for t in threads)\n"
+        "t = LinearizabilityTester(Register('A')).on_invoke(0, Write('B')).on_return(0,\n"
+        "    WriteOk()).on_invoke(1, Read()).on_return(1, ReadOk('B'))\n"
+        "assert nb.native_serialized_history(t.init_ref_obj, t.history_by_thread,\n"
+        "    t.in_flight_by_thread, linearizable=True, min_ops=0) is not None\n"
+        "assert nb.native_searches() == 1\n"
+        "so = Path(nb._load()._name).resolve()\n"
+        "assert so.parent == Path('stateright_tpu_torch/_build').resolve(), so\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert '_native/build' not in maps and str(so) in maps\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        "    main(['2pc', 'check-cuda', '3', '--device', 'cpu'])\n"
+        "assert 'unique=288' in buf.getvalue()\n"
+        "m = PaxosModelCfg(client_count=1, server_count=3).into_model()\n"
+        "p = m.checker().spawn_bfs().join().discovery('value chosen')\n"
+        "assert m.as_svg(p).startswith('<svg')\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'jaxlib', 'stateright_tpu')\n"
+        "       or m.startswith(('jax.', 'jaxlib.', 'stateright_tpu.'))]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

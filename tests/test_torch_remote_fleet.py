@@ -68,8 +68,14 @@ def test_remote_fleet_kill9_requeues_every_job_at_the_jax_golden(tmp_path):
         assert len(owners) == 1  # one route key: one owner holds the backlog
         victim = fleet.replicas[owners.pop()]
         deadline = time.monotonic() + 60
-        while (victim._last_probe.get("device_steps") or 0) < 1:
-            assert time.monotonic() < deadline, "the victim never stepped"
+        # A step counts in the probe before that spin's checkpoint
+        # generation is written: kill only once one is on disk, so that the
+        # survivor has a generation to restore (a kill between the two would
+        # requeue every job cold).
+        ckpt_dir = tmp_path / "ckpt"
+        while ((victim._last_probe.get("device_steps") or 0) < 1
+               or not any(ckpt_dir.glob("*.npz"))):
+            assert time.monotonic() < deadline, "the victim never stepped and checkpointed"
             time.sleep(0.02)
         os.kill(victim.proc.pid, signal.SIGKILL)
         wait_crashes(fleet, 1)
