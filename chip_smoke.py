@@ -317,6 +317,31 @@ seconds on a line of its own:
     `ActorModel`, equal to the SVG of the same search's path on the CPU.
     The insert calls of (a)'s and (c)'s card searches are
     `launches_native_bridge` and `launches_cli`.
+25. the JAX package's XLA insert designs (tensor/hashtable.py, ROADMAP
+    A9a), asked for by name; the default path stays the kernel: (a) each
+    design and layout ("sort", "phased", "capped", "capped-phased" on the
+    split layout; "sort" and "capped" on kv) on the card against the same
+    function on CPU tensors, bit for bit (the table arrays, `is_new` and
+    `overflow` after every call), on stress cases homed by
+    `hi & (n_buckets - 1)`: a chain crossing a bucket, a wrap past the last
+    bucket with hi >= 2^31 and duplicates among the carried lanes, a full
+    8-slot table, capped tiles with a duplicate straddling two tiles, and
+    2^20 lanes into 2^24 slots at half load; at that last shape each
+    design's call time (median of 20, the table restored before each),
+    its host reads (the auditor's host-sync count) and its peak memory;
+    (b) 2pc-10 at phase 7's width (batch 32768, table 2^27, queue 2^26,
+    the device store) through `spawn_cuda(insert_variant="sort")` to its
+    golden with phase 7's discoveries, then paxos-3 (batch 8192, 2^22) to
+    its golden with split "phased", "capped", "capped-phased", kv "sort"
+    and "capped", and split "sort" with `append="dus"`: each run's wall
+    seconds, ms a step, peak memory, its calls of the design and the
+    counted launches of its first step, and zero launches of the CUDA
+    insert; (c) a paxos-3 "sort" search suspended at 40 steps,
+    checkpointed, loaded into a fresh engine slot for slot, regrown 2^22 ->
+    2^23 and held against the CPU regrow of the same file array for array,
+    then resumed to its golden; (d) `audit_step()` of one "sort" and one
+    "capped" resident paxos-3 step, with exactly the host reads their
+    docstrings state (sort: 1; capped: 1 + its tiles).
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -5207,9 +5232,354 @@ def phase_spawn(ph, torch, chk):
     return out
 
 
+# -- phase 25: the XLA insert designs --------------------------------------------
+
+#: (table_layout, insert_variant) of every XLA design (tensor/inserts.py).
+XLA_DESIGNS = (("split", "sort"), ("split", "phased"), ("split", "capped"),
+               ("split", "capped-phased"), ("kv", "sort"), ("kv", "capped"))
+#: (a)'s timed shape: 2^20 lanes into 2^24 slots holding 2^23 keys.
+DESIGN_LANES_LOG2, DESIGN_TABLE_LOG2 = 20, 24
+
+
+def design_tables(torch, layout, log2, device):
+    S = 1 << log2
+    return (torch.zeros(2 * S if layout == "kv" else S, dtype=torch.int64, device=device),
+            torch.zeros(S, dtype=torch.int64, device=device))
+
+
+def design_keys(torch, lo, hi):
+    """int64 keys from numpy uint32 lo and hi (the port's `hi << 32 | lo`)."""
+    return (torch.from_numpy(hi.astype("int64")) << 32) | torch.from_numpy(lo.astype("int64"))
+
+
+@contextlib.contextmanager
+def counted_designs():
+    """Count every call of the XLA designs' insert functions (the dispatch
+    tables' entries, wrapped while the block runs): what a search ran in
+    place of the kernel. Yields the {(layout, variant): calls} dict."""
+    from stateright_tpu_torch.tensor import inserts
+
+    calls = {}
+    saved = dict(inserts.INSERT_TABLE), dict(inserts.KV_INSERT_TABLE)
+
+    def counting(key, fn):
+        def wrapped(*args, **kw):
+            calls[key] = calls.get(key, 0) + 1
+            return fn(*args, **kw)
+        return wrapped
+
+    for layout, table in (("split", inserts.INSERT_TABLE), ("kv", inserts.KV_INSERT_TABLE)):
+        for v in table:
+            if v != "pallas":
+                table[v] = counting((layout, v), table[v])
+    try:
+        yield calls
+    finally:
+        inserts.INSERT_TABLE.update(saved[0])
+        inserts.KV_INSERT_TABLE.update(saved[1])
+
+
+def design_card_vs_cpu(torch, design, log2, batches, start=None):
+    """Run `batches` ((key, parent, active) CPU tensors) through `design` on
+    the card and on the CPU from the same table (`start`, CPU tensors, or
+    empty) and require equal tables, `is_new` and `overflow` after every
+    call. Returns the card's (table, t_parent) and the last is_new."""
+    from stateright_tpu_torch.tensor.inserts import resolve_insert
+
+    layout, variant = design
+    insert = resolve_insert(variant, layout)
+    cpu = [t.clone() for t in start] if start else list(design_tables(torch, layout, log2, "cpu"))
+    card = [t.to("cuda") for t in cpu]
+    new = None
+    for key, parent, active in batches:
+        _, _, new, ovf = insert(*card, key.cuda(), parent.cuda(), active.cuda())
+        _, _, new_c, ovf_c = insert(*cpu, key, parent, active)
+        for a, b in zip(card, cpu):
+            assert torch.equal(a.cpu(), b), (design, "table differs")
+        assert torch.equal(new.cpu(), new_c), (design, "is_new differs")
+        assert bool(ovf) == bool(ovf_c), (design, "overflow differs")
+    return card, new
+
+
+def design_stress_cases(torch, design):
+    """(a)'s stress cases for `design`; returns the calls compared."""
+    import numpy as np
+
+    layout, variant = design
+    kv = layout == "kv"
+    bucket = 64 if kv else 128
+    u32 = np.uint32
+    calls = 0
+
+    def batch(lo, hi, active=None):
+        lo, hi = np.asarray(lo, u32), np.asarray(hi, u32)
+        key = design_keys(torch, lo, hi)
+        act = torch.ones(len(lo), dtype=torch.bool) if active is None else torch.from_numpy(active)
+        return key, key ^ 0x5A5A5A5A, act
+
+    def homed(home, n, salt, top):
+        return ([k + salt for k in range(n)],
+                [((k + 1) << 8 | home) | (0x80000000 if top else 0) for k in range(n)])
+
+    # A chain crossing a bucket (1.5 buckets homed at bucket 3 of 16), then a
+    # wrap past the last bucket with hi >= 2^31: batches of 40 keys (a
+    # phased call claims one slot of a row a round) and duplicates of each
+    # batch's last 10 keys, which are the ones that carry.
+    seq = []
+    for home, n, salt, top in ((3, bucket + bucket // 2, 1, False), (15, bucket + 20, 7, True)):
+        lo, hi = homed(home, n, salt, top)
+        for i in range(0, n, 40):
+            blo, bhi = lo[i:i + 40], hi[i:i + 40]
+            seq.append(batch(blo + blo[-10:], bhi + bhi[-10:]))
+        seq.append(batch(lo, hi))
+    card, _ = design_card_vs_cpu(torch, design, 10 if kv else 11, seq)
+    calls += len(seq)
+    # A full 8-slot table: the second batch overflows.
+    full = [batch([k + 1 for k in range(6)], [2 * k for k in range(6)]),
+            batch([k + 11 for k in range(5)], [2 * k for k in range(5)])]
+    design_card_vs_cpu(torch, design, 3, full)
+    calls += 2
+    if variant.startswith("capped"):
+        # 9,000 lanes, every 7th inactive: lanes 10 and 4100 in the first
+        # 4,096-lane tile, lane 8999 in the second, all one key.
+        rng = np.random.default_rng(25)
+        lo = rng.integers(1, 1 << 32, 9000, dtype=np.uint64).astype(u32)
+        hi = rng.integers(0, 1 << 32, 9000, dtype=np.uint64).astype(u32)
+        for lane in (4100, 8999):
+            lo[lane], hi[lane] = lo[10], hi[10]
+        active = np.ones(9000, bool)
+        active[::7] = False
+        _, new = design_card_vs_cpu(torch, design, 14, [batch(lo, hi, active)])
+        won = [lane for lane in (10, 4100, 8999) if bool(new[lane])]
+        assert won == [4100 if "phased" in variant else 10], (design, won)
+        calls += 1
+    return calls
+
+
+def design_half_load(torch, layout):
+    """(a)'s timed shape: a 2^24-slot table of `layout` holding 2^23 random
+    keys (filled on the card through that layout's "sort" design, 2^20 a
+    call), and 2^20 lanes to insert: 90% active, a quarter of them keys the
+    table holds. Returns (table, t_parent, key, parent, active) on the card."""
+    from stateright_tpu_torch.tensor.inserts import resolve_insert
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    n = 1 << DESIGN_LANES_LOG2
+
+    def keys(m):
+        lo = torch.randint(1, 1 << 32, (m,), generator=gen, device="cuda")
+        hi = torch.randint(0, 1 << 32, (m,), generator=gen, device="cuda")
+        return (hi << 32) | lo
+
+    table, t_parent = design_tables(torch, layout, DESIGN_TABLE_LOG2, "cuda")
+    fill = resolve_insert("sort", layout)
+    held = []
+    on = torch.ones(n, dtype=torch.bool, device="cuda")
+    for _ in range(1 << (DESIGN_TABLE_LOG2 - 1 - DESIGN_LANES_LOG2)):
+        k = keys(n)
+        _, _, _, ovf = fill(table, t_parent, k, k ^ 0x5A5A5A5A, on)
+        assert not bool(ovf)
+        held.append(k)
+    key = keys(n)
+    pick = torch.randint(0, n, (n // 4,), generator=gen, device="cuda")
+    key[: n // 4] = held[0][pick]
+    key = key[torch.randperm(n, generator=gen, device="cuda")]
+    active = torch.rand(n, generator=gen, device="cuda") < 0.9
+    return table, t_parent, key, key ^ 0x33333333, active
+
+
+def design_timed(torch, design, base):
+    """(a): `design` at the half-load shape, on the card against the CPU
+    bit for bit, then timed (median of 20, the table restored before each),
+    its host reads counted by the auditor and its peak memory."""
+    from stateright_tpu_torch.analysis.auditor import audit_fn
+    from stateright_tpu_torch.tensor.inserts import resolve_insert
+
+    layout, variant = design
+    table0, parent0, key, parent, active = base
+    insert = resolve_insert(variant, layout)
+    start = (table0.cpu(), parent0.cpu())
+    t0 = time.monotonic()
+    design_card_vs_cpu(torch, design, DESIGN_TABLE_LOG2,
+                       [(key.cpu(), parent.cpu(), active.cpu())], start=start)
+    check_s = time.monotonic() - t0
+    work = [table0.clone(), parent0.clone()]
+
+    def restore():
+        work[0].copy_(table0)
+        work[1].copy_(parent0)
+
+    ms = median_ms(lambda: insert(*work, key, parent, active), restore)
+    restore()
+    report = audit_fn(insert, (*work, key, parent, active))
+    reads = sum(v.rule == "host-sync" for v in report.violations)
+    restore()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    insert(*work, key, parent, active)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    new = int(report.out[2].sum())
+    log(f"[designs] (a) {layout} {variant}: 2^20 lanes into 2^24 slots at half load "
+        f"({new} new): card equals CPU bit for bit ({check_s:.2f} s); median of 20 "
+        f"{ms:.4f} ms, host reads a call {reads}, peak memory above the table "
+        f"{peak} B")
+    return dict(ms=ms, reads=reads, peak=peak, new=new)
+
+
+def design_search(ph, torch, tag, model, golden, calls, **kw):
+    """(b): one search through `spawn_cuda` with a design; zero launches of
+    the CUDA insert. Returns its numbers."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
+    before = dict(calls)
+    t0 = time.monotonic()
+    c = model.checker().spawn_cuda(**kw).join()
+    torch.cuda.synchronize()
+    sec = time.monotonic() - t0
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == golden and r.complete, (tag, got)
+    assert ph.launch_kernel.launches == ph.launch_kernel.bloom_launches == 0, (
+        tag, "the CUDA insert ran")
+    eng = c._search
+    key = (eng.table_layout, eng.insert_variant)
+    n_calls = calls.get(key, 0) - before.get(key, 0)
+    assert n_calls > 0, (tag, calls)
+    first = eng._calib.config.launches if eng._calib is not None else float("nan")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"{tag} {eng.table_layout} {eng.insert_variant} append={eng.append}: "
+        f"generated={got[0]} unique={got[1]} depth={r.max_depth} steps={r.steps} "
+        f"sec={sec:.3f} ms_a_step={1e3 * sec / max(r.steps, 1):.3f} "
+        f"max_memory_allocated={peak}; CUDA insert launches 0; instead {n_calls} calls "
+        f"of the {eng.insert_variant!r} design, {first:.0f} launches in its first step "
+        f"(counted)")
+    return c, dict(sec=sec, steps=r.steps, peak=peak, calls=n_calls, first_launches=first,
+                   discoveries=r.discoveries)
+
+
+def phase_designs(ph, torch, device_path):
+    """The JAX package's XLA insert designs (see the module docstring, phase
+    25). Returns the timings and walls for PERF.md."""
+    import tempfile
+
+    import numpy as np
+
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.paxos import TensorPaxos
+    from stateright_tpu_torch.tensor.pallas_hashtable import to_jax_table
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    out = {"a": {}, "b": {}}
+    launches0 = ph.launch_kernel.launches
+    # (a) bit for bit against the CPU, then the timed shape.
+    t0 = time.monotonic()
+    n_calls = sum(design_stress_cases(torch, d) for d in XLA_DESIGNS)
+    log(f"[designs] (a) {len(XLA_DESIGNS)} designs x the stress cases ({n_calls} calls): "
+        f"card equals CPU bit for bit; {time.monotonic() - t0:.2f} s")
+    for layout in ("split", "kv"):
+        base = design_half_load(torch, layout)
+        for d in XLA_DESIGNS:
+            if d[0] == layout:
+                out["a"][f"{d[0]} {d[1]}"] = design_timed(torch, d, base)
+        del base
+        torch.cuda.empty_cache()
+    assert ph.launch_kernel.launches == launches0, "a design launched the CUDA insert"
+    # (b) 2pc-10 through "sort", paxos-3 through the others.
+    with counted_designs() as calls:
+        c, out["b"]["2pc-10 sort"] = design_search(
+            ph, torch, "[designs] (b) 2pc-10", TensorTwoPhaseSys(10), GOLDEN_2PC10, calls,
+            batch_size=BATCH_2PC10, table_log2=TABLE_2PC10, queue_log2=QUEUE_2PC10,
+            insert_variant="sort")
+        r = c.result()
+        assert set(r.discoveries) == {"abort agreement", "commit agreement"}, r.discoveries
+        if device_path is not None:
+            assert r.discoveries == device_path["discoveries"], "discoveries differ from phase 7"
+        paths = c.discoveries()
+        assert (len(paths["abort agreement"]) - 1, len(paths["commit agreement"]) - 1) == (10, 31)
+        for name, path in paths.items():
+            c.assert_discovery(name, path.actions())
+        del c, paths
+        torch.cuda.empty_cache()
+        for layout, variant, append in (("split", "phased", None), ("split", "capped", None),
+                                        ("split", "capped-phased", None), ("kv", "sort", None),
+                                        ("kv", "capped", None), ("split", "sort", "dus")):
+            c, res = design_search(
+                ph, torch, "[designs] (b) paxos-3", TensorPaxos(3), GOLDEN_PAXOS3, calls,
+                batch_size=BATCH_PAXOS3, table_log2=TABLE_PAXOS3, insert_variant=variant,
+                table_layout=layout, append=append)
+            assert set(res["discoveries"]) == {"value chosen"}, res["discoveries"]
+            out["b"][f"paxos-3 {layout} {variant}" + (" dus" if append else "")] = res
+            del c
+            torch.cuda.empty_cache()
+    # (c) suspend, checkpoint, load slot for slot, regrow against the CPU.
+    t0 = time.monotonic()
+    ph.launch_kernel.launches = 0
+    model = TensorPaxos(3)
+    rs = ResidentSearch(model, BATCH_PAXOS3, TABLE_PAXOS3, insert_variant="sort")
+    assert not rs.run(max_steps=40).complete
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "paxos3-sort.npz")
+        rs.checkpoint(path)
+        same = ResidentSearch.load_checkpoint(model, path)
+        assert same.insert_variant == "sort"
+        for k in ("t_key", "t_parent"):
+            assert torch.equal(same._c[k], rs._c[k]), k
+        del same
+        t1 = time.monotonic()
+        grown = ResidentSearch.load_checkpoint(model, path, table_log2=TABLE_PAXOS3 + 1)
+        regrow_s = time.monotonic() - t1
+        cpu = ResidentSearch.load_checkpoint(model, path, table_log2=TABLE_PAXOS3 + 1,
+                                             device="cpu")
+        for ours, theirs in zip(to_jax_table(grown._c["t_key"], grown._c["t_parent"]),
+                                to_jax_table(cpu._c["t_key"], cpu._c["t_parent"])):
+            assert np.array_equal(ours, theirs), "the card's regrow differs from the CPU's"
+        occupied = int((grown._c["t_key"] != 0).sum())
+        del cpu
+    r = grown.run()
+    assert (r.state_count, r.unique_state_count) == GOLDEN_PAXOS3 and r.complete, r
+    assert ph.launch_kernel.launches == 0, "the sort search launched the CUDA insert"
+    out["c"] = dict(regrow_s=regrow_s, occupied=occupied, wall=time.monotonic() - t0)
+    log(f"[designs] (c) paxos-3 sort suspended at 40 steps, checkpointed, loaded slot for "
+        f"slot, regrown 2^22 -> 2^23 in {regrow_s:.3f} s ({occupied} keys), equal to the "
+        f"CPU regrow array for array, resumed to generated={r.state_count} "
+        f"unique={r.unique_state_count}; wall {out['c']['wall']:.3f} s")
+    del rs, grown
+    torch.cuda.empty_cache()
+    # (d) the host reads of an audited resident step.
+    from stateright_tpu_torch.analysis.auditor import audit_fn
+    from stateright_tpu_torch.tensor.hashtable import CAP_MAX_TILES, CLAIM_TILE
+
+    for variant in ("sort", "capped"):
+        rs = ResidentSearch(model, BATCH_PAXOS3, TABLE_PAXOS3, insert_variant=variant)
+        rs.run(max_steps=16)
+        gen0 = int(rs._c["gen"])
+        fn, args, slots = rs.audit_step()
+        report = audit_fn(fn, args, host_slots=slots)
+        reads = [v for v in report.violations if v.rule == "host-sync"]
+        active = int(report.out["gen"]) - gen0
+        B = BATCH_PAXOS3 * model.max_actions
+        pow2_b = 1 << max(B - 1, 1).bit_length()
+        tile = min(pow2_b, max(CLAIM_TILE, pow2_b // CAP_MAX_TILES))
+        want = 1 if variant == "sort" else 1 + -(-active // tile)
+        assert len(reads) == want, (variant, [str(v) for v in reads])
+        others = sorted({v.rule for v in report.violations} - {"host-sync"})
+        log(f"[designs] (d) audited resident paxos-3 {variant} step ({active} active lanes): "
+            f"{len(reads)} host reads, as its docstring states ({want}); "
+            f"{report.ops_per_step} ops; other findings: {others or 'none'}")
+        out.setdefault("d", {})[variant] = len(reads)
+        del rs, args
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
+    t_smoke = time.monotonic()
     only = None
     if "--only" in sys.argv:
         only = {int(x) for x in sys.argv[sys.argv.index("--only") + 1].split(",")}
@@ -5280,6 +5650,8 @@ def main() -> int:
     audit = phase(22, "static analysis", phase_analysis, ph, torch, chk)
     host = phase(23, "host checkers and Explorer", phase_host, ph, torch, chk)
     spawned = phase(24, "actor runtime, native bridge, CLIs", phase_spawn, ph, torch, chk)
+    phase(25, "XLA insert designs", phase_designs, ph, torch, device_path)
+    log(f"[time] whole smoke: {time.monotonic() - t_smoke:.1f} s")
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
         return 0

@@ -140,8 +140,7 @@ FAULT_EXC_NAMES = {
 }
 
 #: knob parameter/variable names -> registry attribute (knobs.py). A
-#: universe the port's registry does not declare (the JAX package's
-#: `TABLE_LAYOUTS` and `APPEND_KINDS`) is skipped, not invented.
+#: universe the port's registry does not declare is skipped, not invented.
 KNOB_UNIVERSES = {
     "insert_variant": "INSERT_VARIANTS",
     "store": "STORE_KINDS",

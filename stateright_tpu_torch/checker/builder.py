@@ -117,9 +117,9 @@ class CheckerBuilder:
         (checker/cuda.py: the resident engine, or with `resident=False` the
         host-driven one); "simulation" is the device random-walk engine,
         as `spawn_simulation(device=True, **kwargs)`. The other options go
-        to the engine (batch_size, table_log2, queue_log2, store,
-        high_water, low_water, summary_log2, telemetry, telemetry_log2);
-        an unknown one raises here."""
+        to the engine (batch_size, table_log2, queue_log2, insert_variant,
+        table_layout, append, store, high_water, low_water, summary_log2,
+        telemetry, telemetry_log2); an unknown one raises here."""
         from ..knobs import CHECKER_MODES
 
         if mode not in CHECKER_MODES:  # knob universe: knobs.py

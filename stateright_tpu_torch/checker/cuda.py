@@ -18,10 +18,10 @@ from ..core.model import Expectation
 from ..core.path import Path
 from .base import Checker
 
-#: The options the host-driven engine takes (the JAX checker's list, less
-#: the insert variant, of which the port has one, and with the torch device).
+#: The options the host-driven engine takes (the JAX checker's list, with
+#: the torch device).
 FRONTIER_OPTIONS = frozenset({
-    "store", "high_water", "low_water", "summary_log2", "telemetry",
+    "insert_variant", "store", "high_water", "low_water", "summary_log2", "telemetry",
     "telemetry_log2", "device",
 })
 
@@ -38,8 +38,9 @@ class CudaChecker(Checker):
     ):
         """The engine is built here, on the caller's thread, so a bad
         option or a missing CUDA device raises from spawn_cuda().
-        `engine_kwargs` go to the engine: `ResidentSearch` (the default) or,
-        with `resident=False`, `FrontierSearch`, which takes
+        `engine_kwargs` go to the engine: `ResidentSearch` (the default,
+        which takes `insert_variant`, `table_layout` and `append` among
+        them) or, with `resident=False`, `FrontierSearch`, which takes
         FRONTIER_OPTIONS only. `trace_out=<path>` records the host phases
         as Chrome trace-event JSON, saved when the search thread ends.
 

@@ -433,15 +433,17 @@ class Comparator:
 
 def make_comparator(engine: str, model, batch: int, table_log2: int, device, *,
                     spill: bool = False, events=None, record_root: Optional[str] = None,
-                    **sim) -> Optional[Comparator]:
+                    variant: str = "pallas", **sim) -> Optional[Comparator]:
     """The engines' constructor: a Comparator pricing `model`'s geometry
     on the spec of the engine's torch `device` (overlay-aware), registered
-    as the "calib" REGISTRY source; None when SR_TPU_CALIB=0."""
+    as the "calib" REGISTRY source; None when SR_TPU_CALIB=0. `variant` is
+    the cost model's name of the engine's insert
+    (costmodel.ENGINE_VARIANTS)."""
     if not calib_enabled():
         return None
     from .registry import REGISTRY
 
-    cfg = CalibConfig(engine=engine, variant="pallas", lanes=model.lanes,
+    cfg = CalibConfig(engine=engine, variant=variant, lanes=model.lanes,
                       max_actions=model.max_actions, batch=batch, table_log2=table_log2,
                       spill=spill, sim=bool(sim), **sim)
     comp = Comparator(cfg, device=active_device(default_device_kind(device)), events=events,

@@ -112,9 +112,10 @@ from ..tensor.frontier import (
     pop_batch,
     reconstruct_path,
     reinsert,
+    resolve_append,
     seed_init,
 )
-from ..tensor.inserts import check_table_log2, resolve_insert
+from ..tensor.inserts import PALLAS_READER, check_table_log2, resolve_insert
 from ..tensor.model import TensorModel
 from ..tensor.pallas_hashtable import from_jax_table, from_u32, to_jax_table, to_u32
 from ..tensor.resident import (
@@ -237,6 +238,8 @@ class ShardedSearch:
         telemetry: bool = True,
         telemetry_log2: int = 12,
         tracer=None,
+        insert_variant: str = "pallas",
+        append: Optional[str] = None,
     ):
         """`group` is the process group (default: the default group); its
         size is the shard count and this process's rank its shard. `device`
@@ -250,11 +253,19 @@ class ShardedSearch:
         successors plus 64, rounded up to 128, at most K*A. `store`,
         `high_water`, `low_water`, `summary_log2`, `telemetry`,
         `telemetry_log2` and `tracer` are the resident engine's, per shard
-        (tensor/resident.py)."""
+        (tensor/resident.py). `insert_variant` and `append` take their
+        defaults only ("pallas", the CUDA kernel, and "scatter") until
+        ROADMAP A9b threads the JAX package's XLA designs and the "dus"
+        append through this engine; any other value raises ValueError."""
+        if insert_variant != "pallas" or resolve_append(append) != "scatter":
+            raise ValueError(
+                "ShardedSearch takes insert_variant='pallas' and the default append "
+                f"only until ROADMAP A9b; got {insert_variant!r} / {append!r}"
+            )
         self.device = _rank_device(device, group)
         if store not in STORE_KINDS:  # knob universe: knobs.py
             raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
-        check_table_log2(table_log2)
+        check_table_log2(insert_variant, table_log2)
         self.group = group
         pg = group if group is not None else dist.group.WORLD
         self.n_chips = dist.get_world_size(group)
@@ -263,7 +274,8 @@ class ShardedSearch:
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
-        self.insert = resolve_insert("pallas")
+        self.insert = resolve_insert(insert_variant)
+        self._reader = PALLAS_READER  # how undo_chunk reads the table
         self.props = model.properties()
         self.store = store
         ka = batch_size * model.max_actions

@@ -120,8 +120,8 @@ class CheckService:
     ):
         """The shared table lives on `device`: the CUDA card unless
         `device="cpu"` is passed; with no CUDA device the default raises.
-        `insert_variant` has one value here, "pallas" (knobs.py), the CUDA
-        kernel on the card.
+        `insert_variant` takes "pallas" (knobs.py), the CUDA kernel on the
+        card, only, until ROADMAP A9b; any other value raises ValueError.
 
         `telemetry=True` records one step row per fused step (obs/ring.py;
         `stats()["telemetry"]`, `/.status`, `/metrics`). `trace_out=<path>`

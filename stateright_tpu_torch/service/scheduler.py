@@ -160,9 +160,17 @@ class ServiceEngine:
         """The table lives on `device`: the CUDA card unless `device="cpu"`
         is passed; with no CUDA device the default raises. `corpus_dir`
         attaches the warm-start corpus (store/corpus.py), which needs the
-        tiered store: a known state is filtered through its spill tier."""
+        tiered store: a known state is filtered through its spill tier.
+        `insert_variant` takes "pallas", the CUDA kernel, only, until ROADMAP
+        A9b: the shared table's undo, eviction and re-seed read the kernel's
+        slot layout; any other value raises ValueError."""
+        if insert_variant != "pallas":
+            raise ValueError(
+                "the check service takes insert_variant='pallas' only until ROADMAP "
+                f"A9b; got {insert_variant!r}"
+            )
         self.batch_size = batch_size
-        self._insert = resolve_insert(insert_variant)  # raises on an unknown name
+        self._insert = resolve_insert(insert_variant)
         self.table = PallasHashTable(table_log2, device=device)
         self.device = self.table.device
         # One telemetry ring for the engine's life: every scalar of a row is

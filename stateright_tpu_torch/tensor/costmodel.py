@@ -11,15 +11,20 @@ fits.
 
 What it prices is the port's step, not the TPU's designs:
 
-- the visited-set insert is the CUDA kernel of csrc/visited_insert.cu (the
-  "pallas" variant; `ENGINE_VARIANTS` maps only ("split", "pallas")). Its
-  bytes are the chain scan the kernel's bucket layout makes an active lane
+- the visited-set insert is by default the CUDA kernel of
+  csrc/visited_insert.cu (the "pallas" variant). Its bytes are the chain scan the kernel's bucket layout makes an active lane
   read, measured by chip_smoke.py phases 3 and 4 at the 2pc-10 step shape
   (PERF.md §6: 9.268 32-byte sectors per active lane for the plain form,
   15.887 for the fused Bloom-suspect form), at the gather rate, plus the
   bytes the function must move (flags, keys, claims) at the scatter rate.
   There is no partition stream and no route sort: the kernel compacts the
-  active lanes itself;
+  active lanes itself. The JAX package's XLA designs (tensor/hashtable.py:
+  the cost variants "split", "kv", "phased", "capped", "capped-kv") are
+  priced with the JAX module's branches, at the port's int64 lanes: a
+  bucket row is 128 int64 lanes in either layout, and a sort moves an
+  int64 key and an int64 index a lane. No rate is fitted to them: their
+  terms price at the committed rates, and a step's launches, their host
+  reads' rounds included, enter through the counted `launches`;
 - lanes are int64 on the card, so the expand and append bytes count 8 per
   lane;
 - the step is host-bound (PERF.md §5: a paxos-3 step issues ~1,040 launches
@@ -40,15 +45,34 @@ steps without touching a device.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
-# INSERT_VARIANTS: the priced insert designs, the registry's own tuple
-# (knobs.check_registry pins the alias).
-from ..knobs import INSERT_VARIANTS, SIM_DEDUP_KINDS
+from ..knobs import COST_VARIANTS, SIM_DEDUP_KINDS
 
-#: (table_layout, insert_variant) engine options -> cost-model variant name.
-ENGINE_VARIANTS = {("split", "pallas"): "pallas"}
+#: The priced insert designs: the registry's cost alphabet, under the name
+#: this module has always used (knobs.check_registry pins the alias).
+INSERT_VARIANTS = COST_VARIANTS
+
+#: (table_layout, insert_variant) engine options -> cost-model variant name
+#: (the JAX module's table).
+ENGINE_VARIANTS = {
+    ("split", "sort"): "split",
+    ("kv", "sort"): "kv",
+    ("split", "phased"): "phased",
+    ("split", "capped"): "capped",
+    ("kv", "capped"): "capped-kv",
+    ("split", "capped-phased"): "capped",
+    ("split", "pallas"): "pallas",
+}
+
+#: Mirrors of tensor/hashtable.py's layout constants (pinned by a test).
+BUCKET = 128
+CLAIM_TILE = 4096
+CAP_MAX_TILES = 64
+#: Operands of the designs' sorts a lane: the int64 key and its index.
+SORT_OPERANDS = 2
 
 SECTOR_BYTES = 32
 #: 32-byte sectors of the table's key array an active lane's chain scan
@@ -62,6 +86,8 @@ INSERT_LAUNCHES = 3
 CLAIM_SHARE = 0.5
 #: Bytes of one lane (int64 on the card).
 LANE_BYTES = 8
+#: One gathered bucket row of the designs' tables: 128 int64 lanes.
+BUCKET_ROW_BYTES = BUCKET * LANE_BYTES
 #: Bloom probe words the fused form reads for each active lane.
 SUMMARY_HASHES = 4
 
@@ -224,6 +250,46 @@ def _ms(nbytes: float, gbps: float) -> float:
 SPILL_ENTRY_BYTES = 16  # (key, parent) per evicted slot
 
 
+def _design_ops(variant: str, B: int, new_frac: float, phased_rounds: float, tile: int,
+                device: DeviceSpec) -> list:
+    """The insert terms of the JAX package's XLA designs (its step_cost
+    branches) at the port's byte widths, for `B` flat lanes."""
+    log2_b = math.log2(max(B, 2))
+    sort_full = SORT_OPERANDS * LANE_BYTES * B * log2_b
+    gathers_full = B * BUCKET_ROW_BYTES
+    claim_full = 8 * B * LANE_BYTES  # table scatters, unsort, readbacks
+    if variant in ("split", "kv"):
+        return [
+            OpCost("insert_sort", sort_full, _ms(sort_full, device.gbps_sort)),
+            OpCost("insert_gather", gathers_full, _ms(gathers_full, device.gbps_gather)),
+            OpCost("insert_claim", claim_full, _ms(claim_full, device.gbps_scatter)),
+        ]
+    if variant == "phased":
+        # No sort: `phased_rounds` rounds, each a full-width row gather and
+        # three scatter-max phases with their read-backs.
+        per_round = 16 * B * LANE_BYTES
+        return [
+            OpCost("insert_gather", phased_rounds * gathers_full,
+                   phased_rounds * _ms(gathers_full, device.gbps_gather)),
+            OpCost("insert_claim", phased_rounds * per_round,
+                   phased_rounds * _ms(per_round, device.gbps_scatter)),
+        ]
+    # capped / capped-kv: active-lane compaction, then claim tiles.
+    pow2_b = 1 << max(int(B) - 1, 1).bit_length()
+    T = min(pow2_b, max(tile, pow2_b // CAP_MAX_TILES))
+    n_tiles = max(math.ceil(new_frac * B / T), 0)
+    compact = 10 * B * LANE_BYTES
+    tile_sort = n_tiles * SORT_OPERANDS * LANE_BYTES * T * math.log2(max(T, 2))
+    tile_gather = n_tiles * T * BUCKET_ROW_BYTES
+    tile_claim = n_tiles * 8 * T * LANE_BYTES
+    return [
+        OpCost("insert_compact", compact, _ms(compact, device.gbps_stream)),
+        OpCost("insert_sort", tile_sort, _ms(tile_sort, device.gbps_sort)),
+        OpCost("insert_gather", tile_gather, _ms(tile_gather, device.gbps_gather)),
+        OpCost("insert_claim", tile_claim, _ms(tile_claim, device.gbps_scatter)),
+    ]
+
+
 def _insert_ops(flat: int, new_frac: float, device: DeviceSpec, fused: bool) -> list:
     """The insert kernel's two terms for `flat` lanes of which `new_frac`
     are active: the chain scan (sectors per active lane, gather rate) and
@@ -249,11 +315,14 @@ def step_cost(
     append: str = "dus",
     new_frac: float = 0.5,
     launches: float = 0.0,
+    phased_rounds: float = 3.9,
+    tile: int = CLAIM_TILE,
     device: DeviceSpec = H100,
     spill: Optional[dict] = None,
 ) -> StepCost:
     """Predict one engine step: `batch` rows popped, `max_actions`
-    successors each, `lanes` int64 lanes a state.
+    successors each, `lanes` int64 lanes a state, for an insert `variant`
+    (INSERT_VARIANTS; the engines map theirs through ENGINE_VARIANTS).
 
     `new_frac` is the fraction of the batch x max_actions flat successor
     lanes that are active (generated states / flat lanes, which the
@@ -261,7 +330,10 @@ def step_cost(
     (the engine's counted first step); 0 prices no dispatch. `table_log2`
     does not enter: a lane's scan is measured in sectors per active lane
     at the load factors the engines keep. `append` is accepted for the JAX
-    signature; the port has one append (a compacted block write).
+    signature; both of the port's appends are priced as one compacted
+    block write. `phased_rounds` (the phased design's probe rounds a call,
+    the JAX default) and `tile` (the capped designs' claim tile) price the
+    designs only.
 
     `spill` (None: the device store, priced exactly as without the
     argument) prices the tiered store: the fused form's longer scan and
@@ -275,7 +347,10 @@ def step_cost(
 
     expand_bytes = LANE_BYTES * (K * L + 2 * B * L)
     ops.append(OpCost("expand_fuse", expand_bytes, B * L * device.ns_expand_elem * 1e-6))
-    ops.extend(_insert_ops(B, new_frac, device, fused=spill is not None))
+    if variant == "pallas":
+        ops.extend(_insert_ops(B, new_frac, device, fused=spill is not None))
+    else:
+        ops.extend(_design_ops(variant, B, new_frac, phased_rounds, tile, device))
     append_bytes = 2 * LANE_BYTES * (L + 4) * B
     ops.append(OpCost("append", append_bytes, _ms(append_bytes, device.gbps_stream)))
 

@@ -35,15 +35,16 @@ from ..core.discovery import HasDiscoveries
 from ..core.model import Expectation
 from ..core.path import Path
 from ..faults.ckptio import fenced_savez, load_latest
-from ..knobs import STORE_KINDS, WARM_KINDS
+from ..knobs import APPEND_KINDS, STORE_KINDS, WARM_KINDS
 from ..faults.plan import maybe_fault
 # `calib` as a module: obs.calib imports the tensor package, which imports this.
 from ..obs import REGISTRY, StepRing, as_tracer, build_detail, calib
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
-from .inserts import resolve_insert
+from .costmodel import ENGINE_VARIANTS
+from .inserts import INSERT_TABLE, make_table, resolve_insert, resolve_reader
 from .model import TensorModel
-from .pallas_hashtable import PallasHashTable, from_jax_table, to_jax_table
+from .pallas_hashtable import from_jax_table, to_jax_table
 
 
 def state_fingerprint(model: TensorModel, states: torch.Tensor) -> torch.Tensor:
@@ -165,6 +166,44 @@ def append_new(queue, tail, rows, is_new):
     )
     for q, r in zip(queue, rows):
         q.index_copy_(0, qpos, r)
+    return tail + n_new
+
+
+def resolve_append(append: Optional[str], device=None) -> str:
+    """The queue append of an engine (knobs.APPEND_KINDS). The port's default
+    is "scatter" on every device, so `device` (the JAX signature's
+    platform) does not change it: "scatter" is the append the card has
+    measured. The JAX package defaults to "dus" off the CPU, a choice made
+    for the TPU's column-major queue layout (its `frontier.resolve_append`);
+    a caller picks "dus" by name here."""
+    if append is None:
+        return "scatter"
+    if append not in APPEND_KINDS:  # knob universe: knobs.py
+        raise ValueError(f"append must be one of {APPEND_KINDS}, got {append!r}")
+    return append
+
+
+def append_new_dus(queue, tail, rows, is_new):
+    """The compact-then-write append (the JAX package's `append_new_dus`):
+    the is_new rows, in lane order, are compacted to the front of an M-row
+    block whose other rows are zero, and the block lands at [tail, tail + M)
+    in one copy per queue array whose target rows are contiguous. The tail
+    is a device value the host never reads, so the write is an indexed copy
+    at `tail + arange(M)` (the JAX dynamic_update_slice), clamped row by row
+    as `append_new` clamps, which keeps the scratch writes of an aborted
+    search's no-op steps past its tail. Rows [0, tail) after any sequence
+    of appends equal `append_new`'s. Returns the new tail."""
+    M = is_new.shape[0]
+    n_new = is_new.sum()
+    pos = torch.where(is_new, torch.cumsum(is_new, 0) - 1,
+                      torch.cumsum(~is_new, 0) - 1 + n_new)
+    lanes = torch.arange(M, device=is_new.device)
+    keep = lanes < n_new
+    qpos = torch.clamp(tail + lanes, max=queue[1].shape[0] - 1)
+    for q, r in zip(queue, rows):
+        block = torch.empty_like(r).index_copy_(0, pos, r)
+        block = torch.where(keep.view(-1, *([1] * (r.dim() - 1))), block, 0)
+        q.index_copy_(0, qpos, block)
     return tail + n_new
 
 
@@ -316,15 +355,18 @@ class FrontierSearch:
     `checkpoint` / `load_checkpoint` write and read it in the JAX engine's
     file format, both ways."""
 
-    # The warm ladder's vocabulary and seam, aliased (knobs.check_registry).
+    # The warm ladder's vocabulary and seam, and the insert dispatch table,
+    # aliased (knobs.check_registry).
     WARM_KINDS = WARM_KINDS
     WARM_SEAM = warm_seam
+    INSERT_VARIANTS = INSERT_TABLE
 
     def __init__(
         self,
         model: TensorModel,
         batch_size: int = 1024,
         table_log2: int = 20,
+        insert_variant: str = "pallas",
         store: str = "device",
         high_water: float = 0.85,
         low_water: Optional[float] = None,
@@ -341,15 +383,27 @@ class FrontierSearch:
         `telemetry` appends one obs.STEP_COLS row per step on the host,
         from scalars the step already reads, with its wall time; `tracer`
         (obs.Tracer) records the steps, suspect resolution and eviction as
-        Chrome trace spans."""
-        self.model = model
-        self.batch_size = batch_size
-        self.insert = resolve_insert("pallas")
-        self.table = PallasHashTable(table_log2, device=device)
-        self.device = self.table.device
-        self.table_log2 = table_log2
+        Chrome trace spans.
+
+        `insert_variant` picks the visited-set insert (knobs.INSERT_VARIANTS,
+        split layout): "pallas", the CUDA kernel, by default, or one of the
+        JAX package's XLA designs (tensor/hashtable.py). The tiered store
+        takes "pallas" only until ROADMAP A9b."""
         if store not in STORE_KINDS:  # knob universe: knobs.py
             raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
+        if store == "tiered" and insert_variant != "pallas":
+            raise ValueError(
+                f"store='tiered' takes insert_variant='pallas' only until ROADMAP A9b; "
+                f"got {insert_variant!r}"
+            )
+        self.model = model
+        self.batch_size = batch_size
+        self.insert_variant = insert_variant
+        self.insert = resolve_insert(insert_variant)
+        self._reader = resolve_reader(insert_variant)
+        self.table = make_table(insert_variant, table_log2, device=device)
+        self.device = self.table.device
+        self.table_log2 = table_log2
         self.store = store
         self._store = None
         if store == "tiered":
@@ -381,9 +435,9 @@ class FrontierSearch:
         self._metrics_name = REGISTRY.register("frontier", self.metrics)
         # The calibration comparator (obs/calib.py): fed by the step times
         # the engine already measures; observes, never steers.
-        self._calib = (calib.make_comparator("frontier", model, batch_size, table_log2,
-                                             self.device, spill=store == "tiered")
-                       if telemetry else None)
+        self._calib = (calib.make_comparator(
+            "frontier", model, batch_size, table_log2, self.device, spill=store == "tiered",
+            variant=ENGINE_VARIANTS[("split", insert_variant)]) if telemetry else None)
         self.properties = model.properties()
         # Host staging of one padded batch: pinned on a card, so that each
         # operand goes up in one asynchronous copy.
@@ -787,7 +841,7 @@ class FrontierSearch:
     def checkpoint(self, path: str) -> str:
         """Write the visited table, the pending frontier, the counters and
         the discoveries to `path` (.npz, crash-atomic, faults/ckptio.py) in
-        the JAX engine's format, with `insert_variant: "pallas"` (this
+        the JAX engine's format, with this engine's `insert_variant` (the
         table's slot layout). Valid whenever run() has returned, after a
         suspension too; `load_checkpoint` in either package continues it."""
         if self._q is None:
@@ -821,7 +875,7 @@ class FrontierSearch:
                 "max_actions": self.model.max_actions,
                 "properties": [p.name for p in self.properties],
                 "table_log2": self.table_log2,
-                "insert_variant": "pallas",
+                "insert_variant": self.insert_variant,
                 "hot_claims": self._hot_claims,
                 "store": self._store.meta() if self._store is not None else None,
             }).encode(), dtype=np.uint8),
@@ -834,10 +888,11 @@ class FrontierSearch:
         """A suspended search from a `checkpoint` file written by this
         package or the JAX one; the next run() continues it. The CRC footer
         is verified, and a corrupt current generation falls back to
-        ``path + ".prev"``. A table of another slot layout (a JAX run with
-        another insert variant than "pallas", such as its default "sort")
-        is taken by re-inserting its occupied slots through the insert,
-        never slot for slot."""
+        ``path + ".prev"``. The search resumes on the file's insert variant
+        (the JAX engine's "sort" when the meta names none), its table taken
+        slot for slot. A tiered file of an XLA design resumes on "pallas",
+        its occupied slots re-inserted through the kernel, since the tiered
+        store takes the designs only from ROADMAP A9b."""
         data, _src = load_latest(path)
         meta = json.loads(bytes(data["meta"]).decode())
         if (meta["lanes"], meta["max_actions"]) != (model.lanes, model.max_actions):
@@ -858,7 +913,11 @@ class FrontierSearch:
             store_kw = dict(store="tiered", high_water=store_meta["high_water"],
                             low_water=store_meta["low_water"],
                             summary_log2=store_meta["summary_log2"])
-        fs = cls(model, batch_size, meta["table_log2"], device=device, **store_kw)
+        variant = meta.get("insert_variant", "sort")
+        reinserted = bool(store_meta) and variant != "pallas"
+        fs = cls(model, batch_size, meta["table_log2"],
+                 insert_variant="pallas" if reinserted else variant, device=device,
+                 **store_kw)
         if store_meta:
             from ..store.tiered import TieredStore
 
@@ -869,7 +928,7 @@ class FrontierSearch:
             )
         t_key, t_parent = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"],
                                          data["p_hi"], device=fs.device)
-        if meta.get("insert_variant", "sort") == "pallas":
+        if not reinserted:
             fs.table.t_key.copy_(t_key)
             fs.table.t_parent.copy_(t_parent)
         else:
@@ -903,6 +962,7 @@ class FrontierSearch:
         from .resident import _TableParents
 
         return reconstruct_path(
-            self.model, _TableParents(self.table.t_key, self.table.t_parent, self._store),
+            self.model, _TableParents(self.table.t_key, self.table.t_parent, self._store,
+                                      self._reader.lookup),
             fp, self.device,
         )

@@ -1,20 +1,45 @@
-"""The insert-variant dispatch: variant name -> insert function, the one
-resolution point the engine and the table handle call (the JAX package's
-`tensor/inserts.py`). This slice has one variant, "pallas": the registered
-op `stateright_tpu_torch::visited_insert` (tensor/pallas_hashtable.py),
-whose CUDA implementation is the kernel and whose CPU implementation is its
-plain torch version. There is no other rule and no fallback: a CUDA tensor
-always goes to the kernel, a failed build or launch raises, and any other
-device raises here. Both forms of the insert go the same way: with a
-`summary` (the tiered store's Bloom words) the call is the fused
-Bloom-suspect form, `::visited_insert_bloom`, on the card too — never the
-plain kernel followed by a separate `maybe_contains` pass.
+"""The insert-variant dispatch: variant name (and table layout) -> insert
+function, the one resolution point the engines and the table handles call
+(the JAX package's `tensor/inserts.py`). `knobs.py` owns the names, this
+module the dispatch, and `knobs.check_registry()` pins the two together.
+
+- "pallas" is the registered op `stateright_tpu_torch::visited_insert`
+  (tensor/pallas_hashtable.py), whose CUDA implementation is the kernel and
+  whose CPU implementation is its plain torch version; with a `summary`
+  (the tiered store's Bloom words) the call is the fused Bloom-suspect
+  form, `::visited_insert_bloom`. It is every engine's default;
+- "sort", "phased", "capped" and "capped-phased" are the JAX package's XLA
+  designs as torch ops (tensor/hashtable.py), on the split layout, and
+  "sort" and "capped" on the kv layout too. They run on any device, each
+  only when asked for by name.
+
+There is no fallback either way: a design never becomes the kernel, and the
+kernel never becomes a design. Every entry shares one signature,
+
+    insert(table, t_parent, key, parent, active)
+        -> (table, t_parent, is_new, overflow)
+
+with the tables updated in place; the pallas entry also takes
+`n_partitions`, `summary` and `summary_cfg`.
 """
 
 from __future__ import annotations
 
-from ..knobs import INSERT_VARIANTS
-from .pallas_hashtable import insert_op, partitions
+from typing import Callable, NamedTuple
+
+from ..knobs import INSERT_VARIANTS, PHASED_VARIANTS, TABLE_LAYOUTS
+from . import hashtable, pallas_hashtable
+from .hashtable import (
+    HashTable,
+    HashTableKV,
+    _insert_impl,
+    _insert_impl_capped,
+    _insert_impl_kv,
+    _insert_impl_kv_capped,
+    _insert_impl_phased,
+    _insert_impl_phased_capped,
+)
+from .pallas_hashtable import PallasHashTable, insert_op, partitions
 
 
 def _insert_pallas(t_key, t_parent, key, parent, active, n_partitions=None,
@@ -24,18 +49,123 @@ def _insert_pallas(t_key, t_parent, key, parent, active, n_partitions=None,
     return insert_op(t_key, t_parent, key, parent, active, n_partitions, summary, summary_cfg)
 
 
-INSERT_TABLE = {"pallas": _insert_pallas}
+#: split-layout dispatch: the keys are exactly knobs.INSERT_VARIANTS.
+INSERT_TABLE = {
+    "sort": _insert_impl,
+    "phased": _insert_impl_phased,
+    "capped": _insert_impl_capped,
+    "capped-phased": _insert_impl_phased_capped,
+    "pallas": _insert_pallas,
+}
+
+#: kv-layout dispatch: the designs with a kv form.
+KV_INSERT_TABLE = {
+    "sort": _insert_impl_kv,
+    "capped": _insert_impl_kv_capped,
+}
 
 
-def check_table_log2(table_log2: int) -> None:
-    """The table must hold at least one 128-slot bucket."""
-    partitions(1 << table_log2)
-
-
-def resolve_insert(insert_variant: str):
+def _check_names(insert_variant: str, table_layout: str) -> None:
+    if table_layout not in TABLE_LAYOUTS:  # knob universe: knobs.py
+        raise ValueError(f"table_layout must be one of {TABLE_LAYOUTS}, got {table_layout!r}")
     if insert_variant not in INSERT_VARIANTS:  # knob universe: knobs.py
         raise ValueError(
-            f"insert_variant must be one of {INSERT_VARIANTS}, "
-            f"got {insert_variant!r}"
+            f"insert_variant must be one of {INSERT_VARIANTS}, got {insert_variant!r}"
+        )
+    if table_layout == "kv" and insert_variant not in KV_INSERT_TABLE:
+        raise ValueError(
+            f"insert_variant={insert_variant!r} supports the split table layout only"
+        )
+
+
+def check_table_log2(insert_variant: str, table_log2: int) -> None:
+    """The constructors' size guard. Only "pallas" has a floor: its table
+    must hold one 128-slot bucket (pallas_hashtable.partitions). The
+    designs take any power-of-two table (tiny ones shrink to one bucket)."""
+    if insert_variant == "pallas":
+        partitions(1 << table_log2)
+    elif table_log2 < 0:
+        raise ValueError(f"table_log2 must be >= 0, got {table_log2}")
+
+
+def make_table(insert_variant: str, table_log2: int, device="cuda",
+               table_layout: str = "split"):
+    """The host table handle of a variant: `PallasHashTable` (its own slot
+    layout, so every insert into it, seeding included, is the kernel's), or
+    a design's `HashTable` / `HashTableKV`."""
+    _check_names(insert_variant, table_layout)
+    check_table_log2(insert_variant, table_log2)
+    if insert_variant == "pallas":
+        return PallasHashTable(table_log2, device=device)
+    cls = HashTableKV if table_layout == "kv" else HashTable
+    return cls(table_log2, insert_variant, device=device)
+
+
+def resolve_insert(insert_variant: str, table_layout: str = "split", *, summary_cfg=None):
+    """variant name (and layout) -> insert function. JAX's refusals: an
+    unknown name, and "phased", "capped-phased" or "pallas" on the kv
+    layout. `summary_cfg` asks for the tiered store's fused Bloom-suspect
+    form, which only "pallas" has here: the designs do not run with the
+    tiered store before ROADMAP A9b, and asking raises."""
+    _check_names(insert_variant, table_layout)
+    if table_layout == "kv":
+        return KV_INSERT_TABLE[insert_variant]
+    if summary_cfg is not None and insert_variant != "pallas":
+        raise ValueError(
+            f"insert_variant={insert_variant!r} has no fused Bloom-suspect form; the "
+            "tiered store takes insert_variant='pallas' until ROADMAP A9b"
         )
     return INSERT_TABLE[insert_variant]
+
+
+class TableReader(NamedTuple):
+    """How an engine reads its table by key, for one variant and layout:
+    `find_slots(table, key)` (-1 absent), `lookup(table, t_parent, key)`
+    (0 absent), `dump(table, t_parent)` ({key: parent}), `clear(table,
+    t_parent, slots)`, `occupied(table)` (bool[S]) and `slot_keys(table)`
+    (int64[S], the key of each slot)."""
+
+    find_slots: Callable
+    lookup: Callable
+    dump: Callable
+    clear: Callable
+    occupied: Callable
+    slot_keys: Callable
+
+
+def _clear_pallas(t_key, t_parent, slots) -> None:
+    t_key.index_fill_(0, slots, 0)
+    t_parent.index_fill_(0, slots, 0)
+
+
+PALLAS_READER = TableReader(
+    find_slots=pallas_hashtable.find_slots,
+    lookup=pallas_hashtable.lookup,
+    dump=pallas_hashtable.dump_table,
+    clear=_clear_pallas,
+    occupied=lambda t_key: t_key != 0,
+    slot_keys=lambda t_key: t_key,
+)
+
+
+def _design_reader(layout: str) -> TableReader:
+    return TableReader(
+        find_slots=lambda table, key: hashtable.find_slots(table, key, layout),
+        lookup=lambda table, t_parent, key: hashtable.lookup(table, t_parent, key, layout),
+        dump=lambda table, t_parent: hashtable.dump(table, t_parent, layout),
+        clear=lambda table, t_parent, slots: hashtable.clear_slots(table, t_parent, slots,
+                                                                   layout),
+        occupied=lambda table: hashtable.occupied(table, layout),
+        slot_keys=lambda table: hashtable.slot_keys(table, layout),
+    )
+
+
+_READERS = {"split": _design_reader("split"), "kv": _design_reader("kv")}
+
+
+def resolve_reader(insert_variant: str, table_layout: str = "split") -> TableReader:
+    """The `TableReader` of a variant's table: the kernel's slot layout
+    for "pallas", the designs' bucket chains (split or kv) otherwise."""
+    _check_names(insert_variant, table_layout)
+    return PALLAS_READER if insert_variant == "pallas" else _READERS[table_layout]
+

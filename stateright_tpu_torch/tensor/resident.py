@@ -14,6 +14,15 @@ evaluates the stop condition on the device and, once it holds, pops nothing
 and counts nothing: steps past the stop are no-ops, and the counts are
 exactly the JAX engine's.
 
+The insert is the CUDA kernel by default (`insert_variant="pallas"`), which
+reads nothing back to the host. `insert_variant=` also takes the JAX
+package's XLA designs ("sort", "phased", "capped", "capped-phased",
+tensor/hashtable.py), on the split or, for "sort" and "capped", the kv
+`table_layout`; each reads its loop conditions on the host inside the step
+(hashtable.py counts them), and its table equals the JAX engine's on the
+same variant slot for slot. `append=` picks the queue append ("scatter",
+the default, or "dus", frontier.append_new_dus).
+
 Capacity: every unique state is enqueued exactly once, so a queue of
 2^queue_log2 rows plus one step's worth of append slack can only fill when
 the search has that many unique states; crossing it sets ABORT_QUEUE, a
@@ -28,8 +37,10 @@ last chunk boundary, as the JAX engine's revert to its pre-chunk carry does,
 but without a copy of the carry: the steps change the table and the queue in
 place, so each chunk starts with a snapshot of the counters only (one stack
 and one clone, no host sync), and `_undo_chunk` clears the slots that the
-chunk claimed (see there). `load_checkpoint` with a larger `table_log2`
-regrows the table by re-inserting its keys through the insert kernel.
+chunk claimed (see there). `load_checkpoint` resumes on the file's insert
+variant; with a larger `table_log2` it regrows the table by re-inserting
+its keys, through the kernel for a "pallas" table and through the "sort"
+design for the designs' tables, as the JAX engine does.
 
 store="tiered" (store/tiered.py) lets the unique states outnumber the
 table. Each step inserts through the fused Bloom-suspect form of the
@@ -73,6 +84,7 @@ from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
     SearchResult,
     append_new,
+    append_new_dus,
     compact_queue,
     expand_insert,
     inject_rows,
@@ -80,19 +92,13 @@ from .frontier import (
     reconstruct_path,
     reinsert,
     record_discovery,
+    resolve_append,
     seed_init,
 )
-from .inserts import check_table_log2, resolve_insert
+from .costmodel import ENGINE_VARIANTS
+from .inserts import PALLAS_READER, check_table_log2, resolve_insert, resolve_reader
 from .model import TensorModel
-from .pallas_hashtable import (
-    dump_table,
-    find_slots,
-    from_jax_table,
-    from_u32,
-    lookup,
-    to_jax_table,
-    to_u32,
-)
+from .pallas_hashtable import from_jax_table, from_u32, to_jax_table, to_u32
 
 # Abort-code bits of the carry's `overflow` counter (nonzero stops the search).
 ABORT_TABLE = 1  # a visited-table partition is full
@@ -224,12 +230,17 @@ def undo_chunk(eng) -> None:
     [tail0, tail) — or, tiered, buffered as a suspect at
     [s_tail0, s_tail), the suspects keeping their claims — where tail0
     and s_tail0 are the boundary's. Clearing exactly their slots, found
-    by the chain walk before any of them is cleared (a cleared slot
+    by the chain walk of the engine's table reader (`eng._reader`,
+    tensor/inserts.py) before any of them is cleared (a cleared slot
     would end a later key's walk early), gives back the boundary's
-    table, and every chain is again "occupied prefix, then empty"
-    (tensor/pallas_hashtable.py). Queue and buffer rows below the
-    boundary's tails are never written inside a chunk, so restoring the
-    counters and discovery keys restores the rest."""
+    table. That holds for the kernel's table, whose chains are "occupied
+    prefix, then empty" (tensor/pallas_hashtable.py), and for the XLA
+    designs' tables alike: their rows fill from the front, a key passes a
+    bucket only while that bucket is full, and a device store never
+    empties a slot, so the chunk's claims are the last slots of their
+    rows' prefixes. Queue and buffer rows below the boundary's tails are
+    never written inside a chunk, so restoring the counters and discovery
+    keys restores the rest."""
     c = eng._c
     snap, disc = eng._snap
     names = eng._scalars()
@@ -238,12 +249,12 @@ def undo_chunk(eng) -> None:
     if eng._store is not None:
         claimed.append(c["s_keys"][at["s_tail"]:int(c["s_tail"])])
     keys = torch.cat(claimed)
-    slots = torch.cat([find_slots(c["t_key"], part) for part in keys.split(1 << 22)])
+    reader = eng._reader
+    slots = torch.cat([reader.find_slots(c["t_key"], part) for part in keys.split(1 << 20)])
     if bool((slots < 0).any()):
         # srlint: fault-ok the undo's invariant (a claimed key is in the table), not infra
         raise RuntimeError("undo of an aborted chunk: a claimed key is not in the table")
-    c["t_key"].index_fill_(0, slots, 0)
-    c["t_parent"].index_fill_(0, slots, 0)
+    reader.clear(c["t_key"], c["t_parent"], slots)
     c.update(zip(names, snap.clone().unbind()))
     c["disc_keys"].copy_(disc)
 
@@ -336,10 +347,13 @@ class _TableParents:
     tiered store the spill tier answers first: a suspect that was a
     duplicate keeps a later claim in the table, and the spilled entry holds
     the parent the BFS first wrote, which keeps paths acyclic (the JAX
-    engine's build_parent_map lets the spill tier win the same way)."""
+    engine's build_parent_map lets the spill tier win the same way).
+    `lookup` reads the table by key (inserts.TableReader.lookup; default
+    the kernel's slot layout)."""
 
-    def __init__(self, t_key, t_parent, store=None):
+    def __init__(self, t_key, t_parent, store=None, lookup=PALLAS_READER.lookup):
         self.t_key, self.t_parent, self.store = t_key, t_parent, store
+        self.lookup = lookup
 
     def get(self, fp: int, default: int = 0) -> int:
         if self.store is not None:
@@ -348,7 +362,7 @@ class _TableParents:
                 return int(parent[0]) or default
         key = torch.tensor([from_host_fp(fp)], dtype=torch.int64,
                            device=self.t_key.device)
-        parent = int(to_host_fp(lookup(self.t_key, self.t_parent, key))[0])
+        parent = int(to_host_fp(self.lookup(self.t_key, self.t_parent, key))[0])
         return parent or default
 
 
@@ -366,6 +380,9 @@ class ResidentSearch:
         table_log2: int = 20,
         queue_log2: Optional[int] = None,
         device="cuda",
+        insert_variant: str = "pallas",
+        table_layout: str = "split",
+        append: Optional[str] = None,
         store: str = "device",
         high_water: float = 0.85,
         low_water: Optional[float] = None,
@@ -385,6 +402,14 @@ class ResidentSearch:
         behind a Bloom summary of 2^summary_log2 bits (~6 bits per spilled
         state keeps suspects rare); see store/tiered.py.
 
+        `insert_variant` picks the visited-set insert (knobs.INSERT_VARIANTS):
+        "pallas", the CUDA kernel, by default, or one of the JAX package's
+        XLA designs (tensor/hashtable.py). `table_layout` is "split" or, for
+        "sort" and "capped", "kv" (knobs.TABLE_LAYOUTS); `append` is the
+        queue append (knobs.APPEND_KINDS; None: "scatter",
+        frontier.resolve_append). The tiered store takes the defaults only
+        until ROADMAP A9b.
+
         `telemetry` keeps a device ring of the last 2^telemetry_log2 step
         rows, drained at chunk boundaries into `detail["telemetry"]`;
         `tracer` (obs.Tracer) records host phases as Chrome trace spans."""
@@ -395,14 +420,25 @@ class ResidentSearch:
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the search on the CPU"
             )
-        check_table_log2(table_log2)
+        self.insert = resolve_insert(insert_variant, table_layout)  # JAX's refusals
+        check_table_log2(insert_variant, table_log2)
         if store not in STORE_KINDS:  # knob universe: knobs.py
             raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
+        self.append = resolve_append(append, self.device)
+        if store == "tiered" and table_layout != "split":
+            raise ValueError("store='tiered' supports the split table layout only")
+        if store == "tiered" and (insert_variant != "pallas" or self.append != "scatter"):
+            raise ValueError(
+                "store='tiered' takes insert_variant='pallas' and the default append "
+                f"only until ROADMAP A9b; got {insert_variant!r} / {append!r}"
+            )
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
         self.queue_log2 = table_log2 if queue_log2 is None else queue_log2
-        self.insert = resolve_insert("pallas")
+        self.insert_variant = insert_variant
+        self.table_layout = table_layout
+        self._reader = resolve_reader(insert_variant, table_layout)
         self.props = model.properties()
         self.store = store
         self._store = None
@@ -464,9 +500,9 @@ class ResidentSearch:
         self._metrics_name = REGISTRY.register("resident", self.metrics)
         # The calibration comparator (obs/calib.py): fed by the counter read
         # each chunk already makes; observes, never steers.
-        self._calib = (calib.make_comparator("resident", model, batch_size, table_log2,
-                                             self.device, spill=store == "tiered")
-                       if telemetry else None)
+        self._calib = (calib.make_comparator(
+            "resident", model, batch_size, table_log2, self.device, spill=store == "tiered",
+            variant=ENGINE_VARIANTS[(table_layout, insert_variant)]) if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -570,7 +606,8 @@ class ResidentSearch:
         S = 1 << self.table_log2
         i64 = dict(dtype=torch.int64, device=dev)
         c = dict(
-            t_key=torch.zeros(S, **i64),
+            # The kv layout's t_key is its interleaved rows: 2S lanes.
+            t_key=torch.zeros(2 * S if self.table_layout == "kv" else S, **i64),
             t_parent=torch.zeros(S, **i64),
             q_states=torch.zeros((Q, L), **i64),
             q_keys=torch.zeros(Q, **i64),
@@ -687,7 +724,8 @@ class ResidentSearch:
         # table either way, which dedups its further offers on the device.
         rows = (flat, succ_keys, ebits.repeat_interleave(A),
                 depth.repeat_interleave(A) + 1)
-        tail = append_new(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
+        append = append_new_dus if self.append == "dus" else append_new
+        tail = append(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
         claimed = tail - c["tail"]
         c["unique"] = c["unique"] + claimed
         c["tail"] = tail
@@ -990,10 +1028,12 @@ class ResidentSearch:
         """Write the carry to `path` (.npz, crash-atomic, faults/ckptio.py)
         in the JAX package's format: its `_Carry` fields, names and dtypes
         (the u32 lanes narrowed here, at this boundary only), the tiered
-        store's spill tier, and its meta, with `insert_variant: "pallas"`
-        (this table's slot layout). Valid after a run() that stopped or
-        raised on an overflow (the carry is then at the last chunk
-        boundary); `load_checkpoint` in either package continues it.
+        store's spill tier, and its meta, with this engine's
+        `insert_variant` (the table's slot layout). Valid after a run() that
+        stopped or raised on an overflow (the carry is then at the last
+        chunk boundary); `load_checkpoint` in either package continues it.
+        The kv layout is refused here, as the JAX engine refuses it: no
+        loader takes a kv table.
 
         Queue rows are written for [0, tail) and suspect rows for
         [0, s_tail) only; both loaders pad them. The tail never reaches the
@@ -1005,6 +1045,11 @@ class ResidentSearch:
         if self._c is None:
             # srlint: fault-ok caller-contract guard, not an I/O/device surface
             raise RuntimeError("nothing to checkpoint: run() has not been called")
+        if self.table_layout != "split":
+            raise NotImplementedError(
+                "checkpointing is split-layout-only (as in the JAX engine); use "
+                "table_layout='split' (default) for checkpoint/resume runs"
+            )
         with self._tracer.span("checkpoint", cat="engine", path=path):
             return self._checkpoint(path)
 
@@ -1059,8 +1104,8 @@ class ResidentSearch:
             "table_log2": self.table_log2,
             "queue_log2": self.queue_log2,
             "batch_size": self.batch_size,
-            "table_layout": "split",
-            "insert_variant": "pallas",
+            "table_layout": self.table_layout,
+            "insert_variant": self.insert_variant,
             "store": self._store.meta() if tiered else None,
             "q_compacted": self._q_compacted,
             # Why the run aborted (0: a clean stop), so that the loader can
@@ -1084,12 +1129,16 @@ class ResidentSearch:
         footer is verified, and a corrupt current generation falls back to
         ``path + ".prev"``.
 
-        A larger `table_log2` regrows the table: its keys are re-inserted,
-        K at a time, through the insert (the CUDA kernel on the card). A
-        file whose table has another slot layout (a JAX run with another
-        insert variant than "pallas") is re-inserted at the same size; a
-        pallas table of the same size is taken slot for slot. The table
-        cannot shrink. A default-sized queue (queue_log2 == table_log2)
+        The search resumes on the file's insert variant (the JAX engine's
+        "sort" when the meta names none), a table of the same size taken
+        slot for slot. A larger `table_log2` regrows the table: its occupied
+        slots are re-inserted in slot order, K at a time, through the CUDA
+        kernel for a "pallas" table and through the "sort" design for the
+        designs' tables (the JAX engine's `_regrow`), so that the regrown
+        table is the JAX engine's slot for slot. A tiered file of an XLA
+        design resumes on "pallas", its slots re-inserted through the
+        kernel at the same size: the tiered store takes the designs only
+        from ROADMAP A9b. The table cannot shrink. A default-sized queue (queue_log2 == table_log2)
         follows the table; a right-sized one is kept. The resource that
         aborted the checkpointed run must grow, or the load is refused, as
         is a queue or batch size too small for the checkpoint's live rows."""
@@ -1129,8 +1178,11 @@ class ResidentSearch:
             store_kw = dict(store="tiered", high_water=store_meta["high_water"],
                             low_water=store_meta["low_water"],
                             summary_log2=store_meta["summary_log2"])
+        variant = meta.get("insert_variant", "sort")
+        foreign = bool(store_meta) and variant != "pallas"
         rs = cls(model, batch_size or meta["batch_size"], log2, queue_log2=queue_log2,
-                 device=device, **store_kw)
+                 device=device, insert_variant="pallas" if foreign else variant,
+                 **store_kw)
         if store_meta:
             from ..store.tiered import TieredStore
 
@@ -1140,8 +1192,7 @@ class ResidentSearch:
                 device=rs.device,
             )
             rs._q_compacted = bool(meta.get("q_compacted", False))
-        rehash = log2 != old_log2 or meta.get("insert_variant", "sort") != "pallas"
-        rs._load_carry(data, rehash)
+        rs._load_carry(data, rehash=log2 != old_log2 or foreign)
         if rs.device.type == "cuda":
             torch.cuda.synchronize(rs.device)
         rs.load_seconds.update(read=t_read, load=time.monotonic() - t0)
@@ -1211,12 +1262,15 @@ class ResidentSearch:
         self._c = c
 
     def _regrow(self, c, t_key, t_parent) -> None:
-        """Re-insert every occupied slot of (t_key, t_parent) into the
-        carry's empty table, K keys a call, through the engine's insert:
-        the CUDA kernel on the card. Overflow raises."""
-        occupied = t_key != 0
-        reinsert(self.insert, c["t_key"], c["t_parent"], t_key[occupied],
-                 t_parent[occupied], self.batch_size)
+        """Re-insert every occupied slot of (t_key, t_parent), in slot
+        order, into the carry's empty table, K keys a call: through the
+        CUDA kernel for "pallas", through the "sort" design for every XLA
+        design (the JAX engine's `_regrow_insert`: the designs share one
+        bucket layout). Overflow raises."""
+        occupied = self._reader.occupied(t_key)
+        insert = self.insert if self.insert_variant == "pallas" else resolve_insert("sort")
+        reinsert(insert, c["t_key"], c["t_parent"], t_key[occupied], t_parent[occupied],
+                 self.batch_size)
 
     # -- after the search --------------------------------------------------------
 
@@ -1240,7 +1294,7 @@ class ResidentSearch:
         set, as host uint64 ints (one transfer; test-scale searches). Spill
         entries win on keys present in both tiers (see _TableParents)."""
         c = self._carry()
-        out = dump_table(c["t_key"], c["t_parent"])
+        out = self._reader.dump(c["t_key"], c["t_parent"])
         if self._store is not None:
             out.update(self._store.parent_map())
         return out
@@ -1250,7 +1304,8 @@ class ResidentSearch:
         then one table probe per step), then re-execute the model."""
         c = self._carry()
         return reconstruct_path(
-            self.model, _TableParents(c["t_key"], c["t_parent"], self._store),
+            self.model, _TableParents(c["t_key"], c["t_parent"], self._store,
+                                      self._reader.lookup),
             fp, self.device,
         )
 

@@ -113,6 +113,7 @@ class DeviceSimulation:
         continuous: bool = True,
         telemetry: bool = True,
         device="cuda",
+        insert_variant: str = "pallas",
     ):
         """`traces` lanes walk at once; a `run()` completes at least `walks`
         walks (default: `traces`). `cycle_log2` is the JAX engine's per-walk
@@ -123,7 +124,15 @@ class DeviceSimulation:
         (shared only). A nonzero `salt` (a job id) salts the shared
         table's keys and parents as the JAX engine's `salt_fp` does. The
         engine runs on `device`: the CUDA card unless `device="cpu"` is
-        passed; with no CUDA device the default raises."""
+        passed; with no CUDA device the default raises. `insert_variant` is
+        the shared table's insert: "pallas", the CUDA kernel, only, until
+        ROADMAP A9b (the JAX engine's default there is "capped"); any other
+        value raises ValueError."""
+        if insert_variant != "pallas":
+            raise ValueError(
+                "DeviceSimulation takes insert_variant='pallas' only until ROADMAP "
+                f"A9b; got {insert_variant!r}"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -146,7 +155,7 @@ class DeviceSimulation:
         self.cycle_log2 = cycle_log2
         self.ring = ring
         self.table_log2 = table_log2
-        self.insert = resolve_insert("pallas")
+        self.insert = resolve_insert(insert_variant)
         self.walks = walks
         self.stale_limit = stale_limit
         self.salt = salt

@@ -392,19 +392,37 @@ def test_alias_edge_reaches_a_bound_representative():
 # -- SR005: the port's registry ------------------------------------------------
 
 
+def _registry(**changes):
+    """The port's knob registry with some universes replaced (None: not
+    declared), for the rules' behaviour on a registry that lacks a name."""
+    import types
+
+    from stateright_tpu_torch import knobs
+
+    names = {n: v for n, v in vars(knobs).items() if n.isupper()}
+    names.update(changes)
+    return types.SimpleNamespace(**{n: v for n, v in names.items() if v is not None})
+
+
 def test_port_flags_jax_only_insert_variant():
+    # The port's registry now has the JAX package's five insert variants;
+    # on a registry without "sort" (as the port had before the XLA designs
+    # were ported) the port flags it where the JAX lint does not.
     src = """\
         def build(store, insert_variant="sort"):
             pass
         """
     assert _pairs(_jax(src)) == []
-    got = _port(src)
+    assert _pairs(_port(src)) == []
+    got = lint_source(textwrap.dedent(src), module=f"{PORT_PKG}.tensor.fixture", root=ROOT,
+                      knobs=_registry(INSERT_VARIANTS=("pallas",)))
     assert _pairs(got) == [("SR005", 1)] and "'sort'" in got[0].message
 
 
 def test_universe_the_port_lacks_is_skipped():
-    # table_layout is a JAX knob (knobs.TABLE_LAYOUTS): the port's registry
-    # does not declare it, so the port skips it rather than invent one.
+    # table_layout is in both registries now (knobs.TABLE_LAYOUTS); on a
+    # registry that does not declare it, the port skips the knob rather
+    # than invent a universe.
     src = """\
         def build(table_layout="interleaved"):
             pass
@@ -413,7 +431,10 @@ def test_universe_the_port_lacks_is_skipped():
             build(table_layout="kv2")
         """
     assert _pairs(_jax(src)) == [("SR005", 1), ("SR005", 5)]
-    assert _pairs(_port(src)) == []
+    assert _pairs(_port(src)) == [("SR005", 1), ("SR005", 5)]
+    got = lint_source(textwrap.dedent(src), module=f"{PORT_PKG}.tensor.fixture", root=ROOT,
+                      knobs=_registry(TABLE_LAYOUTS=None))
+    assert _pairs(got) == []
 
 
 def test_restated_registry_universe_is_flagged():
@@ -433,7 +454,7 @@ def test_supervisor_aliases_the_registry():
 
     assert supervisor.ENGINES is knobs.SUPERVISED_ENGINES
     assert set(knobs.SUPERVISED_ENGINES) < set(knobs.ENGINES)
-    assert costmodel.INSERT_VARIANTS is knobs.INSERT_VARIANTS
+    assert costmodel.INSERT_VARIANTS is knobs.COST_VARIANTS
     assert knobs.check_registry() == []
 
 

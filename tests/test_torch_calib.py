@@ -94,11 +94,14 @@ def test_cost_model_structure_and_specs():
     assert CPU1 == cm.DeviceSpec(**{f: getattr(jcm.CPU1, f)
                                     for f in cm.DeviceSpec.__dataclass_fields__})
     assert set(cm.DEVICE_KINDS) == {"cuda-h100", "cpu-1core"} and H100.hbm_gbps == 3350.0
-    assert cm.ENGINE_VARIANTS == {("split", "pallas"): "pallas"}
+    # The JAX module's engine table and variant alphabet; no variant
+    # outside it is priced.
+    assert cm.ENGINE_VARIANTS == jcm.ENGINE_VARIANTS
+    assert cm.INSERT_VARIANTS == jcm.INSERT_VARIANTS
     with pytest.raises(ValueError):
         cm.stock_device("tpu-v5e")
     with pytest.raises(ValueError):
-        cm.step_cost(**ANCHOR, variant="split")
+        cm.step_cost(**ANCHOR, variant="sort")
 
 
 def test_sim_step_cost_has_the_jax_structure():

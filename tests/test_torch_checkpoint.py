@@ -4,7 +4,8 @@ held against the JAX package: its resident checkpoint tests
 (tests/test_checkpoint.py:113-240) mirrored through the port with the same
 goldens, the port's guards, the undo of an aborted chunk, and checkpoints
 that cross between the two packages in both directions (the JAX engine with
-insert_variant="pallas" in interpret mode, and with its default "sort").
+insert_variant="pallas" in interpret mode, and with its default "sort",
+which the port resumes on its own "sort" design, slot for slot).
 Every comparison is exact (tolerance 0: integers and bits)."""
 
 import os
@@ -257,12 +258,17 @@ def test_jax_pallas_checkpoint_resumes_slot_for_slot(tmp_path, full):
 
 
 def test_jax_sort_checkpoint_resumes_through_the_reinsert(tmp_path, full):
+    # The port has the "sort" design now: a JAX "sort" file resumes on it,
+    # its table taken slot for slot (no re-insert), and runs to the golden.
     jax_rs = JaxResident(JaxTwoPhase(4), 256, 14)  # the "sort" slot layout
     jax_rs.run(max_steps=2, budget=1)
     ckpt = str(tmp_path / "jax_sort.npz")
     jax_rs.checkpoint(ckpt)
     rs = load(ckpt)
-    c = rs._c
+    assert rs.insert_variant == "sort"
+    c, data = rs._c, np.load(ckpt)
+    t_key, t_parent = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"], data["p_hi"])
+    assert torch.equal(c["t_key"], t_key) and torch.equal(c["t_parent"], t_parent)
     assert dump_table(c["t_key"], c["t_parent"]) == jax_rs.build_parent_map()
     assert_full(rs.run(), full)
 

@@ -3,8 +3,9 @@
 JAX package's frontier checkpoint tests (tests/test_checkpoint.py:12, :41,
 :70, :79, :85, :102) through the port, files crossing the two packages both
 ways (the JAX engine with insert_variant="pallas" in interpret mode, and
-with its default "sort", whose table the port re-inserts), and the tiered
-store through a 2^11 hot tier. Every comparison is exact."""
+with its default "sort", which the port resumes on its own "sort" design,
+slot for slot), and the tiered store through a 2^11 hot tier. Every
+comparison is exact."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ from stateright_tpu.tensor.frontier import FrontierSearch as JaxFrontier
 from stateright_tpu_torch import HasDiscoveries
 from stateright_tpu_torch.tensor import models as pm
 from stateright_tpu_torch.tensor.frontier import FrontierSearch
+from stateright_tpu_torch.tensor.pallas_hashtable import to_jax_table
 
 GOLD_2PC4 = (8_258, 1_568)
 
@@ -125,12 +127,15 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path, full, variant):
     jfs.checkpoint(ckpt)
     fs = load(pm.TensorTwoPhaseSys(4), ckpt)
     data = np.load(ckpt)
-    occupied = int((data["t_lo"] != 0).sum())
-    assert int((fs.table.t_key != 0).sum()) == occupied  # every key taken
+    # Both resume on the file's variant, the table taken slot for slot.
+    assert fs.insert_variant == variant
+    for ours, theirs in zip(to_jax_table(fs.table.t_key, fs.table.t_parent),
+                            (data["t_lo"], data["t_hi"], data["p_lo"], data["p_hi"])):
+        np.testing.assert_array_equal(ours, theirs)
     r = fs.run()
     assert_full(r, full)
-    # The witnesses walk the loaded (pallas: copied; sort: re-inserted)
-    # parent pointers, to the uninterrupted run's.
+    # The witnesses walk the loaded parent pointers, to the uninterrupted
+    # run's.
     device = port(pm.TensorTwoPhaseSys(4), 256, 14)
     device.run()
     for fp in r.discoveries.values():

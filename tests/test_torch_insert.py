@@ -149,8 +149,12 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     assert "CUDA: registered" in dump and "CPU: registered" in dump
     with pytest.raises(ValueError):
         insert(type("MetaTable", (), {"device": torch.device("meta")})(), None, None, None, None)
-    with pytest.raises(ValueError):
-        resolve_insert("sort")
+    # No fallback either way: an unknown name, the kernel on the kv layout,
+    # and a design asked for the fused Bloom-suspect form all raise.
+    for args, kw in ((("teired",), {}), (("pallas", "kv"), {}),
+                     (("sort",), {"summary_cfg": (14, 4)})):
+        with pytest.raises(ValueError):
+            resolve_insert(*args, **kw)
 
 
 def test_pallas_hash_table_defaults_to_the_card(monkeypatch):
