@@ -220,9 +220,9 @@ seconds on a line of its own:
     `/.status`), the survivor's fused steps to the golden, a clean
     timeline read back from the blob root, and the survivor's generation
     through the fused kernel and its plain version against a summary of
-    its journal; (c) one replica process, a 2pc-7 backlog and a
-    foreground `Autoscaler`: an injected ``fleet.autoscale`` fault aborts
-    the first grow, a scale-out boots a second process that takes work
+    its journal; (c) one replica process, a backlog of 36 2pc-7 jobs fed
+    4 unfinished at a time, and a foreground `Autoscaler`: an injected
+    ``fleet.autoscale`` fault aborts the first grow, a scale-out boots a second process that takes work
     through probation, a scale-in retires one mid-backlog, every job
     equal to its standalone run. The insert calls of (a) and (b) are
     derived from what the children serve (device steps, seeds, re-seed
@@ -342,6 +342,33 @@ seconds on a line of its own:
     then resumed to its golden; (d) `audit_step()` of one "sort" and one
     "capped" resident paxos-3 step, with exactly the host reads their
     docstrings state (sort: 1; capped: 1 + its tiles).
+26. the designs on every engine (ROADMAP A9b); none of it launches the
+    CUDA insert (each part asserts both launch counters at 0): (a) 2pc-10
+    through `"sort"` on the tiered store at phase 8's batch, 2^25 hot
+    tier, queue and 2^28-bit summary, with high water 0.4
+    (`DESIGN_HIGH_WATER` says why not 0.85), to its golden with phase 7's
+    discoveries: its seconds, ms a step, store counters, the service's
+    evict / resolve / compact seconds and peak memory; then tiered 2pc-5
+    (batch 64, a 2^12 hot tier) through each split design on the card and
+    on the CPU, equal counter for counter, sweep hand, summary word for
+    word, spill tier and table slot for slot, and "phased" at high water
+    0.85 aborting table-full at the same step on both; (b) sharded 2pc-7
+    through `"sort"` with `append="dus"` and `donate_chunks=True` on a
+    world of one rank over NCCL (phase 16's), on the device store (batch
+    8192, 2^20) and the tiered one (phase 16 (d)'s batch, table and
+    summary at high water 0.5), at its golden with its witnesses; (c) a
+    Raft-6 round (1,024 walks at once, 2,048 a round, a 2^18 shared table)
+    through `"capped"` on the card and on the CPU from the same seed: the
+    same walks, totals, discoveries and table; (d) a tiered check service
+    with two paxos-3 jobs through `"sort"` (phase 17 (d)'s sizes, high
+    water 0.4), an in-process fleet of two replicas with three 2pc-7 jobs
+    and a replica crash, every job at its golden, and a corpus warm start
+    (2pc-7 cold and published, then served on the exact rung), all
+    through `"sort"`; (e) a resident `donate_chunks=True` overflow (2pc-5
+    into 2^7 slots through `"sort"`): the JAX engine's message, no carry
+    left, `checkpoint()` refused. Phase 20 (c) above feeds its backlog
+    `AUTOSCALE_DEPTH` (4) unfinished jobs deep and logs the largest
+    admission gap its journal shows.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -3588,6 +3615,12 @@ REMOTE_PROBE = dict(probe_timeout_s=0.5, unhealthy_after=2)
 # with work left for the scale-in. A service's table keeps every job's states
 # (10.7 M for 36 jobs), so 2^24 slots.
 AUTOSCALE_JOBS, AUTOSCALE_TABLE = 36, 24
+# (c) feeds its backlog so that at most this many jobs are submitted and
+# unfinished at a time: one resident and a queue the probe reports as
+# `queued >= 2` for the scale-out, short enough that no job waits near the
+# timeline CLI's 30 s admission budget (all 36 at once made the last ones
+# wait 30.3-31.1 s on a slow host).
+AUTOSCALE_DEPTH = 4
 PLAIN_ROWS = 8192  # the journal rows a re-seed insert call takes (the batch)
 
 
@@ -3959,16 +3992,30 @@ def remote_autoscale(ph, torch, chk, refs, tmp):
                          router_kwargs=REMOTE_PROBE,
                          service_kwargs=dict(batch_size=BATCH_PAXOS3, table_log2=AUTOSCALE_TABLE))
     scaler = None
+    hs = []
+
+    def feed():
+        """Submit backlog jobs until AUTOSCALE_DEPTH are unfinished (or all
+        AUTOSCALE_JOBS are in)."""
+        while (len(hs) < AUTOSCALE_JOBS
+               and sum(not h._job.event.is_set() for h in hs) < AUTOSCALE_DEPTH):
+            hs.append(fleet.submit(model, model_ref=("2pc", {"n": 7})))
+
+    def wait_for(done, what):
+        while not done():
+            assert time.monotonic() - t0 < 600, what()
+            feed()
+            time.sleep(0.02)
+
     try:
         router = fleet.router
         model = TensorTwoPhaseSys(7)
-        hs = [fleet.submit(model, model_ref=("2pc", {"n": 7})) for _ in range(AUTOSCALE_JOBS)]
+        feed()
         scaler = Autoscaler(fleet, AutoscaleConfig(min_replicas=1, max_replicas=2,
                                                    queue_high=1.0, scale_out_after=1,
                                                    cooldown_ticks=0))
-        while fleet.replicas[0]._last_probe.get("queued", 0) < 2:
-            assert time.monotonic() - t0 < 120, fleet.replicas[0]._last_probe
-            time.sleep(0.02)
+        wait_for(lambda: fleet.replicas[0]._last_probe.get("queued", 0) >= 2,
+                 lambda: fleet.replicas[0]._last_probe)
         plan = faults.FaultPlan().rule("fleet.autoscale", "crash", times=1)
         with faults.active(plan):
             assert scaler.tick() is None and len(fleet.replicas) == 1  # aborted: no change
@@ -3977,17 +4024,16 @@ def remote_autoscale(ph, torch, chk, refs, tmp):
             assert scaler.tick() == ("scale_out", 1), scaler.counters
         grown = fleet.replicas[1]
         out_s = time.monotonic() - t_out
-        while fleet.stats()["rejoin_promotions"] < 1:
-            assert time.monotonic() - t_out < 120, fleet.stats()
-            time.sleep(0.02)
-        while (grown._last_probe.get("device_steps") or 0) < 1:
-            assert time.monotonic() - t_out < 120, (fleet.stats(), grown._last_probe)
-            time.sleep(0.02)
+        wait_for(lambda: fleet.stats()["rejoin_promotions"] >= 1, fleet.stats)
+        wait_for(lambda: (grown._last_probe.get("device_steps") or 0) >= 1,
+                 lambda: (fleet.stats(), grown._last_probe))
         on_card = children_on_card(fleet, "[remote] (c)")
+        feed()
         left = sum(1 for h in hs if not h._job.event.is_set())
         assert left > 0, "the backlog ran out before the scale-in"
         retired = fleet.scale_in()
         assert retired is not None, "scale_in refused"
+        wait_for(lambda: len(hs) == AUTOSCALE_JOBS, lambda: len(hs))
         for h in hs:
             h.result(timeout=600)
         sec = time.monotonic() - t0
@@ -4003,6 +4049,9 @@ def remote_autoscale(ph, torch, chk, refs, tmp):
         fleet.close()
     assert st["scale_outs"] == 1 and st["scale_ins"] == 1, st
     assert plan.injected_total() == 1
+    gap = largest_admission_gap(os.path.join(root, "journal"))
+    log(f"[remote] (c) largest admission gap {gap:.3f} s (the timeline CLI's budget 30 s; "
+        f"backlog fed {AUTOSCALE_DEPTH} unfinished jobs deep)")
     report = run_timeline_cli(os.path.join(root, "journal"))
     assert report["anomalies"] == [], report["anomalies"]
     log(f"[remote] (c) {AUTOSCALE_JOBS} 2pc-7 jobs, one resident, on one replica process: the "
@@ -4014,7 +4063,18 @@ def remote_autoscale(ph, torch, chk, refs, tmp):
         f"scale_ins={st['scale_ins']}; every job equal to its standalone run (witness actions "
         f"of the {witnesses} served by a live process); the timeline CLI "
         f"reads {len(report['traces'])} clean lifecycles")
-    return dict(sec=sec, on_card=on_card, left=left)
+    return dict(sec=sec, on_card=on_card, left=left, gap=gap)
+
+
+def largest_admission_gap(journal) -> float:
+    """The longest wait, over every job of a journal, from a submit or
+    requeue to its admission or terminal event: what the timeline CLI's
+    `admission_gap` check holds against its budget."""
+    from stateright_tpu_torch.obs import timeline
+
+    traces = timeline.group_traces(timeline.load_events([journal]))[0]
+    return max((waited for evs in traces.values() for _, waited in timeline.admission_waits(evs)),
+               default=0.0)
 
 
 def phase_remote(ph, torch, chk, service):
@@ -5576,6 +5636,394 @@ def phase_designs(ph, torch, device_path):
     return out
 
 
+# -- phase 26: the designs on every engine ------------------------------------------
+
+#: The split-layout designs (the tiered store takes no kv table).
+SPLIT_DESIGNS = ("sort", "phased", "capped", "capped-phased")
+#: (a)'s card-against-CPU cell: tiered 2pc-5 (8,832 unique states) through
+#: a 2^12-slot hot tier, at test_tiered_store.py's water mark and summary.
+TIERED5 = dict(batch_size=64, table_log2=12, store="tiered", high_water=0.6, summary_log2=16)
+GOLDEN_2PC5 = (58_146, 8_832)
+#: The designs' water mark on the tiered store. A design's sweep is the
+#: reference's (no partition pass: a design's chains cross the whole table),
+#: which frees a run of buckets from the hand while the others keep filling;
+#: a bucket fills up to about twice the table's mean before the hand comes
+#: back to it, and a run of full buckets longer than the insert's 64 probe
+#: rounds aborts the search (table full). At 0.85 the JAX engine aborts
+#: too, at the same step with the same counters
+#: (tests/test_torch_variants_water.py, tiered 2pc-5 through "phased"); (a)
+#: shows it on the card.
+DESIGN_HIGH_WATER = 0.4
+#: (c): one Raft-6 round small enough to rerun on the CPU.
+RAFT_DESIGN = dict(seed=3, traces=1024, max_depth=128, dedup="shared", table_log2=18,
+                   walks=2048, insert_variant="capped")
+
+
+def no_insert_launches(ph, what):
+    """Phase 26's guard: no path through a design launched the CUDA insert."""
+    got = (ph.launch_kernel.launches, ph.launch_kernel.bloom_launches)
+    assert got == (0, 0), (what, "the CUDA insert ran", got)
+
+
+def table_arrays(t_key, t_parent):
+    """A table as the JAX package's four uint32 arrays (numpy)."""
+    from stateright_tpu_torch.tensor.pallas_hashtable import to_jax_table
+
+    return to_jax_table(t_key, t_parent)
+
+
+def same_tables(a, b, what):
+    import numpy as np
+
+    for x, y, name in zip(table_arrays(*a), table_arrays(*b), ("t_lo", "t_hi", "p_lo", "p_hi")):
+        assert np.array_equal(x, y), (what, name, "differs")
+
+
+def designs_tiered_2pc10(ph, torch, device_path, dev="cuda", shape=None):
+    """(a) 2pc-10 through "sort" on the tiered store at phase 8's shape."""
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    n, golden, kw = shape or (10, GOLDEN_2PC10, dict(
+        batch_size=BATCH_2PC10, table_log2=TABLE_TIERED, queue_log2=QUEUE_2PC10,
+        store="tiered", high_water=DESIGN_HIGH_WATER, summary_log2=SUMMARY_LOG2))
+    sync(torch, dev)
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    c = TensorTwoPhaseSys(n).checker().spawn_cuda(insert_variant="sort", device=dev,
+                                                  **kw).join()
+    sync(torch, dev)
+    sec = time.monotonic() - t0
+    r = c.result()
+    got = (r.state_count, r.unique_state_count)
+    assert got == golden and r.complete, got
+    no_insert_launches(ph, "(a) 2pc-10 sort tiered")
+    if device_path is not None:
+        assert r.discoveries == device_path["discoveries"], "discoveries differ from phase 7"
+    st = c.store_stats()
+    assert st["spill_events"] >= 1 and st["suspects_checked"] > 0, st
+    assert st["partition_spills"] == 0, st
+    svc = r.detail["service_seconds"]
+    peak = torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+    paths = c.discoveries()
+    for name, path in paths.items():
+        c.assert_discovery(name, path.actions())
+    log(f"[designs26] (a) 2pc-{n} sort, tiered 2^{kw['table_log2']}, high water "
+        f"{kw['high_water']}, summary 2^{kw['summary_log2']}: generated={got[0]} "
+        f"unique={got[1]} depth={r.max_depth} steps={r.steps} sec={sec:.3f} "
+        f"ms_a_step={1e3 * sec / max(r.steps, 1):.3f} max_memory_allocated={peak}; CUDA insert "
+        f"launches 0")
+    log("[designs26] (a) store: " + " ".join(f"{k}={v}" for k, v in st.items()))
+    log(f"[designs26] (a) service: {svc['calls']} calls, {svc['service']:.3f} s of {sec:.3f} s "
+        f"({100 * svc['service'] / sec:.1f}%): compact {svc['compact']:.3f} s, suspect resolve "
+        f"{svc['resolve']:.3f} s, evict {svc['evict']:.3f} s; steps "
+        f"{sec - svc['service']:.3f} s; witnesses "
+        + ", ".join(f"{k} Path[{len(p) - 1}]" for k, p in sorted(paths.items())) + " replay")
+    del c, paths
+    empty_cache(torch, dev)
+    return dict(sec=sec, steps=r.steps, ms_step=1e3 * sec / max(r.steps, 1), peak=peak,
+                evict_s=svc["evict"], resolve_s=svc["resolve"], compact_s=svc["compact"],
+                service_s=svc["service"], service_calls=svc["calls"],
+                **{k: st[k] for k in STORE_COUNTERS})
+
+
+def designs_tiered_card_vs_cpu(ph, torch, dev="cuda"):
+    """(a) tiered 2pc-5 through each split design on `dev` and on the CPU:
+    counter for counter and table slot for slot."""
+    import numpy as np
+
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    out = {}
+    for variant in SPLIT_DESIGNS:
+        runs = []
+        for d in (dev, "cpu"):
+            rs = ResidentSearch(TensorTwoPhaseSys(5), insert_variant=variant, device=d,
+                                **TIERED5)
+            t0 = time.monotonic()
+            r = rs.run()
+            sync(torch, d)
+            runs.append((rs, r, time.monotonic() - t0))
+        (card, rc, sec), (cpu, rp, _) = runs
+        assert (rc.state_count, rc.unique_state_count) == GOLDEN_2PC5 and rc.complete, rc
+        assert (rc.state_count, rc.unique_state_count, rc.max_depth, rc.steps,
+                rc.discoveries) == (rp.state_count, rp.unique_state_count, rp.max_depth,
+                                    rp.steps, rp.discoveries), (variant, rc, rp)
+        sc, sp = card.store_stats(), cpu.store_stats()
+        assert {k: sc[k] for k in STORE_COUNTERS} == {k: sp[k] for k in STORE_COUNTERS}, (sc, sp)
+        assert sc["spill_events"] >= 1, sc
+        assert card._store.sweep == cpu._store.sweep
+        same_tables((card._c["t_key"], card._c["t_parent"]),
+                    (cpu._c["t_key"], cpu._c["t_parent"]), ("(a) 2pc-5", variant))
+        for x, y in zip(card._store.store.to_arrays(), cpu._store.store.to_arrays()):
+            assert np.array_equal(x, y), ("(a) 2pc-5 spill tier", variant)
+        assert torch.equal(card._store.summary.cpu(), cpu._store.summary)
+        no_insert_launches(ph, f"(a) 2pc-5 {variant}")
+        out[variant] = dict(sec=sec, steps=rc.steps, **{k: sc[k] for k in STORE_COUNTERS})
+        log(f"[designs26] (a) tiered 2pc-5 {variant}, 2^12 hot tier: steps={rc.steps} "
+            f"sec={sec:.3f} " + " ".join(f"{k}={sc[k]}" for k in STORE_COUNTERS)
+            + "; the CPU run equal counter for counter, spill tier, summary and table slot "
+            "for slot")
+    # The reference's sweep at a high water mark (DESIGN_HIGH_WATER says
+    # why): the same abort on the card and on the CPU, at the same step.
+    aborts = []
+    for d in (dev, "cpu"):
+        rs = ResidentSearch(TensorTwoPhaseSys(5), insert_variant="phased", device=d,
+                            **dict(TIERED5, batch_size=32, high_water=0.85))
+        try:
+            rs.run()
+        except RuntimeError as e:
+            assert "hash table full" in str(e), e
+        else:
+            raise AssertionError("phased 2pc-5 held 0.85 in a 2^12 hot tier")
+        st = rs.store_stats()
+        aborts.append((int(rs._c["steps"]), int(rs._c["unique"]),
+                       {k: st[k] for k in STORE_COUNTERS}))
+    assert aborts[0] == aborts[1], aborts
+    no_insert_launches(ph, "(a) 2pc-5 phased at 0.85")
+    log(f"[designs26] (a) tiered 2pc-5 phased at high water 0.85 (batch 32): table full at "
+        f"step {aborts[0][0]} with {aborts[0][1]} unique after "
+        f"{aborts[0][2]['spill_events']} spill events, on the card and the CPU alike")
+    out["abort_085"] = aborts[0]
+    return out
+
+
+def designs_sharded(ph, torch, dev="cuda"):
+    """(b) sharded 2pc-7 through "sort" with append="dus" and
+    donate_chunks=True on a world of one rank (phase 16's), device and
+    tiered store, at its golden."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from stateright_tpu_torch.parallel import ShardedSearch
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    out = {}
+    backend = "nccl" if dev == "cuda" else "gloo"
+    device = "cuda:0" if dev == "cuda" else "cpu"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_designs_") as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            for store, kw in (("device", dict(batch_size=BATCH_PAXOS3, table_log2=20)),
+                              ("tiered", dict(batch_size=BATCH_TIERED7,
+                                              table_log2=TABLE_TIERED7, store="tiered",
+                                              high_water=0.5,
+                                              summary_log2=SUMMARY_TIERED7))):
+                ss = ShardedSearch(TensorTwoPhaseSys(7), device=device, insert_variant="sort",
+                                   append="dus", donate_chunks=True, **kw)
+                t0 = time.monotonic()
+                r = ss.run()
+                sync(torch, dev)
+                sec = time.monotonic() - t0
+                assert (r.state_count, r.unique_state_count) == GOLDEN_2PC7 and r.complete, r
+                assert ss._snap is None, "a donated chunk kept an undo point"
+                lengths = {n: len(ss.reconstruct_path(fp)) - 1 for n, fp in r.discoveries.items()}
+                assert lengths == {"abort agreement": 7, "commit agreement": 22}, lengths
+                no_insert_launches(ph, f"(b) sharded 2pc-7 {store}")
+                extra = ""
+                if store == "tiered":
+                    d = r.detail
+                    assert d["spill_events"] >= 1 and d["partition_spills"] == 0, d
+                    extra = " " + " ".join(f"{k}={d[k]}" for k in STORE_COUNTERS)
+                log(f"[designs26] (b) sharded 2pc-7 sort dus donate_chunks, {store} store "
+                    f"2^{kw['table_log2']}, batch {kw['batch_size']}: generated={r.state_count} "
+                    f"unique={r.unique_state_count} steps={r.steps} sec={sec:.3f} "
+                    f"ms_a_step={1e3 * sec / max(r.steps, 1):.3f}{extra}; witnesses "
+                    + ", ".join(f"{k} Path[{v}]" for k, v in sorted(lengths.items())))
+                out[store] = dict(sec=sec, steps=r.steps)
+                del ss
+                empty_cache(torch, dev)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def designs_simulation(ph, torch, dev="cuda", kw=None):
+    """(c) a Raft-6 round through "capped" with shared dedup, on `dev` and
+    on the CPU from the same seed: the same walks, totals, discoveries and
+    table."""
+    from stateright_tpu_torch.tensor.models import TensorRaft
+    from stateright_tpu_torch.tensor.simulation import DeviceSimulation
+
+    kw = kw or RAFT_DESIGN
+    model = TensorRaft(6, max_term=6)
+    runs = []
+    for d in (dev, "cpu"):
+        sim = DeviceSimulation(model, device=d, **kw)
+        t0 = time.monotonic()
+        r = sim.run()
+        sync(torch, d)
+        runs.append((sim, r, time.monotonic() - t0))
+    (card, rc, sec), (cpu, rp, cpu_sec) = runs
+    assert sim_outcome(card, rc) == sim_outcome(cpu, rp)
+    totals = {k: v for k, v in card._totals.items() if k != "duration"}
+    assert totals == {k: v for k, v in cpu._totals.items() if k != "duration"}
+    same_tables((card.table.t_key, card.table.t_parent), (cpu.table.t_key, cpu.table.t_parent),
+                "(c) raft-6 capped")
+    assert "election safety" not in rc.discoveries, rc.discoveries
+    no_insert_launches(ph, "(c) raft-6 capped")
+    log(f"[designs26] (c) raft-6 capped shared, {kw['traces']} walks at once, {kw['walks']} a "
+        f"round: generated={rc.state_count} unique={rc.unique_state_count} steps={rc.steps} "
+        f"walks={totals['walks']} dedup_hits={totals['dedup_hits']} sec={sec:.3f} (CPU "
+        f"{cpu_sec:.3f} s); discoveries {sorted(rc.discoveries)}; equal to the CPU run walk for "
+        "walk and slot for slot")
+    return dict(sec=sec, cpu_sec=cpu_sec, steps=rc.steps)
+
+
+def designs_service(ph, torch, dev="cuda", small=False):
+    """(d) a tiered check service with two paxos-3 jobs through "sort"; an
+    in-process fleet with a replica crash through "sort"; a corpus warm
+    start through "sort"."""
+    import tempfile
+
+    from stateright_tpu_torch import faults
+    from stateright_tpu_torch.service import CheckService, ServiceFleet
+    from stateright_tpu_torch.tensor import TensorPaxos
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+
+    out = {}
+    if small:
+        model, gold, batch = TensorPaxos(2), GOLDEN_PAXOS2, 128
+        table, summary, m7, g7 = 15, 18, TensorTwoPhaseSys(4), GOLDEN_2PC4
+    else:
+        model, gold, batch = TensorPaxos(3), GOLDEN_PAXOS3, BATCH_PAXOS3
+        table, summary = SERVICE_TIERED_TABLE, SERVICE_SUMMARY
+        m7, g7 = TensorTwoPhaseSys(7), GOLDEN_2PC7
+    svc = CheckService(batch_size=batch, table_log2=table, store="tiered", summary_log2=summary,
+                       high_water=DESIGN_HIGH_WATER, insert_variant="sort", background=False,
+                       device=dev)
+    t0 = time.monotonic()
+    try:
+        hs = [svc.submit(model) for _ in range(2)]
+        svc.drain(timeout=600)
+        sec = time.monotonic() - t0
+        rs = [h.result() for h in hs]
+        st = svc.store_stats()
+        steps = svc.stats()["device_steps"]
+    finally:
+        svc.close()
+    for r in rs:
+        assert (r.state_count, r.unique_state_count) == gold and r.complete, r
+    assert st["spill_events"] >= 1 and st["partition_spills"] == 0, st
+    no_insert_launches(ph, "(d) tiered service sort")
+    log(f"[designs26] (d) tiered service, sort, 2 x {type(model).__name__}, batch {batch}, "
+        f"2^{table}: sec={sec:.3f} device_steps={steps} "
+        + " ".join(f"{k}={st[k]}" for k in STORE_COUNTERS))
+    out["service"] = dict(sec=sec, steps=steps)
+
+    fleet = ServiceFleet(n_replicas=2, background=False, max_resident=1, service_kwargs=dict(
+        batch_size=batch, table_log2=20 if not small else 14, insert_variant="sort", device=dev))
+    t0 = time.monotonic()
+    try:
+        hs = [fleet.submit(m7) for _ in range(3)]
+        victim = hs[0]._job.replica
+        fleet.pump(2)
+        plan = faults.FaultPlan().rule("fleet.replica_crash", "crash", times=1,
+                                       match={"replica": victim})
+        with faults.active(plan):
+            fleet.drain(timeout=600)
+        sec = time.monotonic() - t0
+        rs = [h.result() for h in hs]
+        fst = fleet.stats()
+    finally:
+        fleet.close()
+    for r in rs:
+        assert (r.state_count, r.unique_state_count) == g7 and r.complete, r
+    assert fst["replica_crashes"] == 1 and fst["requeued_jobs"] >= 1, fst
+    no_insert_launches(ph, "(d) fleet sort")
+    log(f"[designs26] (d) in-process fleet, sort, 3 x 2pc jobs on 2 replicas, one crashed: "
+        f"sec={sec:.3f} replica_crashes={fst['replica_crashes']} "
+        f"requeued_jobs={fst['requeued_jobs']} restored_jobs={fst['restored_jobs']}; every job "
+        "at its golden")
+    out["fleet"] = dict(sec=sec)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_designs_corpus_") as tmp:
+        kw = dict(batch_size=batch, table_log2=table, store="tiered", summary_log2=summary,
+                  insert_variant="sort", background=False, corpus_dir=tmp, device=dev)
+        res = []
+        for _ in range(2):
+            svc = CheckService(**kw)
+            t0 = time.monotonic()
+            try:
+                h = svc.submit(m7)
+                svc.drain(timeout=600)
+                res.append((h.result(), time.monotonic() - t0))
+            finally:
+                svc.close()
+    (cold, cold_s), (warm, warm_s) = res
+    for r in (cold, warm):
+        assert (r.state_count, r.unique_state_count) == g7 and r.complete, r
+    assert cold.detail["corpus"]["published"] is True, cold.detail["corpus"]
+    c = warm.detail["corpus"]
+    assert c["warm_kind"] == "exact" and c["preloaded_states"] == g7[1], c
+    assert warm.steps < cold.steps and warm.discoveries == cold.discoveries
+    no_insert_launches(ph, "(d) corpus sort")
+    log(f"[designs26] (d) corpus, sort: cold sec={cold_s:.3f} steps={cold.steps}, published; "
+        f"warm sec={warm_s:.3f} steps={warm.steps} on the exact rung "
+        f"({c['preloaded_states']} states preloaded)")
+    out["corpus"] = dict(cold_s=cold_s, warm_s=warm_s)
+    return out
+
+
+def designs_overflow(ph, torch, dev="cuda"):
+    """(e) a resident donate_chunks overflow: JAX's message, no carry."""
+    from stateright_tpu_torch.tensor.models import TensorTwoPhaseSys
+    from stateright_tpu_torch.tensor.resident import ResidentSearch
+
+    rs = ResidentSearch(TensorTwoPhaseSys(5), 256, 7, insert_variant="sort",
+                        donate_chunks=True, device=dev)
+    try:
+        rs.run(budget=8)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a 2^7 table held 2pc-5")
+    assert "donate_chunks=True sacrificed the recovery carry" in msg, msg
+    assert rs._c is None, "the donated overflow kept a carry"
+    try:
+        rs.checkpoint(os.devnull)
+    except RuntimeError as e:
+        assert "nothing to checkpoint" in str(e), e
+    else:
+        raise AssertionError("checkpoint() after a donated overflow wrote a file")
+    no_insert_launches(ph, "(e) overflow")
+    log(f"[designs26] (e) resident 2pc-5 sort donate_chunks into 2^7 slots: raised "
+        f"{msg.split(';')[0]!r}, no carry left, checkpoint() refused")
+
+
+def sync(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(torch, dev):
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def phase_designs_everywhere(ph, torch, device_path):
+    """The designs on every engine (see the module docstring, phase 26)."""
+    out = {}
+    ph.launch_kernel.launches = ph.launch_kernel.bloom_launches = 0
+    for part, fn, args in (
+            ("a", designs_tiered_2pc10, (ph, torch, device_path)),
+            ("a5", designs_tiered_card_vs_cpu, (ph, torch)),
+            ("b", designs_sharded, (ph, torch)),
+            ("c", designs_simulation, (ph, torch)),
+            ("d", designs_service, (ph, torch)),
+            ("e", designs_overflow, (ph, torch))):
+        t0 = time.monotonic()
+        out[part] = fn(*args)
+        out.setdefault("wall", {})[part] = time.monotonic() - t0
+        log(f"[designs26] ({part}) wall {out['wall'][part]:.1f} s")
+    out["launches"] = ph.launch_kernel.launches
+    out["bloom_launches"] = ph.launch_kernel.bloom_launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5651,6 +6099,8 @@ def main() -> int:
     host = phase(23, "host checkers and Explorer", phase_host, ph, torch, chk)
     spawned = phase(24, "actor runtime, native bridge, CLIs", phase_spawn, ph, torch, chk)
     phase(25, "XLA insert designs", phase_designs, ph, torch, device_path)
+    designs = phase(26, "designs on every engine", phase_designs_everywhere, ph, torch,
+                    device_path)
     log(f"[time] whole smoke: {time.monotonic() - t_smoke:.1f} s")
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")
@@ -5680,6 +6130,7 @@ def main() -> int:
         "launches_host": host["launches"],
         "launches_native_bridge": spawned["a"]["launches"],
         "launches_cli": spawned["c"]["launches"],
+        "launches_designs": designs["launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -5705,6 +6156,7 @@ def main() -> int:
         "launches_fleet_remote_tiered": remote["tiered_launches"],
         "launches_supervised_tiered": sup["b"]["launches"],
         "launches_audit_tiered": audit["tiered_launches"],
+        "launches_designs": designs["bloom_launches"],
         "max_abs_err": float(chk.max_abs_err),
         "ms": fused["ms"],
         "plain_ms": fused["plain_ms"],

@@ -39,8 +39,8 @@ class CudaChecker(Checker):
         """The engine is built here, on the caller's thread, so a bad
         option or a missing CUDA device raises from spawn_cuda().
         `engine_kwargs` go to the engine: `ResidentSearch` (the default,
-        which takes `insert_variant`, `table_layout` and `append` among
-        them) or, with `resident=False`, `FrontierSearch`, which takes
+        which takes `insert_variant`, `table_layout`, `append` and
+        `donate_chunks` among them) or, with `resident=False`, `FrontierSearch`, which takes
         FRONTIER_OPTIONS only. `trace_out=<path>` records the host phases
         as Chrome trace-event JSON, saved when the search thread ends.
 

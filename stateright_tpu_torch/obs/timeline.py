@@ -207,6 +207,23 @@ def drift_report(events: list) -> list:
     return out
 
 
+def admission_waits(evs: list):
+    """(event, seconds) for each admission or terminal event of one trace
+    that ends a wait: the time since the submit or requeue that opened it.
+    `find_anomalies` holds each against its `admission_gap` budget."""
+    waiting_since: Optional[float] = None
+    for e in evs:
+        n = e.get("event")
+        ts = e.get("ts")
+        if n in WAIT_EVENTS:
+            if waiting_since is None and isinstance(ts, (int, float)):
+                waiting_since = ts
+        elif n in ADMIT_EVENTS or n in TERMINAL_EVENTS:
+            if waiting_since is not None and isinstance(ts, (int, float)):
+                yield e, ts - waiting_since
+            waiting_since = None
+
+
 def find_anomalies(traces: dict, gap_s: float = 30.0) -> list:
     """The forensic verdicts: per-trace lifecycle violations.
 
@@ -245,28 +262,16 @@ def find_anomalies(traces: dict, gap_s: float = 30.0) -> list:
                 admitted = True
             elif n in REQUEUE_EVENTS:
                 admitted = False
-        waiting_since: Optional[float] = None
-        for e in evs:
-            n = e.get("event")
-            ts = e.get("ts")
-            if n in WAIT_EVENTS:
-                if waiting_since is None and isinstance(ts, (int, float)):
-                    waiting_since = ts
-            elif n in ADMIT_EVENTS or n in TERMINAL_EVENTS:
-                if (
-                    waiting_since is not None
-                    and isinstance(ts, (int, float))
-                    and ts - waiting_since > gap_s
-                ):
-                    out.append(
-                        {
-                            "kind": "admission_gap",
-                            "trace": trace,
-                            "detail": f"waited {ts - waiting_since:.1f}s "
-                                      f"for {n} (budget {gap_s:.1f}s)",
-                        }
-                    )
-                waiting_since = None
+        for e, waited in admission_waits(evs):
+            if waited > gap_s:
+                out.append(
+                    {
+                        "kind": "admission_gap",
+                        "trace": trace,
+                        "detail": f"waited {waited:.1f}s "
+                                  f"for {e.get('event')} (budget {gap_s:.1f}s)",
+                    }
+                )
     return out
 
 

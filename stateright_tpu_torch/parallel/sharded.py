@@ -36,9 +36,11 @@ tensor/resident.py, with the exchange in the middle):
    by source rank, then lane, as in JAX, and the insert elects the lowest
    lane of each new key, so the parents, the queue order, the discoveries
    and the witness paths are the JAX engine's;
-4. insert the `N*C` received keys (`resolve_insert("pallas")`: the CUDA
-   kernel on the card, its plain version on the CPU; the fused Bloom form
-   with the tiered store) and append the new rows;
+4. insert the `N*C` received keys (`insert_variant`: "pallas", the CUDA
+   kernel on the card and its plain version on the CPU, by default, with
+   its fused Bloom form on the tiered store; or one of the JAX package's
+   XLA designs, which probes the summary after its insert) and append the
+   new rows (`append`: "scatter" or "dus");
 5. all-gather (generated, pending, overflow, discovered) of every rank and
    reduce them on the device into the global counters and the next step's
    `go`. NCCL has no bitwise-or reduction, so the discovery bits are
@@ -54,16 +56,18 @@ engine) and raises.
 
 `store="tiered"` gives each rank a rank-local `TieredStore`; a step exits
 to a service on a claim count at the spill trigger, a near-full suspect
-buffer, a queue tail past the table size or a partition near full, with
-N*C (one receive batch) as the headroom. The service is collective: when
+buffer, a queue tail past the table size or, on the kernel's table, a
+partition near full, with N*C (one receive batch) as the headroom. The service is collective: when
 any rank's code carries EXIT_SERVICE, every rank services its own shard and
 all resume the same chunk sequence; so too when the queues drain with
 suspects still buffered on some rank.
 
 Capacity: each shard's queue holds the JAX engine's Q = S + N*C (+SQ)
-rows, so checkpoints load slot for slot in either package, plus the
-resident engine's scratch rows for the no-op steps after an abort or a
-service exit (one row; tiered, one more receive block).
+rows, so checkpoints load slot for slot in either package (the N*C rows
+are the slack a "dus" append block needs), plus the resident engine's
+scratch rows for the no-op steps after an abort or a service exit (one
+row; tiered, one more receive block). `donate_chunks=True` keeps no undo
+point: an overflow drops the carry and raises, as in the JAX engine.
 
 `warm_start` seeds the search from a published corpus entry (store/warm.py):
 each rank preloads the entry's rows it owns into its spill tier (the whole
@@ -82,7 +86,6 @@ collective, no launch. The calibration comparator prices one shard's step
 (per-shard batch and table) from the chunk summaries already gathered.
 
 `audit_step()` hands one step to the step auditor (analysis/auditor.py).
-Left out of the port (ROADMAP): `donate_chunks` and the `append` variants.
 """
 
 from __future__ import annotations
@@ -105,9 +108,11 @@ from ..knobs import STORE_KINDS, WARM_KINDS
 from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, calib
 from ..store import warm as warm_seam
 from ..tensor.fingerprint import MASK32, from_host_fp, to_host_fp
+from ..tensor.costmodel import ENGINE_VARIANTS
 from ..tensor.frontier import (
     SearchResult,
     append_new,
+    append_new_dus,
     expand_keys,
     pop_batch,
     reconstruct_path,
@@ -115,7 +120,7 @@ from ..tensor.frontier import (
     resolve_append,
     seed_init,
 )
-from ..tensor.inserts import PALLAS_READER, check_table_log2, resolve_insert
+from ..tensor.inserts import check_table_log2, regrow_insert, resolve_insert, resolve_reader
 from ..tensor.model import TensorModel
 from ..tensor.pallas_hashtable import from_jax_table, from_u32, to_jax_table, to_u32
 from ..tensor.resident import (
@@ -240,6 +245,7 @@ class ShardedSearch:
         tracer=None,
         insert_variant: str = "pallas",
         append: Optional[str] = None,
+        donate_chunks: bool = False,
     ):
         """`group` is the process group (default: the default group); its
         size is the shard count and this process's rank its shard. `device`
@@ -253,15 +259,15 @@ class ShardedSearch:
         successors plus 64, rounded up to 128, at most K*A. `store`,
         `high_water`, `low_water`, `summary_log2`, `telemetry`,
         `telemetry_log2` and `tracer` are the resident engine's, per shard
-        (tensor/resident.py). `insert_variant` and `append` take their
-        defaults only ("pallas", the CUDA kernel, and "scatter") until
-        ROADMAP A9b threads the JAX package's XLA designs and the "dus"
-        append through this engine; any other value raises ValueError."""
-        if insert_variant != "pallas" or resolve_append(append) != "scatter":
-            raise ValueError(
-                "ShardedSearch takes insert_variant='pallas' and the default append "
-                f"only until ROADMAP A9b; got {insert_variant!r} / {append!r}"
-            )
+        (tensor/resident.py). `insert_variant` is the shard table's insert
+        (knobs.INSERT_VARIANTS, split layout): "pallas", the CUDA kernel, by
+        default, or one of the JAX package's XLA designs (tiered, with
+        `high_water` 0.5 or less: store/tiered.py). `append` is the
+        queue append ("scatter" by default, or "dus"). `donate_chunks=True`
+        is the JAX engine's trade: no undo point, so an overflow drops the
+        carry on every rank and raises."""
+        self.insert = resolve_insert(insert_variant)  # JAX's refusals
+        self.append = resolve_append(append)
         self.device = _rank_device(device, group)
         if store not in STORE_KINDS:  # knob universe: knobs.py
             raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
@@ -274,8 +280,9 @@ class ShardedSearch:
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
-        self.insert = resolve_insert(insert_variant)
-        self._reader = PALLAS_READER  # how undo_chunk reads the table
+        self.insert_variant = insert_variant
+        self.donate_chunks = donate_chunks
+        self._reader = resolve_reader(insert_variant)  # how undo_chunk reads the table
         self.props = model.properties()
         self.store = store
         ka = batch_size * model.max_actions
@@ -291,6 +298,7 @@ class ShardedSearch:
         self._store_args = (high_water, low_water, summary_log2)
         if store == "tiered":
             self._fresh_store()
+            self.insert = resolve_insert(insert_variant, summary_cfg=self._store.summary_cfg)
             # A step claims at most one receive batch (N*C keys), and
             # eviction runs only between chunks.
             self._spill_trigger = min(self._store.high_slots, S - nc)
@@ -325,9 +333,9 @@ class ShardedSearch:
         self._metrics_name = REGISTRY.register("sharded", self.metrics)
         # The calibration comparator (obs/calib.py): one shard's step, fed
         # by the gathered chunk summaries; observes, never steers.
-        self._calib = (calib.make_comparator("sharded", model, batch_size, table_log2,
-                                             self.device, spill=store == "tiered")
-                       if telemetry else None)
+        self._calib = (calib.make_comparator(
+            "sharded", model, batch_size, table_log2, self.device, spill=store == "tiered",
+            variant=ENGINE_VARIANTS[("split", insert_variant)]) if telemetry else None)
         # The corpus payload (see warm_start): the publisher's result to
         # replay, the states preloaded and the rung served.
         self._warm: Optional[dict] = None
@@ -352,7 +360,7 @@ class ShardedSearch:
             1 << self.table_log2,
             TieredConfig(high_water=high_water, low_water=low_water,
                          summary_log2=summary_log2),
-            device=self.device,
+            device=self.device, insert_variant=self.insert_variant,
         )
 
     # -- collectives -------------------------------------------------------------
@@ -621,7 +629,8 @@ class ShardedSearch:
         else:
             _, _, is_new, ovf = self.insert(c["t_key"], c["t_parent"], r_key, r_parent, r_valid)
         rows = (recv[:, :L], r_key, recv[:, L + 2], recv[:, L + 3])
-        tail = append_new(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
+        append = append_new_dus if self.append == "dus" else append_new
+        tail = append(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
         claimed = is_new.sum()
         c["unique"] = c["unique"] + (tail - c["tail"])
         c["hot"] = c["hot"] + claimed
@@ -636,8 +645,10 @@ class ShardedSearch:
                 (c["hot"] >= self._spill_trigger)
                 | (c["s_tail"] > self._SQ - nc)
                 | (tail > S)
-                | (self._store.partition_fill(c["t_key"]).max() >= self._store.risk_slots)
             )
+            near_full = self._store.near_full(c["t_key"])
+            if near_full is not None:
+                service = service | near_full
             code = code | torch.where(service, EXIT_SERVICE, 0)
         else:
             code = code | torch.where(tail > S, ABORT_QUEUE, 0)
@@ -680,8 +691,11 @@ class ShardedSearch:
     def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> torch.Tensor:
         """A snapshot of the counters (the chunk's undo point), a sync that
         derives `go` under this run's options, then `n_steps` steps, each
-        followed by its sync. Returns the last `go`."""
-        self._snap = (torch.stack([c[k] for k in self._scalars()]), c["disc_keys"].clone())
+        followed by its sync (no snapshot with donate_chunks). Returns the
+        last `go`."""
+        if not self.donate_chunks:
+            self._snap = (torch.stack([c[k] for k in self._scalars()]),
+                          c["disc_keys"].clone())
         go = self._sync(c, self._zero, req, anym, target, max_steps)
         for i in range(n_steps):
             # An engine's first step is counted for the calibration's
@@ -811,6 +825,16 @@ class ShardedSearch:
                 # Non-fatal: every rank services its own shard, all resume.
                 self._service()
                 continue
+            if codes and self.donate_chunks:
+                # No undo point was kept: no shard has a sound carry left.
+                self._c = None
+                # srlint: fault-ok capacity abort; the chaos point is _fault_point above
+                raise RuntimeError(
+                    f"sharded search overflow — {_abort_reason(codes)}; donate_chunks=True "
+                    "sacrificed the recovery carry — rerun with a larger table_log2 or "
+                    "dest_capacity (or donate_chunks=False for checkpoint-then-regrow "
+                    "recovery)"
+                )
             if codes:
                 undo_chunk(self)
                 self._steps = steps0
@@ -976,14 +1000,15 @@ class ShardedSearch:
         faults/ckptio.py) in the JAX package's sharded format: its `_Carry`
         fields stacked [N, ...] (u32 lanes narrowed here), each shard's
         spill tier as `spill_fps_{i}` / `spill_parents_{i}`, and its meta,
-        with `n_chips`, `dest_capacity` and `insert_variant: "pallas"`. A
+        with `n_chips`, `dest_capacity` and `insert_variant`. A
         collective: every rank calls it; rank 0 gathers and writes, and
         every rank returns once the file is written (or raises if it was
         not). Queue rows are written up to the longest shard's tail, the
         suspect buffers whole; both packages' loaders pad the queue."""
         if self._c is None:
             # srlint: fault-ok caller-contract guard, not an I/O/device surface
-            raise RuntimeError("nothing to checkpoint: run() has not been called")
+            raise RuntimeError("nothing to checkpoint: run() has not been called, or a "
+                               "donate_chunks overflow dropped the carry")
         with self._tracer.span("checkpoint", cat="engine", path=path):
             return self._checkpoint(path)
 
@@ -1090,7 +1115,7 @@ class ShardedSearch:
             "batch_size": self.batch_size,
             "n_chips": N,
             "dest_capacity": self.dest_capacity,
-            "insert_variant": "pallas",
+            "insert_variant": self.insert_variant,
             "store": store_meta,
             "q_compacted": bool(col["q_compacted"].any()),
         }).encode(), dtype=np.uint8)
@@ -1105,16 +1130,19 @@ class ShardedSearch:
         device=None,
         batch_size: Optional[int] = None,
         table_log2: Optional[int] = None,
+        donate_chunks: bool = False,
     ) -> "ShardedSearch":
         """An engine holding the carry of a sharded `checkpoint` file,
         written by this package or the JAX one, on every rank of `group`
         (each rank reads the file and takes its own shard's row; the file
         must be readable by every rank). The next run() continues it. The
         group must have the file's shard count (the fingerprint->owner map
-        depends on it). A larger `table_log2` regrows every shard through
-        the insert (the CUDA kernel on the card); a JAX file of another
-        insert variant than "pallas" is re-inserted at the same size. The
-        table cannot shrink."""
+        depends on it). The search resumes on the file's insert variant
+        (the JAX engine's "sort" when the meta names none), each shard's
+        table taken slot for slot. A larger `table_log2` regrows every
+        shard, in slot order: through the CUDA kernel for a "pallas" table
+        and through the "sort" design for the designs' tables (the JAX
+        engine's `_regrow`). The table cannot shrink."""
         data, _src = load_latest(path)
         meta = json.loads(bytes(data["meta"]).decode())
         _validate_ckpt_meta(model, meta)
@@ -1136,7 +1164,9 @@ class ShardedSearch:
                             summary_log2=store_meta[0]["summary_log2"])
         ss = cls(model, group=group, device=device,
                  batch_size=batch_size or meta["batch_size"], table_log2=log2,
-                 dest_capacity=meta["dest_capacity"], **store_kw)
+                 dest_capacity=meta["dest_capacity"],
+                 insert_variant=meta.get("insert_variant", "sort"),
+                 donate_chunks=donate_chunks, **store_kw)
         i = ss.rank
         if store_meta:
             from ..store.tiered import TieredStore
@@ -1144,18 +1174,17 @@ class ShardedSearch:
             ss._store.close()
             ss._store = TieredStore.from_checkpoint(
                 1 << log2, store_meta[i], data[f"spill_fps_{i}"], data[f"spill_parents_{i}"],
-                device=ss.device,
+                device=ss.device, insert_variant=ss.insert_variant,
             )
             ss._q_compacted = bool(meta.get("q_compacted", False))
-        rehash = log2 != old_log2 or meta.get("insert_variant", "sort") != "pallas"
-        ss._load_carry(data, i, rehash)
+        ss._load_carry(data, i, rehash=log2 != old_log2)
         if ss.device.type == "cuda":
             torch.cuda.synchronize(ss.device)
         return ss
 
     def _load_carry(self, data, i: int, rehash: bool) -> None:
         """Fill a fresh carry from shard i of a checkpoint's arrays: the
-        table slot for slot or re-inserted, the live queue and suspect rows,
+        table slot for slot or regrown, the live queue and suspect rows,
         and the counters; `overflow` cleared (a regrow resolves it)."""
         dev, tiered = self.device, self._store is not None
         tail = int(data["tail"][i])
@@ -1170,9 +1199,9 @@ class ShardedSearch:
         t_key, t_parent = from_jax_table(data["t_lo"][i], data["t_hi"][i], data["p_lo"][i],
                                          data["p_hi"][i], device=dev)
         if rehash:
-            occupied = t_key != 0
-            reinsert(self.insert, c["t_key"], c["t_parent"], t_key[occupied],
-                     t_parent[occupied], self.batch_size)
+            occupied = self._reader.occupied(t_key)
+            reinsert(regrow_insert(self.insert_variant), c["t_key"], c["t_parent"],
+                     t_key[occupied], t_parent[occupied], self.batch_size)
         else:
             c["t_key"].copy_(t_key)
             c["t_parent"].copy_(t_parent)
@@ -1188,8 +1217,8 @@ class ShardedSearch:
         c["disc_keys"].copy_((from_u32(data["disc_hi"][i], dev) << 32)
                              | from_u32(data["disc_lo"][i], dev))
         steps = int(data["steps"][i])
-        hot = (int((c["t_key"] != 0).sum()) if rehash or "hot_claims" not in data
-               else int(data["hot_claims"][i]))
+        hot = (int(self._reader.occupied(c["t_key"]).sum())
+               if rehash or "hot_claims" not in data else int(data["hot_claims"][i]))
         i64 = dict(dtype=torch.int64, device=dev)
         c.update(
             head=torch.tensor(int(data["head"][i]), **i64),
@@ -1223,7 +1252,8 @@ class ShardedSearch:
     def _carry(self):
         if self._c is None:
             # srlint: fault-ok caller-contract guard, not an I/O/device surface
-            raise RuntimeError("no search to read: run() has not been called")
+            raise RuntimeError("no search to read (no table snapshot): run() has not "
+                               "been called, or a donate_chunks overflow dropped the carry")
         return self._c
 
     def reconstruct_path(self, fp: int):
@@ -1232,7 +1262,7 @@ class ShardedSearch:
         table, or its spill tier, and broadcasts the parent; then the model
         re-executes the chain."""
         c = self._carry()
-        local = _TableParents(c["t_key"], c["t_parent"], self._store)
+        local = _TableParents(c["t_key"], c["t_parent"], self._store, self._reader.lookup)
         return reconstruct_path(self.model, _ShardParents(self, local), fp, self.device)
 
     def dump_states(self, decode: bool = True, evaluated_only: bool = False,

@@ -120,8 +120,10 @@ class CheckService:
     ):
         """The shared table lives on `device`: the CUDA card unless
         `device="cpu"` is passed; with no CUDA device the default raises.
-        `insert_variant` takes "pallas" (knobs.py), the CUDA kernel on the
-        card, only, until ROADMAP A9b; any other value raises ValueError.
+        `insert_variant` is the shared table's insert (knobs.INSERT_VARIANTS,
+        split layout): "pallas", the CUDA kernel on the card, by default,
+        or one of the JAX package's XLA designs (on the tiered store with
+        `high_water` 0.5 or less: store/tiered.py).
 
         `telemetry=True` records one step row per fused step (obs/ring.py;
         `stats()["telemetry"]`, `/.status`, `/metrics`). `trace_out=<path>`

@@ -14,8 +14,9 @@ Lanes of one step share one `TensorModel.expand`, so jobs are grouped by
 model instance: jobs of one model share batches lane by lane, and groups
 of distinct models take turns on the device, all against the one table.
 Each step goes through tensor/frontier.py `expand_insert` with per-lane
-salts, and so through the CUDA insert kernel (its fused Bloom form on a
-tiered service).
+salts, and so through the table's insert: the CUDA kernel by default (its
+fused Bloom form on a tiered service), or the design `insert_variant`
+names (which probes the summary after its insert).
 
 The bookkeeping after a step follows FrontierSearch.run for each job, in
 its order: discoveries, eventually bits and terminal states, an early exit
@@ -61,6 +62,7 @@ from ..knobs import STORE_KINDS, WARM_KINDS
 # `calib` as a module: obs.calib imports the tensor package, which imports this.
 from ..obs import StepRing, as_events, as_tracer, calib
 from ..store import warm as warm_seam
+from ..tensor.costmodel import ENGINE_VARIANTS
 from ..tensor.fingerprint import from_host_fp, salt_keys, to_host_fp
 from ..tensor.frontier import (
     SearchResult,
@@ -70,8 +72,7 @@ from ..tensor.frontier import (
     replay_fp_chain,
     seed_init,
 )
-from ..tensor.inserts import resolve_insert
-from ..tensor.pallas_hashtable import PallasHashTable
+from ..tensor.inserts import make_table, resolve_insert, resolve_reader
 from .queue import Job, JobResume, JobStatus, _pack
 
 
@@ -161,17 +162,17 @@ class ServiceEngine:
         is passed; with no CUDA device the default raises. `corpus_dir`
         attaches the warm-start corpus (store/corpus.py), which needs the
         tiered store: a known state is filtered through its spill tier.
-        `insert_variant` takes "pallas", the CUDA kernel, only, until ROADMAP
-        A9b: the shared table's undo, eviction and re-seed read the kernel's
-        slot layout; any other value raises ValueError."""
-        if insert_variant != "pallas":
-            raise ValueError(
-                "the check service takes insert_variant='pallas' only until ROADMAP "
-                f"A9b; got {insert_variant!r}"
-            )
+        `insert_variant` is the shared table's insert (knobs.INSERT_VARIANTS,
+        split layout): "pallas", the CUDA kernel, by default, or one of the
+        JAX package's XLA designs; seeding, re-seeding, eviction and path
+        walks read the table through the variant's reader
+        (tensor/inserts.py `resolve_reader`). A design's tiered table wants
+        `high_water` 0.5 or less (store/tiered.py)."""
         self.batch_size = batch_size
-        self._insert = resolve_insert(insert_variant)
-        self.table = PallasHashTable(table_log2, device=device)
+        self.insert_variant = insert_variant
+        self._insert = resolve_insert(insert_variant)  # JAX's refusals
+        self._reader = resolve_reader(insert_variant)
+        self.table = make_table(insert_variant, table_log2, device=device)
         self.device = self.table.device
         # One telemetry ring for the engine's life: every scalar of a row is
         # already on the host when the step's bookkeeping runs.
@@ -190,8 +191,9 @@ class ServiceEngine:
                 self.table.size,
                 TieredConfig(high_water=high_water, low_water=low_water,
                              summary_log2=summary_log2),
-                device=self.device,
+                device=self.device, insert_variant=insert_variant,
             )
+            self._insert = resolve_insert(insert_variant, summary_cfg=self._store.summary_cfg)
             # Eviction runs only between steps, and a step claims up to
             # batch x max_actions slots: each group lowers the trigger by
             # its own bound (group_of).
@@ -267,7 +269,8 @@ class ServiceEngine:
             self._calib = calib.make_comparator(
                 "service", widest, self.batch_size, self.table.size.bit_length() - 1,
                 self.device, spill=self._store is not None, events=self._events,
-                record_root=self._calib_root)
+                record_root=self._calib_root,
+                variant=ENGINE_VARIANTS[("split", self.insert_variant)])
         if self._calib is not None:
             self._calib.configure(lanes, acts)
 
@@ -301,7 +304,7 @@ class ServiceEngine:
         lowering = {
             "batch_size": self.batch_size,
             "table_log2": self.table.log2_size,
-            "insert_variant": "pallas",
+            "insert_variant": self.insert_variant,
             "store": self.store,
             "summary_log2": self._store.config.summary_log2,
             "summary_hashes": self._store.summary_cfg[1],
@@ -639,8 +642,8 @@ class ServiceEngine:
         its pop order. From here the normal steps continue the search as the
         dead replica would have: the table dedups what its table did, and the
         restored discoveries are not scanned again. One insert call per K
-        rows, through the step's insert route (the kernel on the card, the
-        plain version on the CPU), and one wait for the card after the last
+        rows, through the step's insert route (the kernel on the card for
+        "pallas", its plain version on the CPU, or the design), and one wait for the card after the last
         — after each on a tiered store, which evicts between the batches as
         it does between steps."""
         g = self.group_of(job)
@@ -680,7 +683,7 @@ class ServiceEngine:
                 sl = slice(b0, b0 + K)
                 _, _, is_new, overflow = self._insert(
                     self.table.t_key, self.table.t_parent, key_t[sl], parent_t[sl],
-                    active_t[sl], n_partitions=self.table.n_partitions)
+                    active_t[sl])
                 n_new = n_new + is_new.sum()
                 ovf = ovf | overflow.to(torch.int64)
                 if tiered or b0 + K == n_pad:
@@ -1030,13 +1033,12 @@ class ServiceEngine:
         return finished
 
     def _maybe_evict(self) -> None:
-        """Tiered: evict past the spill trigger, or when a table partition
-        nears full (chains wrap inside a partition; store/tiered.py), as
-        FrontierSearch does."""
+        """Tiered: evict past the spill trigger, or when a partition of the
+        kernel's table nears full (chains wrap inside a partition;
+        store/tiered.py), as FrontierSearch does."""
         store = self._store
         t_key, t_parent = self.table.t_key, self.table.t_parent
-        at_risk = int(store.partition_fill(t_key).max()) >= store.risk_slots
-        if self.hot_claims < self._spill_trigger and not at_risk:
+        if self.hot_claims < self._spill_trigger and not store.at_risk(t_key):
             return
         with self._tracer.span("tiered.evict", cat="store"):
             freed = store.evict(t_key, t_parent, self.hot_claims)
@@ -1168,7 +1170,8 @@ class ServiceEngine:
         enters the chain."""
         from ..tensor.resident import _TableParents
 
-        parents = _TableParents(self.table.t_key, self.table.t_parent, self._store)
+        parents = _TableParents(self.table.t_key, self.table.t_parent, self._store,
+                                self._reader.lookup)
         chain = []
         cur = _salt_host(fp, job.salt)
         while cur:

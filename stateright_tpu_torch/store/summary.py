@@ -59,6 +59,7 @@ def _positions(lo, hi, summary_log2: int, hashes: int) -> torch.Tensor:
 
 
 def _lanes(x) -> torch.Tensor:
+    # srlint: host-ok the numpy entry points' conversion of host arrays
     return torch.from_numpy(np.asarray(x, dtype=np.uint32).astype(np.int64))
 
 
@@ -69,8 +70,10 @@ def maybe_contains(bits, lo, hi, summary_log2: int, hashes: int = DEFAULT_HASHES
     insert kernel's verdict 3). Numpy form: `bits`, `lo`, `hi` uint32
     arrays, result a numpy bool array."""
     if isinstance(bits, np.ndarray):
+        # srlint: host-ok the numpy form takes host arrays; a step passes tensors
         words = torch.from_numpy(np.asarray(bits, dtype=np.uint32).view(np.int32))
-        return maybe_contains(words, _lanes(lo), _lanes(hi), summary_log2, hashes).numpy()
+        hit = maybe_contains(words, _lanes(lo), _lanes(hi), summary_log2, hashes)
+        return hit.numpy()  # srlint: host-ok the numpy form's result, on the host already
     hit = torch.ones(lo.shape, dtype=torch.bool, device=lo.device)
     for pos in _positions(lo, hi, summary_log2, hashes):
         word = bits[pos >> 5].to(torch.int64) & MASK32

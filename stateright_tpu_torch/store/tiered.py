@@ -31,6 +31,22 @@ search whatever the rest of the table holds. After the reference's sweep,
 lacks this pass; `evict` says why it is needed at scale, why it is sound,
 and why it leaves the reference's results unchanged at its test sizes).
 
+The table of one of the XLA designs (tensor/hashtable.py, `insert_variant=
+"sort"` and the rest) is swept the same way, over its own buckets of
+`min(128, S)` slots, with the same argument: a design's insert passes a
+bucket only while it is full. Its chains run over the whole table, not
+inside a partition, so that table has no partition pass, and its eviction
+is the reference's slot for slot at any size. Which table a store sweeps
+follows the engine's variant (`insert_variant=`): the kernel's for
+"pallas", a design's for the others.
+
+A design's table wants a lower water mark than the kernel's: with no
+partition pass, the buckets the hand has not reached keep filling while it
+frees a run of others, and a run of full buckets longer than the design's
+64 probe rounds aborts the search (table full). At 0.85 that happens in
+the JAX engine as in this one (tests/test_torch_variants_water.py holds
+the two aborts equal); 0.5 or less suits a design.
+
 Two eviction entry points share one sweep: `evict` takes the engine's torch
 tables on their device, counts occupied slots per row there, copies only
 the evicted keys and parents to the host and zeroes their rows in place;
@@ -47,6 +63,8 @@ import numpy as np
 import torch
 
 from ..faults.plan import maybe_fault
+from ..tensor.hashtable import BUCKET
+from ..tensor.inserts import resolve_reader
 from ..tensor.pallas_hashtable import LANES, partitions
 from .host import HostSpillStore
 from .summary import DEFAULT_HASHES, insert, summary_words
@@ -90,12 +108,15 @@ class TieredConfig:
 
 class TieredStore:
     def __init__(self, table_size: int, config: TieredConfig = TieredConfig(),
-                 background: bool = True, device="cuda"):
-        """The table is split into the insert kernel's default partitions;
-        one holding `risk_slots` keys (7/8 of it) is emptied whole at the
-        next eviction (see `evict`). The Bloom summary lives on `device`,
-        the table's: the CUDA card unless `device="cpu"` is passed; with no
-        CUDA device the default raises."""
+                 background: bool = True, device="cuda", insert_variant: str = "pallas"):
+        """`insert_variant` is the engine's: the kernel's table ("pallas",
+        the default) is split into the kernel's partitions, and one holding
+        `risk_slots` keys (7/8 of it) is emptied whole at the next eviction
+        (see `evict`); a design's table has no partitions, and wants a water
+        mark of 0.5 or less (see the module docstring).
+        The Bloom summary lives on `device`, the table's: the CUDA card
+        unless `device="cpu"` is passed; with no CUDA device the default
+        raises."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             # srlint: fault-ok caller-contract guard (no CUDA device), not an I/O/device surface
@@ -104,18 +125,24 @@ class TieredStore:
                 "pass device='cpu' to keep the summary on the CPU"
             )
         config.validate()
-        if table_size % LANES:
-            raise ValueError(f"table size {table_size} is not whole {LANES}-slot rows")
+        self.reader = resolve_reader(insert_variant)
+        self.partitioned = insert_variant == "pallas"
         self.config = config
         self.size = table_size
-        self.bucket = LANES  # the insert kernel's row
-        self.n_buckets = table_size // LANES
+        if self.partitioned:
+            if table_size % LANES:
+                raise ValueError(f"table size {table_size} is not whole {LANES}-slot rows")
+            self.bucket = LANES  # the insert kernel's row
+            self.n_partitions = partitions(table_size)
+            part_slots = table_size // self.n_partitions
+            self.risk_slots = part_slots - part_slots // 8
+        else:
+            self.bucket = min(BUCKET, table_size)  # a design's bucket
+            self.n_partitions = self.risk_slots = None  # no partition pass
+        self.n_buckets = table_size // self.bucket
         self.high_slots = max(int(config.high_water * table_size), 1)
         self.low_slots = int(config.resolved_low_water() * table_size)
         self.window = max(self.n_buckets // 8, 1)
-        self.n_partitions = partitions(table_size)
-        part_slots = table_size // self.n_partitions
-        self.risk_slots = part_slots - part_slots // 8
         self.partition_spills = 0
         self.summary = torch.zeros(summary_words(config.summary_log2),
                                    dtype=torch.int32, device=device)
@@ -155,13 +182,14 @@ class TieredStore:
         """Eviction of the engine's tables on their device, in place.
 
         First the reference's sweep, from the clock hand until occupancy is
-        at low water. Per window: count occupied slots per row on the device
-        (a [w] int32 copy), pick the evictable rows (non-full, non-empty)
-        from the counts, spill their keys and zero them on the device. Full
-        rows never cross the bus.
+        at low water. Per window: count occupied slots per bucket (the
+        kernel's row, or a design's bucket) on the device (a [w] int32
+        copy), pick the evictable buckets (non-full, non-empty) from the
+        counts, spill their keys and zero them on the device. Full buckets
+        never cross the bus. A design's table stops there.
 
-        Then every partition holding `risk_slots` keys or more is emptied
-        whole — the reference has no such pass. Its sweep empties a
+        On the kernel's table, every partition holding `risk_slots` keys or
+        more is then emptied whole — the reference has no such pass. Its sweep empties a
         contiguous run of rows, at a 0.85/0.60 band about 30% of the table,
         and leaves the other partitions at high water while claims keep
         landing on them; chains wrap inside a partition, so those fill up
@@ -181,6 +209,16 @@ class TieredStore:
             maybe_fault("store.spill", tier=tier, target=hot_claims - self.low_slots)
             freed = self._sweep(t_key.view(-1, self.bucket), t_parent.view(-1, self.bucket),
                                 hot_claims - self.low_slots)
+        if self.partitioned:
+            freed += self._empty_partitions(t_key, t_parent)
+        if freed:
+            self.spill_events += 1
+        return freed
+
+    def _empty_partitions(self, t_key, t_parent) -> int:
+        """The port's pass over the kernel's table: every partition holding
+        `risk_slots` keys or more is emptied whole. Returns the freed count."""
+        freed = 0
         fill = self.partition_fill(t_key).cpu().numpy()
         parts_k = t_key.view(self.n_partitions, -1)
         parts_p = t_parent.view(self.n_partitions, -1)
@@ -192,13 +230,24 @@ class TieredStore:
             parts_p[p].zero_()
             freed += int(fill[p])
             self.partition_spills += 1
-        if freed:
-            self.spill_events += 1
         return freed
 
     def partition_fill(self, t_key: torch.Tensor) -> torch.Tensor:
         """Occupied slots of each partition (on the table's device)."""
         return (t_key.view(self.n_partitions, -1) != 0).sum(1)
+
+    def near_full(self, t_key: torch.Tensor) -> Optional[torch.Tensor]:
+        """A 0-d bool on the table's device: some partition holds
+        `risk_slots` keys (a step's service exit; no host sync). None for a
+        design's table, which has no partitions."""
+        if not self.partitioned:
+            return None
+        return self.partition_fill(t_key).max() >= self.risk_slots
+
+    def at_risk(self, t_key: torch.Tensor) -> bool:
+        """`near_full` read on the host (a service's eviction trigger)."""
+        risk = self.near_full(t_key)
+        return risk is not None and bool(risk)
 
     def _sweep(self, rows_k, rows_p, target: int) -> int:
         """The reference's clock sweep: evict windows of rows from the hand
@@ -209,7 +258,8 @@ class TieredStore:
         while freed < target and scanned < self.n_buckets:
             w = min(self.window, self.n_buckets - self.sweep)
             r0 = self.sweep
-            counts = (rows_k[r0:r0 + w] != 0).sum(1, dtype=torch.int32).cpu().numpy()
+            counts = self.reader.occupied(rows_k[r0:r0 + w]).sum(
+                1, dtype=torch.int32).cpu().numpy()
             evictable = (counts > 0) & (counts < b)
             n = int(counts[evictable].sum())
             self.evict_bytes_pcie += counts.nbytes
@@ -217,7 +267,7 @@ class TieredStore:
             if n:
                 idx = torch.from_numpy(np.nonzero(evictable)[0] + r0).to(rows_k.device)
                 keys, parents = rows_k.index_select(0, idx), rows_p.index_select(0, idx)
-                occupied = keys != 0
+                occupied = self.reader.occupied(keys)
                 self._spill(keys[occupied], parents[occupied])
                 rows_k.index_fill_(0, idx, 0)
                 rows_p.index_fill_(0, idx, 0)
@@ -335,7 +385,7 @@ class TieredStore:
 
     @classmethod
     def from_checkpoint(cls, table_size: int, meta: dict, spill_fps, spill_parents,
-                        device="cuda") -> "TieredStore":
+                        device="cuda", insert_variant: str = "pallas") -> "TieredStore":
         """The store of a checkpoint (either package's), for a table of
         `table_size` slots on `device`: the spill tier from its arrays, and
         the Bloom summary rebuilt from the spilled keys on that device, in
@@ -346,7 +396,7 @@ class TieredStore:
             low_water=meta["low_water"],
             summary_log2=meta["summary_log2"],
         )
-        ts = cls(table_size, cfg, device=device)
+        ts = cls(table_size, cfg, device=device, insert_variant=insert_variant)
         ts.store.close()  # replaced wholesale below
         fps = np.asarray(spill_fps, dtype=np.uint64)
         ts.store = HostSpillStore.from_arrays(fps, spill_parents)

@@ -71,6 +71,23 @@ def seed_init(model: TensorModel):
     return init[keep], keys[keep], n_raw
 
 
+# -- u64 counters as (lo, hi) u32 pairs -------------------------------------------
+
+
+def count_add(clo, chi, x):
+    """(lo, hi) += x for a counter held as two uint32 words in int64 lanes
+    (the JAX package's `count_add`): x < 2^32, and the low word's carry
+    moves into the high word, which wraps at 2^32 as the JAX uint32 does."""
+    nlo = (clo + x) & MASK32
+    return nlo, (chi + (nlo < clo).to(chi.dtype)) & MASK32
+
+
+def count_ge(clo, chi, tlo, thi):
+    """(lo, hi) >= (tlo, thi) for counters held as uint32 word pairs (the
+    JAX package's `count_ge`)."""
+    return (chi > thi) | ((chi == thi) & (clo >= tlo))
+
+
 def expand_keys(model, states, active):
     """Expand, boundary-mask and fingerprint a batch. Returns (flat_states
     int64[K*A, L], succ_keys int64[K*A], validf bool[K*A], gen_rows
@@ -100,9 +117,10 @@ def expand_insert(model, insert, t_key, t_parent, states, keys, active,
     suspect, gen_rows int64[K], has_succ bool[K], overflow bool[]).
 
     `summary` (int32 Bloom words, with `summary_cfg=(summary_log2, hashes)`)
-    is the tiered store's summary of the spilled set: the insert then runs
-    in its fused form and `suspect` marks the new keys that hit it (the
-    JAX package's verdict 3). Without a summary, `suspect` is all False.
+    is the tiered store's summary of the spilled set: the insert, resolved
+    in its tiered form (inserts.resolve_insert), then marks in `suspect`
+    the new keys that hit it (the JAX package's verdict 3). Without a
+    summary, `suspect` is all False.
 
     `salts` (int64[K], packed job salts, fingerprint.pack_salt) folds each
     lane's job salt into every key the table sees: the successor keys and
@@ -316,10 +334,20 @@ def compact_new(is_new, *columns):
     return [torch.empty_like(col).index_copy_(0, pos, col) for col in columns]
 
 
+def compact_flags(flags, is_new):
+    """A per-lane flag column at the positions `compact_new` gives its
+    rows (the JAX package's `compact_flags`): flag i annotates compacted
+    row i, for the rows [0, new count); the other rows are False. The
+    port's steps pass their suspect column to `compact_new` instead: it is
+    a subset of `is_new` on every route, so the two give the same rows."""
+    pos = torch.where(is_new, torch.cumsum(is_new, 0) - 1, flags.shape[0])
+    out = torch.zeros(flags.shape[0] + 1, dtype=torch.bool, device=flags.device)
+    return out.index_copy_(0, pos, flags & is_new)[:-1]
+
+
 def reinsert(insert, t_key, t_parent, keys, parents, batch_size: int) -> None:
     """Insert (keys, parents) into the table, `batch_size` keys a call,
-    through `insert` (the CUDA kernel on the card): a regrow, or a table of
-    another slot layout taken into this one. Overflow raises."""
+    through `insert` (inserts.regrow_insert): a regrow. Overflow raises."""
     active = torch.ones(batch_size, dtype=torch.bool, device=t_key.device)
     ovf = torch.zeros((), dtype=torch.bool, device=t_key.device)
     for i in range(0, keys.shape[0], batch_size):
@@ -379,7 +407,8 @@ class FrontierSearch:
         """The table lives on `device`: the CUDA card unless `device="cpu"`
         is passed; with no CUDA device the default raises. `store="tiered"`
         spills cold table rows to the host past `high_water` fill, behind a
-        Bloom summary of 2^summary_log2 bits (store/tiered.py).
+        Bloom summary of 2^summary_log2 bits (store/tiered.py); a design's
+        tiered table wants `high_water` 0.5 or less (see there).
         `telemetry` appends one obs.STEP_COLS row per step on the host,
         from scalars the step already reads, with its wall time; `tracer`
         (obs.Tracer) records the steps, suspect resolution and eviction as
@@ -387,15 +416,9 @@ class FrontierSearch:
 
         `insert_variant` picks the visited-set insert (knobs.INSERT_VARIANTS,
         split layout): "pallas", the CUDA kernel, by default, or one of the
-        JAX package's XLA designs (tensor/hashtable.py). The tiered store
-        takes "pallas" only until ROADMAP A9b."""
+        JAX package's XLA designs (tensor/hashtable.py), with either store."""
         if store not in STORE_KINDS:  # knob universe: knobs.py
             raise ValueError(f"store must be one of {STORE_KINDS}, got {store!r}")
-        if store == "tiered" and insert_variant != "pallas":
-            raise ValueError(
-                f"store='tiered' takes insert_variant='pallas' only until ROADMAP A9b; "
-                f"got {insert_variant!r}"
-            )
         self.model = model
         self.batch_size = batch_size
         self.insert_variant = insert_variant
@@ -413,8 +436,9 @@ class FrontierSearch:
                 self.table.size,
                 TieredConfig(high_water=high_water, low_water=low_water,
                              summary_log2=summary_log2),
-                device=self.device,
+                device=self.device, insert_variant=insert_variant,
             )
+            self.insert = resolve_insert(insert_variant, summary_cfg=self._store.summary_cfg)
             # One step can claim batch x max_actions slots, and eviction
             # runs only between steps.
             ka = batch_size * model.max_actions
@@ -787,12 +811,12 @@ class FrontierSearch:
         )
 
     def _maybe_evict(self) -> None:
-        """Tiered: evict past the spill trigger, or when a table partition
-        nears full (chains wrap inside a partition; store/tiered.py)."""
+        """Tiered: evict past the spill trigger, or when a partition of the
+        kernel's table nears full (chains wrap inside a partition;
+        store/tiered.py)."""
         store = self._store
         t_key, t_parent = self.table.t_key, self.table.t_parent
-        at_risk = int(store.partition_fill(t_key).max()) >= store.risk_slots
-        if self._hot_claims < self._spill_trigger and not at_risk:
+        if self._hot_claims < self._spill_trigger and not store.at_risk(t_key):
             return
         with self._tracer.span("tiered.evict", cat="store"):
             freed = store.evict(t_key, t_parent, self._hot_claims)
@@ -890,9 +914,7 @@ class FrontierSearch:
         is verified, and a corrupt current generation falls back to
         ``path + ".prev"``. The search resumes on the file's insert variant
         (the JAX engine's "sort" when the meta names none), its table taken
-        slot for slot. A tiered file of an XLA design resumes on "pallas",
-        its occupied slots re-inserted through the kernel, since the tiered
-        store takes the designs only from ROADMAP A9b."""
+        slot for slot, with either store."""
         data, _src = load_latest(path)
         meta = json.loads(bytes(data["meta"]).decode())
         if (meta["lanes"], meta["max_actions"]) != (model.lanes, model.max_actions):
@@ -913,10 +935,8 @@ class FrontierSearch:
             store_kw = dict(store="tiered", high_water=store_meta["high_water"],
                             low_water=store_meta["low_water"],
                             summary_log2=store_meta["summary_log2"])
-        variant = meta.get("insert_variant", "sort")
-        reinserted = bool(store_meta) and variant != "pallas"
         fs = cls(model, batch_size, meta["table_log2"],
-                 insert_variant="pallas" if reinserted else variant, device=device,
+                 insert_variant=meta.get("insert_variant", "sort"), device=device,
                  **store_kw)
         if store_meta:
             from ..store.tiered import TieredStore
@@ -924,17 +944,12 @@ class FrontierSearch:
             fs._store.close()  # replaced by the checkpointed tier
             fs._store = TieredStore.from_checkpoint(
                 fs.table.size, store_meta, data["spill_fps"], data["spill_parents"],
-                device=fs.device,
+                device=fs.device, insert_variant=fs.insert_variant,
             )
         t_key, t_parent = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"],
                                          data["p_hi"], device=fs.device)
-        if not reinserted:
-            fs.table.t_key.copy_(t_key)
-            fs.table.t_parent.copy_(t_parent)
-        else:
-            occupied = t_key != 0
-            reinsert(fs.insert, fs.table.t_key, fs.table.t_parent, t_key[occupied],
-                     t_parent[occupied], batch_size)
+        fs.table.t_key.copy_(t_key)
+        fs.table.t_parent.copy_(t_parent)
         del t_key, t_parent
         fs._counts = dict(meta["counts"])
         fs._disc = {name: int(fp) for name, fp in meta["discoveries"].items()}

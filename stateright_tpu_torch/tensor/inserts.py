@@ -20,7 +20,10 @@ kernel never becomes a design. Every entry shares one signature,
         -> (table, t_parent, is_new, overflow)
 
 with the tables updated in place; the pallas entry also takes
-`n_partitions`, `summary` and `summary_cfg`.
+`n_partitions`, `summary` and `summary_cfg`. A design resolved for the
+tiered store (`resolve_insert(..., summary_cfg=)`) takes `summary` and
+`summary_cfg` too, so every engine calls every variant's tiered form the
+same way.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Callable, NamedTuple
 
 from ..knobs import INSERT_VARIANTS, PHASED_VARIANTS, TABLE_LAYOUTS
 from . import hashtable, pallas_hashtable
+from .fingerprint import MASK32
 from .hashtable import (
     HashTable,
     HashTableKV,
@@ -101,21 +105,48 @@ def make_table(insert_variant: str, table_log2: int, device="cuda",
     return cls(table_log2, insert_variant, device=device)
 
 
+def _probe_after(insert):
+    """A design's insert in the kernel's tiered signature: with a `summary`
+    it inserts, then marks the new keys that hit the Bloom summary
+    (`is_new & maybe_contains`, the JAX package's order for a design) and
+    returns (table, t_parent, is_new, suspect, overflow); without one it is
+    the plain insert."""
+
+    def tiered(table, t_parent, key, parent, active, summary=None, summary_cfg=None):
+        out = insert(table, t_parent, key, parent, active)
+        if summary is None:
+            return out
+        from ..store.summary import maybe_contains
+
+        table, t_parent, is_new, overflow = out
+        hit = maybe_contains(summary, key & MASK32, (key >> 32) & MASK32, *summary_cfg)
+        return table, t_parent, is_new, is_new & hit, overflow
+
+    return tiered
+
+
 def resolve_insert(insert_variant: str, table_layout: str = "split", *, summary_cfg=None):
     """variant name (and layout) -> insert function. JAX's refusals: an
     unknown name, and "phased", "capped-phased" or "pallas" on the kv
-    layout. `summary_cfg` asks for the tiered store's fused Bloom-suspect
-    form, which only "pallas" has here: the designs do not run with the
-    tiered store before ROADMAP A9b, and asking raises."""
+    layout. `summary_cfg=(summary_log2, hashes)` asks for the tiered form:
+    called with `summary=` and `summary_cfg=`, it returns the suspect mask
+    (the new keys that hit the summary) before `overflow`. The kernel
+    ("pallas") probes inside its own pass; a design inserts, then probes
+    with `store.summary.maybe_contains`, as the JAX package does."""
     _check_names(insert_variant, table_layout)
     if table_layout == "kv":
         return KV_INSERT_TABLE[insert_variant]
     if summary_cfg is not None and insert_variant != "pallas":
-        raise ValueError(
-            f"insert_variant={insert_variant!r} has no fused Bloom-suspect form; the "
-            "tiered store takes insert_variant='pallas' until ROADMAP A9b"
-        )
+        return _probe_after(INSERT_TABLE[insert_variant])
     return INSERT_TABLE[insert_variant]
+
+
+def regrow_insert(insert_variant: str):
+    """The insert a regrow re-inserts a table's keys through (the JAX
+    `resident._regrow_insert`): the kernel for a "pallas" table, whose slot
+    layout is its own, and the "sort" design for every design's table, since
+    the designs share one bucket layout."""
+    return INSERT_TABLE["pallas" if insert_variant == "pallas" else "sort"]
 
 
 class TableReader(NamedTuple):

@@ -2301,8 +2301,13 @@ def refine_check(
         from .resident import ResidentSearch
 
         def make_search(lowered):
+            # Warm rounds run many short budgeted chunks: with donate_chunks
+            # a chunk takes no undo snapshot (the JAX engine's donation).
+            # The trade, no recovery carry after an overflow, is fine here:
+            # a refinement overflow means a rerun with a larger table_log2.
             return ResidentSearch(
                 lowered, batch_size=batch_size, table_log2=table_log2, device=device,
+                donate_chunks=True,
             )
     elif engine == "sharded":
         if warm:

@@ -44,11 +44,12 @@ design for the designs' tables, as the JAX engine does.
 
 store="tiered" (store/tiered.py) lets the unique states outnumber the
 table. Each step inserts through the fused Bloom-suspect form of the
-kernel: a new key that hits the summary of the spilled set is a suspect
-and goes to a suspect buffer instead of the queue. A step sets the
-non-fatal EXIT_SERVICE bit when the claims reach the spill trigger, the
-suspect buffer nears full, the queue tail passes 2^queue_log2, or a table
-partition nears full (store/tiered.py says why the last one); like any
+kernel (a design inserts, then probes the summary, as in the JAX engine):
+a new key that hits the summary of the spilled set is a suspect and goes
+to a suspect buffer instead of the queue. A step sets the non-fatal
+EXIT_SERVICE bit when the claims reach the spill trigger, the suspect
+buffer nears full, the queue tail passes 2^queue_log2, or, on the kernel's
+table, a partition nears full (store/tiered.py says why the last one); like any
 overflow bit it turns the chunk's remaining steps into no-ops, and the
 host then runs `_service` (compact the queue, resolve the suspects and
 enqueue the confirmed-new ones, evict) and resumes the same carry.
@@ -96,7 +97,13 @@ from .frontier import (
     seed_init,
 )
 from .costmodel import ENGINE_VARIANTS
-from .inserts import PALLAS_READER, check_table_log2, resolve_insert, resolve_reader
+from .inserts import (
+    PALLAS_READER,
+    check_table_log2,
+    regrow_insert,
+    resolve_insert,
+    resolve_reader,
+)
 from .model import TensorModel
 from .pallas_hashtable import from_jax_table, from_u32, to_jax_table, to_u32
 
@@ -269,9 +276,10 @@ def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
     2. drain the suspect buffer: exact membership against the spill
        tier; duplicates are dropped, Bloom false positives are injected
        at the queue tail and counted unique;
-    3. at or past the spill trigger, or with a partition near full,
-       evict: non-full rows, and every partition near full whole, move
-       to the spill tier and the summary absorbs their keys.
+    3. at or past the spill trigger, or with a partition of the kernel's
+       table near full, evict: non-full rows (buckets), and every such
+       partition whole, move to the spill tier and the summary absorbs
+       their keys.
 
     Then the service bit is cleared. Returns 0, ABORT_QUEUE when the
     compacted live frontier still passes `queue_cap` rows (the carry is
@@ -313,8 +321,7 @@ def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
             tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
             unique += n_conf
     t2 = time.monotonic()
-    at_risk = int(store.partition_fill(c["t_key"]).max()) >= store.risk_slots
-    if hot >= eng._spill_trigger or at_risk:
+    if hot >= eng._spill_trigger or store.at_risk(c["t_key"]):
         if shard is not None:
             maybe_fault("shard.transfer", shard=shard, phase="evict")
         with eng._tracer.span("tiered.evict", cat="store"):
@@ -390,6 +397,7 @@ class ResidentSearch:
         telemetry: bool = True,
         telemetry_log2: int = 12,
         tracer=None,
+        donate_chunks: bool = False,
     ):
         """`queue_log2` caps the frontier queue at 2^queue_log2 rows
         (default: table_log2, the always-sufficient bound with the device
@@ -401,14 +409,24 @@ class ResidentSearch:
         `high_water` fill, down to `low_water` (default high_water - 0.25),
         behind a Bloom summary of 2^summary_log2 bits (~6 bits per spilled
         state keeps suspects rare); see store/tiered.py.
+        A design's tiered table wants `high_water` 0.5 or less: at the
+        default 0.85 its sweep can leave a run of full buckets longer than
+        the insert's probe rounds, and the search aborts table-full, as the
+        JAX engine's does (store/tiered.py).
 
         `insert_variant` picks the visited-set insert (knobs.INSERT_VARIANTS):
         "pallas", the CUDA kernel, by default, or one of the JAX package's
         XLA designs (tensor/hashtable.py). `table_layout` is "split" or, for
         "sort" and "capped", "kv" (knobs.TABLE_LAYOUTS); `append` is the
         queue append (knobs.APPEND_KINDS; None: "scatter",
-        frontier.resolve_append). The tiered store takes the defaults only
-        until ROADMAP A9b.
+        frontier.resolve_append). The tiered store takes every split-layout
+        variant and both appends; kv with the tiered store is refused, as in
+        the JAX engine.
+
+        `donate_chunks=True` is the JAX engine's trade: a chunk keeps no
+        undo point (no counters snapshot), so an overflow drops the carry
+        and raises, and there is nothing left to checkpoint. The steps
+        update the carry in place either way.
 
         `telemetry` keeps a device ring of the last 2^telemetry_log2 step
         rows, drained at chunk boundaries into `detail["telemetry"]`;
@@ -427,11 +445,7 @@ class ResidentSearch:
         self.append = resolve_append(append, self.device)
         if store == "tiered" and table_layout != "split":
             raise ValueError("store='tiered' supports the split table layout only")
-        if store == "tiered" and (insert_variant != "pallas" or self.append != "scatter"):
-            raise ValueError(
-                "store='tiered' takes insert_variant='pallas' and the default append "
-                f"only until ROADMAP A9b; got {insert_variant!r} / {append!r}"
-            )
+        self.donate_chunks = donate_chunks
         self.model = model
         self.batch_size = batch_size
         self.table_log2 = table_log2
@@ -447,6 +461,7 @@ class ResidentSearch:
         S = 1 << table_log2
         if store == "tiered":
             self._fresh_store()
+            self.insert = resolve_insert(insert_variant, summary_cfg=self._store.summary_cfg)
             # One step can claim up to K*A slots, and eviction runs only
             # between steps.
             self._spill_trigger = min(self._store.high_slots, S - ka)
@@ -584,7 +599,7 @@ class ResidentSearch:
             1 << self.table_log2,
             TieredConfig(high_water=high_water, low_water=low_water,
                          summary_log2=summary_log2),
-            device=self.device,
+            device=self.device, insert_variant=self.insert_variant,
         )
 
     # -- the carry ---------------------------------------------------------
@@ -735,15 +750,18 @@ class ResidentSearch:
             c["hot"] = c["hot"] + claimed
             sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
             c["s_tail"] = append_new(sbuf, c["s_tail"], rows, suspect)
-            # The reference's three exits, and a fourth of the port's: a
-            # partition near full (chains wrap inside a partition, so it
-            # would abort whatever the rest of the table holds).
+            # The reference's three exits, and on the kernel's table a
+            # fourth of the port's: a partition near full (chains wrap
+            # inside a partition, so it would abort whatever the rest of
+            # the table holds).
             service = (
                 (c["hot"] >= self._spill_trigger)
                 | (c["s_tail"] > self._SQ - K * A)
                 | (tail > self._QL)
-                | (self._part_max(c) >= self._store.risk_slots)
             )
+            near_full = self._store.near_full(c["t_key"])
+            if near_full is not None:
+                service = service | near_full
             code = code | torch.where(service, EXIT_SERVICE, 0)
         else:
             code = code | torch.where(tail > self._QL, ABORT_QUEUE, 0)
@@ -855,6 +873,15 @@ class ResidentSearch:
                 continue
             if overflow:
                 self._last_abort = overflow & (ABORT_TABLE | ABORT_QUEUE)
+                if self.donate_chunks:
+                    # No undo point was kept: there is no sound carry left.
+                    self._c = None
+                    raise RuntimeError(
+                        f"hash table or queue full — {_abort_reason(overflow)}; "
+                        "donate_chunks=True sacrificed the recovery carry — rerun with "
+                        "the larger size (or donate_chunks=False for "
+                        "checkpoint-then-regrow recovery)"
+                    )
                 self._undo_chunk()
                 raise RuntimeError(
                     f"hash table or queue full — {_abort_reason(overflow)}; the "
@@ -965,9 +992,10 @@ class ResidentSearch:
     def _chunk(self, c, req, anym, target, tmd, max_steps, n_steps) -> None:  # srlint: step-region
         """`n_steps` steps queued on the device with no host sync, after a
         snapshot of the carry's counters and discovery keys: the undo point
-        of the chunk (one stack and one clone)."""
-        self._snap = (torch.stack([c[k] for k in self._scalars()]),
-                      c["disc_keys"].clone())
+        of the chunk (one stack and one clone; none with donate_chunks)."""
+        if not self.donate_chunks:
+            self._snap = (torch.stack([c[k] for k in self._scalars()]),
+                          c["disc_keys"].clone())
         for i in range(n_steps):
             # An engine's first step is counted for the calibration's
             # prediction (host only; obs/calib.py launch_scope).
@@ -992,11 +1020,6 @@ class ResidentSearch:
             self._ring = self._ring.fresh()
         if self._store is not None:
             self._fresh_store()
-
-    def _part_max(self, c) -> torch.Tensor:
-        """Occupied slots of the fullest partition: one pass over the
-        table's keys (tiered, once a step)."""
-        return self._store.partition_fill(c["t_key"]).max()
 
     def _service(self) -> None:
         """The tiered store's service between chunks, on an EXIT_SERVICE
@@ -1044,7 +1067,8 @@ class ResidentSearch:
         service, needs a larger queue_log2 to load in either package."""
         if self._c is None:
             # srlint: fault-ok caller-contract guard, not an I/O/device surface
-            raise RuntimeError("nothing to checkpoint: run() has not been called")
+            raise RuntimeError("nothing to checkpoint: run() has not been called, or a "
+                               "donate_chunks overflow dropped the carry")
         if self.table_layout != "split":
             raise NotImplementedError(
                 "checkpointing is split-layout-only (as in the JAX engine); use "
@@ -1123,6 +1147,7 @@ class ResidentSearch:
         table_log2: Optional[int] = None,
         queue_log2: Optional[int] = None,
         device="cuda",
+        donate_chunks: bool = False,
     ) -> "ResidentSearch":
         """An engine holding the carry of a `checkpoint` file, written by
         this package or the JAX one; the next run() continues it. The CRC
@@ -1135,11 +1160,10 @@ class ResidentSearch:
         slots are re-inserted in slot order, K at a time, through the CUDA
         kernel for a "pallas" table and through the "sort" design for the
         designs' tables (the JAX engine's `_regrow`), so that the regrown
-        table is the JAX engine's slot for slot. A tiered file of an XLA
-        design resumes on "pallas", its slots re-inserted through the
-        kernel at the same size: the tiered store takes the designs only
-        from ROADMAP A9b. The table cannot shrink. A default-sized queue (queue_log2 == table_log2)
-        follows the table; a right-sized one is kept. The resource that
+        table is the JAX engine's slot for slot. A tiered file resumes the
+        same way, its spill tier beside the table. The table cannot shrink.
+        A default-sized queue (queue_log2 == table_log2) follows the table;
+        a right-sized one is kept. The resource that
         aborted the checkpointed run must grow, or the load is refused, as
         is a queue or batch size too small for the checkpoint's live rows."""
         t0 = time.monotonic()
@@ -1178,21 +1202,19 @@ class ResidentSearch:
             store_kw = dict(store="tiered", high_water=store_meta["high_water"],
                             low_water=store_meta["low_water"],
                             summary_log2=store_meta["summary_log2"])
-        variant = meta.get("insert_variant", "sort")
-        foreign = bool(store_meta) and variant != "pallas"
         rs = cls(model, batch_size or meta["batch_size"], log2, queue_log2=queue_log2,
-                 device=device, insert_variant="pallas" if foreign else variant,
-                 **store_kw)
+                 device=device, insert_variant=meta.get("insert_variant", "sort"),
+                 donate_chunks=donate_chunks, **store_kw)
         if store_meta:
             from ..store.tiered import TieredStore
 
             rs._store.close()  # replaced by the checkpointed tier
             rs._store = TieredStore.from_checkpoint(
                 1 << log2, store_meta, data["spill_fps"], data["spill_parents"],
-                device=rs.device,
+                device=rs.device, insert_variant=rs.insert_variant,
             )
             rs._q_compacted = bool(meta.get("q_compacted", False))
-        rs._load_carry(data, rehash=log2 != old_log2 or foreign)
+        rs._load_carry(data, rehash=log2 != old_log2)
         if rs.device.type == "cuda":
             torch.cuda.synchronize(rs.device)
         rs.load_seconds.update(read=t_read, load=time.monotonic() - t0)
@@ -1256,8 +1278,8 @@ class ResidentSearch:
                 c[f"s_{name}"][:s_tail] = from_u32(data[f"s_{name}"][:s_tail], dev)
             c["s_keys"][:s_tail] = (from_u32(data["s_hi"][:s_tail], dev) << 32) | from_u32(
                 data["s_lo"][:s_tail], dev)
-            hot = (int((c["t_key"] != 0).sum()) if rehash or "hot_claims" not in data
-                   else int(data["hot_claims"]))
+            hot = (int(self._reader.occupied(c["t_key"]).sum())
+                   if rehash or "hot_claims" not in data else int(data["hot_claims"]))
             c.update(hot=torch.tensor(hot, **i64), s_tail=torch.tensor(s_tail, **i64))
         self._c = c
 
@@ -1268,16 +1290,16 @@ class ResidentSearch:
         design (the JAX engine's `_regrow_insert`: the designs share one
         bucket layout). Overflow raises."""
         occupied = self._reader.occupied(t_key)
-        insert = self.insert if self.insert_variant == "pallas" else resolve_insert("sort")
-        reinsert(insert, c["t_key"], c["t_parent"], t_key[occupied], t_parent[occupied],
-                 self.batch_size)
+        reinsert(regrow_insert(self.insert_variant), c["t_key"], c["t_parent"],
+                 t_key[occupied], t_parent[occupied], self.batch_size)
 
     # -- after the search --------------------------------------------------------
 
     def _carry(self):
         if self._c is None:
             # srlint: fault-ok caller-contract guard, not an I/O/device surface
-            raise RuntimeError("no search to read: run() has not been called")
+            raise RuntimeError("no search to read (no table snapshot): run() has not "
+                               "been called, or a donate_chunks overflow dropped the carry")
         return self._c
 
     def store_stats(self) -> Optional[dict]:

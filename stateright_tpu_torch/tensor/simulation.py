@@ -25,7 +25,8 @@ discoveries and witness paths.
   path, where a probe loop would cost a host sync per round of probes.
   "shared" detects cycles of period <= `ring` in a per-walk ring and adds
   one visited table shared by every walk, through the visited-set insert
-  (the CUDA kernel on the card), kept across rounds: `unique_state_count`
+  (the CUDA kernel on the card by default, or one of the JAX package's XLA
+  designs, `insert_variant=`), kept across rounds: `unique_state_count`
   is real coverage, and `stale_limit` ends a walk after that many
   consecutive already-visited states. `salt=` job-salts the table's keys
   (tensor/fingerprint.py `salt_keys`, the JAX `salt_fp`), so that the
@@ -71,10 +72,11 @@ from ..obs import REGISTRY, build_detail, calib
 from ..store import warm as warm_seam
 from . import prng
 from .fingerprint import job_salt, pack_salt, salt_keys, to_host_fp
-from .frontier import SearchResult, reinsert, replay_fp_chain, state_fingerprint
-from .inserts import resolve_insert
+from .frontier import SearchResult, replay_fp_chain, state_fingerprint
+from .costmodel import ENGINE_VARIANTS
+from .inserts import make_table, resolve_insert, resolve_reader
 from .model import TensorModel
-from .pallas_hashtable import PallasHashTable, from_jax_table, to_jax_table
+from .pallas_hashtable import from_jax_table, to_jax_table
 
 # Steps enqueued between host reads of the counters.
 CHUNK_STEPS = 16
@@ -125,14 +127,10 @@ class DeviceSimulation:
         table's keys and parents as the JAX engine's `salt_fp` does. The
         engine runs on `device`: the CUDA card unless `device="cpu"` is
         passed; with no CUDA device the default raises. `insert_variant` is
-        the shared table's insert: "pallas", the CUDA kernel, only, until
-        ROADMAP A9b (the JAX engine's default there is "capped"); any other
-        value raises ValueError."""
-        if insert_variant != "pallas":
-            raise ValueError(
-                "DeviceSimulation takes insert_variant='pallas' only until ROADMAP "
-                f"A9b; got {insert_variant!r}"
-            )
+        the shared table's insert (knobs.INSERT_VARIANTS, split layout):
+        "pallas", the CUDA kernel, by default, or one of the JAX package's
+        XLA designs (the JAX engine's default there is "capped")."""
+        self.insert = resolve_insert(insert_variant)  # JAX's refusals
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -155,7 +153,7 @@ class DeviceSimulation:
         self.cycle_log2 = cycle_log2
         self.ring = ring
         self.table_log2 = table_log2
-        self.insert = resolve_insert(insert_variant)
+        self.insert_variant = insert_variant
         self.walks = walks
         self.stale_limit = stale_limit
         self.salt = salt
@@ -163,7 +161,7 @@ class DeviceSimulation:
         self._salt_key = pack_salt(*job_salt(salt)) if salt else 0
         self.continuous = continuous
         self.telemetry = telemetry
-        self.table = (PallasHashTable(table_log2, device=self.device)
+        self.table = (make_table(insert_variant, table_log2, device=self.device)
                       if dedup == "shared" else None)
         self.props = model.properties()
         self._rounds = 0
@@ -178,10 +176,10 @@ class DeviceSimulation:
         self._metrics_name = REGISTRY.register("simulation", self.metrics)
         # The calibration comparator (obs/calib.py): one observation a
         # round, the engine's own sync boundary; observes, never steers.
-        self._calib = (calib.make_comparator("simulation", model, traces, table_log2,
-                                             self.device, dedup=dedup,
-                                             cycle_log2=cycle_log2, ring=ring)
-                       if telemetry else None)
+        self._calib = (calib.make_comparator(
+            "simulation", model, traces, table_log2, self.device,
+            variant=ENGINE_VARIANTS[("split", insert_variant)], dedup=dedup,
+            cycle_log2=cycle_log2, ring=ring) if telemetry else None)
 
     # -- one round -----------------------------------------------------------
 
@@ -444,7 +442,7 @@ class DeviceSimulation:
     def warm_start(self, entry, kind: Optional[str] = None) -> int:
         """Preload the shared table from a published `CorpusEntry` (the
         store/warm.py seam, `preload_table`: one insert call per 4096 rows,
-        through the kernel on the card), salted as the engine's own inserts
+        through the table's insert), salted as the engine's own inserts
         are: walks that re-enter the set count as `dedup_hits`, not as new
         coverage. Any entry serves (a visited set is sound coverage whether
         its run completed or not), coverage-only ones included; `kind` names
@@ -471,10 +469,9 @@ class DeviceSimulation:
                              "(dedup='shared')")
         from ..store.corpus import content_key, key_components
 
-        keys = self.table.t_key.cpu().numpy()
-        parents = self.table.t_parent.cpu().numpy()
-        occupied = keys != 0
-        keys, parents = keys[occupied], parents[occupied]
+        occupied = resolve_reader(self.insert_variant).occupied(self.table.t_key)
+        keys = self.table.t_key[occupied].cpu().numpy()
+        parents = self.table.t_parent[occupied].cpu().numpy()
         if self._salt_key:
             keys = salt_keys(keys, np.int64(self._salt_key))
             parents = np.where(parents == 0, 0, salt_keys(parents, np.int64(self._salt_key)))
@@ -485,7 +482,7 @@ class DeviceSimulation:
             "engine": "simulation",
             "dedup": self.dedup,
             "table_log2": self.table_log2,
-            "insert_variant": "pallas",
+            "insert_variant": self.insert_variant,
             "batch_size": 0,
             "finish": None,
         }
@@ -546,8 +543,9 @@ class DeviceSimulation:
     def checkpoint(self, path: str) -> str:
         """Write the rounds loop (the seed position, the totals, the
         discoveries and, shared, the visited table) to `path` (.npz,
-        crash-atomic) in the JAX engine's format, with `insert_variant:
-        "pallas"`; `load_checkpoint` in either package continues it."""
+        crash-atomic) in the JAX engine's format, with its `insert_variant`
+        (the table's slot layout); `load_checkpoint` in either package
+        continues it."""
         arrays = {}
         if self.table is not None:
             arrays.update(zip(("t_lo", "t_hi", "p_lo", "p_hi"),
@@ -567,7 +565,7 @@ class DeviceSimulation:
             "cycle_log2": self.cycle_log2,
             "ring": self.ring,
             "table_log2": self.table_log2,
-            "insert_variant": "pallas",
+            "insert_variant": self.insert_variant,
             "walks": self.walks,
             "stale_limit": self.stale_limit,
             "salt": self.salt,
@@ -580,10 +578,9 @@ class DeviceSimulation:
     def load_checkpoint(cls, model: TensorModel, path: str,
                         device="cuda") -> "DeviceSimulation":
         """A simulation from a `checkpoint` file of either package; the
-        next run() continues the rounds loop exactly. A shared table of
-        another slot layout (a JAX run with another insert variant than
-        "pallas", such as its default "capped") is re-inserted through the
-        insert, never copied slot for slot."""
+        next run() continues the rounds loop exactly, on the file's insert
+        variant (the JAX engine's "capped" when the meta names none), its
+        shared table taken slot for slot."""
         data, _src = load_latest(path)
         meta = json.loads(bytes(data["meta"]).decode())
         if (meta["lanes"], meta["max_actions"]) != (model.lanes, model.max_actions):
@@ -604,7 +601,7 @@ class DeviceSimulation:
             table_log2=meta["table_log2"], walks=meta["walks"],
             stale_limit=meta["stale_limit"], salt=meta["salt"],
             continuous=meta["continuous"], telemetry=meta.get("telemetry", True),
-            device=device,
+            device=device, insert_variant=meta.get("insert_variant", "capped"),
         )
         sim._rounds = meta["rounds"]
         sim._totals = dict(meta["totals"])
@@ -613,11 +610,6 @@ class DeviceSimulation:
         if sim.table is not None:
             t_key, t_parent = from_jax_table(data["t_lo"], data["t_hi"], data["p_lo"],
                                              data["p_hi"], device=sim.device)
-            if meta["insert_variant"] == "pallas":
-                sim.table.t_key.copy_(t_key)
-                sim.table.t_parent.copy_(t_parent)
-            else:
-                occupied = t_key != 0
-                reinsert(sim.insert, sim.table.t_key, sim.table.t_parent,
-                         t_key[occupied], t_parent[occupied], sim.traces)
+            sim.table.t_key.copy_(t_key)
+            sim.table.t_parent.copy_(t_parent)
         return sim

@@ -407,3 +407,70 @@ def audited_step_matches() -> bool:
             and all(torch.equal(rep.out[k], out_b[k]) for k in out_b)
             and all(torch.equal(x, y) for x, y in zip(a, b))
             and all(torch.equal(before[k], eng._c[k]) for k in before))
+
+
+# -- the XLA insert designs, "dus" and donate_chunks ------------------------------------
+
+
+def _shard_table(ss) -> list:
+    """This rank's table as the JAX package's four uint32 arrays."""
+    from stateright_tpu_torch.tensor.pallas_hashtable import to_jax_table
+
+    return [a.tolist() for a in to_jax_table(ss._c["t_key"], ss._c["t_parent"])]
+
+
+def designs_2pc4(variants: list, append: str, store: str = "device") -> dict:
+    """2pc-4 through each design with `append`, on the device store
+    (batch 128, 2^11 a shard) or the tiered one (the JAX tiered settings of
+    `tiered_2pc4`): the summary, each rank's table and, tiered, the store's
+    counters and spill tier."""
+    kw = (dict(batch_size=4, table_log2=9, dest_capacity=32, store="tiered",
+               high_water=0.3, summary_log2=12) if store == "tiered"
+          else dict(batch_size=128, table_log2=11))
+    out = {}
+    for v in variants:
+        ss = engine(tm.TensorTwoPhaseSys(4), insert_variant=v, append=append, **kw)
+        res = dict(summary(ss.run()), table=_shard_table(ss))
+        if store == "tiered":
+            res["stats"] = ss.store_stats()
+            res["spill"] = [a.tolist() for a in ss._store.store.to_arrays()]
+            res["sweep"] = ss._store.sweep
+        out[v] = res
+    return out
+
+
+def designs_and_donated(variants: list, append: str) -> dict:
+    """`designs_2pc4` on the device store and `donated_2pc4`, in one world."""
+    return dict(designs_2pc4(variants, append), donated=donated_2pc4())
+
+
+def design_checkpoint(port_file: str, jax_file: str) -> dict:
+    """A "sort" 2pc-4 search on two ranks suspended after four steps and
+    checkpointed to `port_file` (the JAX engine resumes it); then the JAX
+    engine's "sort" file `jax_file`, loaded here slot for slot (each rank's
+    table before the resume) and resumed to the end."""
+    kw = dict(batch_size=128, table_log2=11, insert_variant="sort")
+    ss = engine(tm.TensorTwoPhaseSys(4), **kw)
+    ss.run(max_steps=4)
+    ss.checkpoint(port_file)
+    back = ShardedSearch.load_checkpoint(tm.TensorTwoPhaseSys(4), jax_file, device="cpu")
+    loaded = dict(variant=back.insert_variant, table=_shard_table(back))
+    grown = ShardedSearch.load_checkpoint(tm.TensorTwoPhaseSys(4), jax_file, device="cpu",
+                                          table_log2=12)
+    grown_table = _shard_table(grown)
+    return dict(loaded, resumed=summary(back.run()), grown=summary(grown.run()),
+                grown_table=grown_table)
+
+
+def donated_2pc4() -> dict:
+    """The JAX package's tests/test_donate_chunks.py on the sharded engine:
+    the donated chunked golden, and the overflow that leaves no carry."""
+    ss = engine(tm.TensorTwoPhaseSys(4), batch_size=128, table_log2=11, donate_chunks=True,
+                insert_variant="sort", append="dus")
+    golden = summary(ss.run(budget=4))
+    small = engine(tm.TensorTwoPhaseSys(5), batch_size=128, table_log2=8, donate_chunks=True,
+                   insert_variant="sort")
+    err = error_of(lambda: small.run(budget=8))
+    return dict(golden=golden, overflow=err, carry=small._c is None,
+                path=error_of(lambda: small.reconstruct_path(1)),
+                checkpoint=error_of(lambda: small.checkpoint("/nonexistent/x.npz")))

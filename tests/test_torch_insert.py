@@ -149,12 +149,29 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     assert "CUDA: registered" in dump and "CPU: registered" in dump
     with pytest.raises(ValueError):
         insert(type("MetaTable", (), {"device": torch.device("meta")})(), None, None, None, None)
-    # No fallback either way: an unknown name, the kernel on the kv layout,
-    # and a design asked for the fused Bloom-suspect form all raise.
-    for args, kw in ((("teired",), {}), (("pallas", "kv"), {}),
-                     (("sort",), {"summary_cfg": (14, 4)})):
+    # No fallback either way: an unknown name and the kernel on the kv
+    # layout raise; a design asked for the tiered form runs the design, then
+    # the summary probe, and never reaches the kernel's op.
+    for args, kw in ((("teired",), {}), (("pallas", "kv"), {})):
         with pytest.raises(ValueError):
             resolve_insert(*args, **kw)
+    seen.clear()
+    is_new = torch.tensor([True, False, True])
+
+    def design(t_key, t_parent, key, parent, active):
+        seen.append(("sort", key.shape[0]))
+        return t_key, t_parent, is_new, torch.tensor(False)
+
+    monkeypatch.setitem(inserts.INSERT_TABLE, "sort", design)
+    tiered = resolve_insert("sort", summary_cfg=(14, 4))
+    key = torch.tensor([5, 7, 9])
+    assert tiered(None, None, key, key, is_new)[2] is is_new
+    every_bit = torch.full((1 << 9,), -1, dtype=torch.int32)  # 2^14 bits, all set
+    _, _, got_new, suspect, _ = tiered(None, None, key, key, is_new, summary=every_bit,
+                                       summary_cfg=(14, 4))
+    assert torch.equal(suspect, is_new) and got_new is is_new
+    assert seen == [("sort", 3), ("sort", 3)]
+    assert resolve_insert("pallas", summary_cfg=(14, 4)) is insert
 
 
 def test_pallas_hash_table_defaults_to_the_card(monkeypatch):

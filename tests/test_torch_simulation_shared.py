@@ -5,7 +5,7 @@ state goes through the visited-set insert, whose lowest-lane election is
 the JAX kernel's, so the dedup hits, stale cuts, coverage and witnesses are
 bit-identical. Also the checkpoint of the rounds loop, both ways between
 the packages (and a JAX file of its default "capped" layout, which the port
-re-inserts), and the builder's two spawns. Exact comparisons throughout;
+loads slot for slot on "capped"), and the builder's two spawns. Exact comparisons throughout;
 only the wall-clock rate `walks_per_sec` is left out."""
 
 import pytest

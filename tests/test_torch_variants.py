@@ -8,8 +8,10 @@ counts, max depth and discoveries, and its final table equals the JAX
 table array for array. Also: the JAX package's
 capped golden-parity cases (tests/test_batch_monotonicity.py) and append
 cases (tests/test_donate_chunks.py, the append half), the port's "scatter"
-default pinned against the JAX package's platform default, the guards of
-the engines outside this slice (ROADMAP A9b), and the registry probe."""
+default pinned against the JAX package's platform default, the kv layout's
+refusal with the tiered store (the JAX engine's too), and the registry
+probe. The designs on the tiered store and the other engines are in
+tests/test_torch_variants_tiered.py and tests/test_torch_variants_engines.py."""
 
 import numpy as np
 import pytest
@@ -164,38 +166,17 @@ def test_append_default_is_scatter_on_every_device():
         resolve_append("dynamic")
 
 
-# -- the engines outside this slice, and the knobs -----------------------------------
+# -- the knobs ----------------------------------------------------------------------
 
 
-def test_engines_outside_the_slice_refuse_the_designs():
-    from stateright_tpu_torch.parallel.sharded import ShardedSearch
-    from stateright_tpu_torch.service import CheckService
-    from stateright_tpu_torch.service.scheduler import ServiceEngine
-    from stateright_tpu_torch.tensor.simulation import DeviceSimulation
-
-    m = pm.TensorTwoPhaseSys(3)
-    for variant in ("sort", "phased", "capped", "capped-phased"):
-        for build in (
-            lambda: ShardedSearch(m, device="cpu", insert_variant=variant),
-            lambda: DeviceSimulation(m, device="cpu", insert_variant=variant),
-            lambda: ServiceEngine(64, 12, insert_variant=variant, device="cpu"),
-            lambda: CheckService(64, 12, insert_variant=variant, background=False,
-                                 device="cpu"),
-            lambda: ResidentSearch(m, 64, 12, insert_variant=variant, store="tiered",
-                                   device="cpu"),
-            lambda: FrontierSearch(m, 64, 12, insert_variant=variant, store="tiered",
-                                   device="cpu"),
-        ):
-            with pytest.raises(ValueError, match="A9b"):
-                build()
-    for build in (
-        lambda: ShardedSearch(m, device="cpu", append="dus"),
-        lambda: ResidentSearch(m, 64, 12, append="dus", store="tiered", device="cpu"),
-    ):
-        with pytest.raises(ValueError, match="A9b"):
-            build()
+def test_tiered_store_refuses_the_kv_layout():
+    # The JAX engine refuses kv with the tiered store too: the store sweeps
+    # a split table's buckets.
     with pytest.raises(ValueError, match="split"):
-        ResidentSearch(m, 64, 12, table_layout="kv", store="tiered", device="cpu")
+        JaxResident(jm.TensorTwoPhaseSys(3), 64, 12, table_layout="kv", store="tiered")
+    with pytest.raises(ValueError, match="split"):
+        ResidentSearch(pm.TensorTwoPhaseSys(3), 64, 12, table_layout="kv", store="tiered",
+                       device="cpu")
 
 
 @pytest.mark.parametrize("kw", [dict(insert_variant="phased", table_layout="kv"),
