@@ -369,6 +369,15 @@ seconds on a line of its own:
     left, `checkpoint()` refused. Phase 20 (c) above feeds its backlog
     `AUTOSCALE_DEPTH` (4) unfinished jobs deep and logs the largest
     admission gap its journal shows.
+27. the compiled CPU baseline (stateright_tpu_torch/_native/baseline_bfs.cpp,
+    the yardstick of the port's device numbers): g++ builds it from the
+    checkout (its seconds printed), then it runs paxos-3 on
+    `os.cpu_count()` threads and on one, and 2pc-4, paxos-2 and
+    increment_lock-6 on `os.cpu_count()` threads, each at its golden
+    (bench.py:39-47), with its seconds and states/s beside the host's CPU
+    model and the thread count; then its paxos-3 states/s beside phase
+    11's card states/s from the same run. A failed build or run, or a count
+    off its golden, fails the smoke.
 
 The last three lines are the card's name and power limit, one JSON object
 with the kernels' numbers, and `{"ok": true, "device": {...}}`.
@@ -432,6 +441,15 @@ PROFILE_STEPS = 64
 # Sectors one probe round of the kernel reads: a tile of 8 threads (kTile in
 # csrc/visited_insert.cu), one 32-byte sector each.
 PROBE_SECTORS = 8
+# Phase 27: the compiled CPU baseline's runs, (model, n, threads; None: the
+# host's os.cpu_count()), and their goldens (generated, unique) from
+# bench.py:39-47. 2pc-10 (over 100 s on one thread) is left to a run of its
+# own.
+BASELINE_RUNS = (("paxos", 3, None), ("paxos", 3, 1), ("2pc", 4, None), ("paxos", 2, None),
+                 ("increment_lock", 6, None))
+BASELINE_GOLDEN = {("paxos", 3): GOLDEN_PAXOS3, ("2pc", 4): (8_258, 1_568),
+                   ("paxos", 2): GOLDEN_PAXOS2, ("increment_lock", 6): (7_825, 7_825)}
+BASELINE_TIMEOUT_S = 120.0
 
 
 def log(msg: str) -> None:
@@ -6024,6 +6042,44 @@ def phase_designs_everywhere(ph, torch, device_path):
     return out
 
 
+def phase_baseline(paxos3):
+    """The compiled CPU baseline at its goldens (see the module docstring,
+    phase 27). Returns {(model, n, threads): the checker's report}."""
+    from stateright_tpu_torch._native.baseline import compile_baseline, host_cpu, run_baseline
+
+    cpu, n_cpu = host_cpu(), os.cpu_count()
+    where = (f"of {n_cpu} (os.cpu_count; {len(os.sched_getaffinity(0))} in this "
+             f"process's affinity) on {cpu}")
+    t0 = time.monotonic()
+    exe = compile_baseline()
+    log(f"[baseline] g++ built {exe.name} in {time.monotonic() - t0:.1f} s")
+    out = {}
+    for model, n, threads in BASELINE_RUNS:
+        threads = n_cpu if threads is None else threads
+        r = run_baseline(model, n, threads, timeout=BASELINE_TIMEOUT_S, exe=exe)
+        got = (r["states"], r["unique"])
+        assert got == BASELINE_GOLDEN[(model, n)], (model, n, threads, got)
+        assert r["threads"] == threads and r["violations"] == 0, r
+        r["states_per_s"] = r["states"] / r["sec"]
+        pool = f" max_pool_used={r['max_pool_used']}" if "max_pool_used" in r else ""
+        log(f"[baseline] {model}-{n}: states={got[0]} unique={got[1]} depth={r['depth']} "
+            f"sec={r['sec']:.6f} states_per_s={r['states_per_s']:.0f}{pool}; "
+            f"threads={threads} {where}")
+        out[(model, n, threads)] = r
+    base = out[("paxos", 3, n_cpu)]
+    one = out[("paxos", 3, 1)]
+    if paxos3 is None:
+        log("[baseline] paxos-3: phase 11 did not run in this call; no card rate beside it")
+    else:
+        log(f"[baseline] paxos-3: the card {paxos3['rate']:.0f} generated/s (phase 11, spawn "
+            f"to join, {paxos3['sec']:.3f} s) against the baseline's "
+            f"{base['states_per_s']:.0f} states/s at threads={n_cpu} {where} "
+            f"({paxos3['rate'] / base['states_per_s']:.3f}x) and "
+            f"{one['states_per_s']:.0f} states/s at threads=1 "
+            f"({paxos3['rate'] / one['states_per_s']:.3f}x)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6101,6 +6157,7 @@ def main() -> int:
     phase(25, "XLA insert designs", phase_designs, ph, torch, device_path)
     designs = phase(26, "designs on every engine", phase_designs_everywhere, ph, torch,
                     device_path)
+    phase(27, "compiled CPU baseline", phase_baseline, paxos3)
     log(f"[time] whole smoke: {time.monotonic() - t_smoke:.1f} s")
     if only is not None:
         log(f"[only] phases {sorted(only)} passed; no result lines for a subset")

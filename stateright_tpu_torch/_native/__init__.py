@@ -5,6 +5,8 @@ The consistency testers' backtracking search (serialize.cpp) is the host
 hot spot of semantics-checked models, so it runs natively: a plain C ABI,
 compiled with `g++` at first use into the package's `_build/` directory
 (the nvcc build's directory), keyed by a hash of the source and the flags.
+The compiled CPU baseline checker (baseline_bfs.cpp, run by baseline.py)
+is built the same way as a standalone executable (`build(..., exe=True)`).
 
 Unlike the JAX package's `load`, which answers None on a failed compile so
 its callers fall back to Python, this one raises with the compiler's
@@ -24,29 +26,34 @@ from pathlib import Path
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent / "_build"
 SO_FLAGS = ["-std=c++17", "-O2", "-shared", "-fPIC"]
+EXE_FLAGS = ["-std=c++17", "-O3", "-march=native", "-pthread"]
 BUILD_TIMEOUT_S = 300.0
 _lock = threading.Lock()
 _cache: dict = {}
 
 
-def build(name: str) -> Path:
+def build(name: str, *, exe: bool = False) -> Path:
     """Compile `<name>.cpp` into `_build/` (once per source and flags hash)
-    as a shared object for ctypes and return its path. A failed or missing
-    compiler raises RuntimeError with its output."""
+    and return the artifact's path: a shared object for ctypes, or with
+    `exe=True` a standalone optimised executable (the CPU baseline
+    checker). The two forms of one name never share a path (the flags
+    enter the hash, and the shared object ends in `.so`). A failed or
+    missing compiler raises RuntimeError with its output."""
+    flags = EXE_FLAGS if exe else SO_FLAGS
     src = _DIR / f"{name}.cpp"
-    tag = hashlib.sha256(src.read_bytes() + " ".join(SO_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}_{tag}.so"
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / (f"{name}_{tag}" if exe else f"{name}_{tag}.so")
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     # A per-process temporary name, so that concurrent compiles (test workers
     # starting at once) cannot interleave their output; os.replace publishes
-    # the finished object atomically.
+    # the finished artifact atomically.
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
         try:
             proc = subprocess.run(
-                ["g++", *SO_FLAGS, "-o", str(tmp), str(src)],
+                ["g++", *flags, "-o", str(tmp), str(src)],
                 capture_output=True, text=True, timeout=BUILD_TIMEOUT_S,
             )
         except (OSError, subprocess.TimeoutExpired) as e:

@@ -97,6 +97,8 @@ __all__ = [
     "LenOk",
     "LinearizabilityTester",
     "SequentialConsistencyTester",
+    "clear_serialization_caches",
+    "maintain_caches",
 ]
 
 
@@ -109,3 +111,36 @@ def clear_serialization_caches() -> None:
     linearizability._serialized_cached.cache_clear()
     sequential_consistency._serialized_cached.cache_clear()
     canonical.CACHE.clear()
+
+
+#: `maintain_caches` trims the canonical plane back under this many entries
+#: and clears a legacy lru memo that crossed the same bar. The legacy memos
+#: pin whole histories (tester objects are their keys), so a long-lived
+#: service replica serving thousands of register jobs would otherwise hold
+#: up to the lru maxsize (2^15 testers) of histories in each memo.
+MAINTAIN_MAX_ENTRIES = 1 << 14
+
+
+def maintain_caches(max_entries: Optional[int] = None) -> dict:
+    """Bound the verdict caches of a long-lived service: the check service
+    calls it whenever a job retires (service/scheduler.py). The canonical
+    cache trims its least recently used entries; an oversized legacy lru
+    memo is cleared whole (functools.lru_cache cannot shrink in part).
+    `max_entries` defaults to MAINTAIN_MAX_ENTRIES, read at the call.
+    Returns {trimmed, legacy_cleared}; both are counted through the
+    "semantics" REGISTRY source."""
+    from . import canonical, linearizability, sequential_consistency
+
+    if max_entries is None:
+        max_entries = MAINTAIN_MAX_ENTRIES
+    trimmed = 0
+    if len(canonical.CACHE) > max_entries:
+        trimmed = canonical.CACHE.trim(max_entries)
+    legacy_cleared = 0
+    for mod in (linearizability, sequential_consistency):
+        if mod._serialized_cached.cache_info().currsize > max_entries:
+            mod._serialized_cached.cache_clear()
+            legacy_cleared += 1
+    if legacy_cleared:
+        canonical.CACHE._count("legacy_clears", legacy_cleared)
+    return {"trimmed": trimmed, "legacy_cleared": legacy_cleared}

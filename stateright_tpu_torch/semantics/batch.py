@@ -32,6 +32,7 @@ from . import ConsistencyTester
 from .canonical import (
     CACHE,
     _seal,
+    enabled,
     probe_verdict,
     search_steps,
     try_canonical_form,
@@ -44,6 +45,11 @@ def evaluate_batch(testers: Iterable) -> list:
     testers = list(testers)
     out = [False] * len(testers)
     if not testers:
+        return out
+    if not enabled():
+        # The plane is off (SR_TPU_SEMANTICS=legacy): the legacy memo decides.
+        for i, t in enumerate(testers):
+            out[i] = t.serialized_history() is not None
         return out
     t0 = time.perf_counter()
     # 1a. Identity pre-dedup: equal testers recur across many states of a
@@ -160,7 +166,7 @@ def prefetch_verdicts(testers: Iterable) -> int:
         t for t in testers
         if isinstance(t, ConsistencyTester) and t.is_valid_history
     ]
-    if len(batch) < 2:
+    if len(batch) < 2 or not enabled():
         return 0
     evaluate_batch(batch)
     return len(batch)

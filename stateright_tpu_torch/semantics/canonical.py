@@ -66,6 +66,7 @@ pinned witness assertions and goldens stay bit-identical.
 
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 from typing import Optional
@@ -73,11 +74,32 @@ from typing import Optional
 from ..core.fingerprint import fingerprint_bytes, stable_encode
 
 #: Upper bound on resident verdict-cache entries (least recently used
-#: first out).
+#: first out); `trim()` (called when a service job retires) shrinks back
+#: under it.
 CACHE_MAX_ENTRIES = 1 << 16
 
 #: Entries a corpus entry's verdict table carries at most (`export`).
 EXPORT_MAX_ENTRIES = 1 << 15
+
+#: Kill switch for A/B measurement and rollback: SR_TPU_SEMANTICS=legacy
+#: disables the plane, and every verdict goes through the testers'
+#: per-identity lru memos as if this module did not exist.
+_enabled = os.environ.get("SR_TPU_SEMANTICS", "") != "legacy"
+
+
+def set_enabled(flag: bool) -> bool:
+    """Enable or disable the dedup-first plane; returns the previous
+    setting. Disabled, `is_consistent` goes back through the legacy
+    `serialized_history` memo."""
+    global _enabled
+    prev = _enabled
+    _enabled = bool(flag)
+    return prev
+
+
+def enabled() -> bool:
+    return _enabled
+
 
 class CanonForm:
     """A tester's canonical (label-free) form: threads reordered by content,
@@ -538,6 +560,21 @@ class VerdictCache:
         bits = np.asarray([v for _, (v, _s) in items], dtype=np.uint8)
         return fps, bits
 
+    def trim(self, max_entries: Optional[int] = None) -> int:
+        """Shrink to `max_entries` (default: half the bound), least recently
+        used first, and return the entries dropped. Called when a service
+        job retires, so that a long-lived replica stays bounded."""
+        target = self.max_entries // 2 if max_entries is None else max_entries
+        dropped = 0
+        with self._lock:
+            while len(self._entries) > target:
+                self._entries.popitem(last=False)
+                dropped += 1
+            if dropped:
+                self.counters["trims"] += 1
+                self.counters["trimmed_entries"] += dropped
+        return dropped
+
     def clear(self) -> None:
         with self._lock:
             self._entries.clear()
@@ -593,7 +630,7 @@ def probe_verdict(tester) -> Optional[bool]:
     when the plane can decide cheaply, else None. Used by the legacy
     `serialized_history` path so a direct call never pays a search it
     wouldn't have before."""
-    if not tester.is_valid_history:
+    if not _enabled or not tester.is_valid_history:
         return None
     _consulted()
     form = try_canonical_form(tester)
@@ -675,7 +712,7 @@ def probe_cached_negative(tester) -> bool:
     guidance there would be pure overhead). Checks the cache plus the one
     zero-validation refutation rule: an `on_return` child of a refuted
     parent is refuted (see the module docstring)."""
-    if not tester.is_valid_history:
+    if not _enabled or not tester.is_valid_history:
         return False
     _consulted()
     # Below this size the legacy search costs less than canonicalization —
@@ -718,6 +755,8 @@ def verdict(tester) -> bool:
     None` by construction."""
     if not tester.is_valid_history:
         return False
+    if not _enabled:
+        return tester.serialized_history() is not None
     form = try_canonical_form(tester)
     if form is None:
         return tester.serialized_history() is not None
@@ -737,7 +776,7 @@ def verdict(tester) -> bool:
 def note_verdict(tester, is_serializable: bool) -> None:
     """Opportunistic cache insert from a legacy search result (no witness).
     Lets direct `serialized_history` callers feed the plane for free."""
-    if not tester.is_valid_history:
+    if not _enabled or not tester.is_valid_history:
         return
     form = try_canonical_form(tester)
     if form is not None:
@@ -823,3 +862,36 @@ def _map_steps(steps, src: CanonForm, dst: CanonForm):
             return None
         out.append((ct, fl))
     return tuple(out)
+
+
+def serialized_from_steps(tester, steps):
+    """The (op, ret) witness list of `tester` rebuilt from canonical steps,
+    or None when the steps do not validate: a concrete order out of the
+    canonical plane."""
+    form = canonical_form(tester)
+    if not validate_steps(form, steps):
+        return None
+    next_idx = [0] * len(form.history)
+    spec = form.spec
+    out = []
+    for t, from_ifl in steps:
+        if from_ifl:
+            _prereqs, op = form.in_flight[t]
+            ret, spec = spec.invoke(op)
+        else:
+            _prereqs, op, ret = form.history[t][next_idx[t]]
+            next_idx[t] += 1
+            spec = spec.is_valid_step(op, ret)
+        out.append((op, ret))
+    return out
+
+
+def cached_steps(tester):
+    """The cached canonical witness of `tester`'s class, or None."""
+    if not tester.is_valid_history:
+        return None
+    form = try_canonical_form(tester)
+    if form is None:
+        return None
+    ent = CACHE.get(form.fp)
+    return None if ent is None else ent[1]

@@ -21,6 +21,7 @@ from functools import lru_cache
 from typing import Optional
 
 from . import ConsistencyTester, SequentialSpec
+from .canonical import enabled as _plane_enabled
 
 
 class LinearizabilityTester(ConsistencyTester):
@@ -80,9 +81,11 @@ class LinearizabilityTester(ConsistencyTester):
         # this tester by one recording; the verdict plane seeds its search
         # from this tester's cached witness instead of from scratch. Plane
         # code severs the chain (_seal) once a verdict is cached, so a live
-        # tester pins O(1) ancestry.
-        child._parent = self
-        child._delta = ("inv", thread_id)
+        # tester pins O(1) ancestry; a disabled plane (SR_TPU_SEMANTICS=
+        # legacy) severs nothing, so nothing is stamped then.
+        if _plane_enabled():
+            child._parent = self
+            child._delta = ("inv", thread_id)
         return child
 
     def on_return(self, thread_id, ret) -> "LinearizabilityTester":
@@ -93,8 +96,9 @@ class LinearizabilityTester(ConsistencyTester):
         history = dict(self.history_by_thread)
         history[thread_id] = history.get(thread_id, ()) + ((last_completed, op, ret),)
         child = LinearizabilityTester(self.init_ref_obj, history, in_flight, True)
-        child._parent = self
-        child._delta = ("ret", thread_id)
+        if _plane_enabled():
+            child._parent = self
+            child._delta = ("ret", thread_id)
         return child
 
     def _invalidated(self) -> "LinearizabilityTester":

@@ -12,6 +12,7 @@ from functools import lru_cache
 from typing import Optional
 
 from . import ConsistencyTester, SequentialSpec
+from .canonical import enabled as _plane_enabled
 
 
 class SequentialConsistencyTester(ConsistencyTester):
@@ -57,9 +58,11 @@ class SequentialConsistencyTester(ConsistencyTester):
         child = SequentialConsistencyTester(
             self.init_ref_obj, history, in_flight, True
         )
-        # Witness-guidance hints — see LinearizabilityTester.
-        child._parent = self
-        child._delta = ("inv", thread_id)
+        # Witness-guidance hints, while the plane is on — see
+        # LinearizabilityTester.
+        if _plane_enabled():
+            child._parent = self
+            child._delta = ("inv", thread_id)
         return child
 
     def on_return(self, thread_id, ret) -> "SequentialConsistencyTester":
@@ -72,8 +75,9 @@ class SequentialConsistencyTester(ConsistencyTester):
         child = SequentialConsistencyTester(
             self.init_ref_obj, history, in_flight, True
         )
-        child._parent = self
-        child._delta = ("ret", thread_id)
+        if _plane_enabled():
+            child._parent = self
+            child._delta = ("ret", thread_id)
         return child
 
     def _invalidated(self) -> "SequentialConsistencyTester":

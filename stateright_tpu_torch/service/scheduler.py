@@ -724,12 +724,25 @@ class ServiceEngine:
         if g is not None and job in g.jobs:
             g.jobs.remove(job)
         job.drop_frontier()
+        self._job_semantics_finalize(job)
+        # Empty groups are kept: a later job of the same model reuses the
+        # group and its pinned staging.
+
+    def _job_semantics_finalize(self, job: Job) -> None:
+        """What every retired or failed job releases: its corpus GC pin, and
+        the process-global verdict caches' excess (semantics.maintain_caches:
+        the legacy lru memos pin whole tester histories), so that a replica
+        serving thousands of register jobs stops growing."""
         if job.corpus_pinned and self._corpus is not None:
             # The near and partial rungs pin the served entry's key.
             self._corpus.unpin(job.corpus_pin_key or job.content_key)
             job.corpus_pinned = False
-        # Empty groups are kept: a later job of the same model reuses the
-        # group and its pinned staging.
+        from ..semantics import maintain_caches
+
+        maintain_caches()
+
+    def runnable_groups(self) -> list:
+        return [self.groups[k] for k in self._group_rr if self.groups[k].runnable()]
 
     def next_group(self) -> Optional[_Group]:
         """Round-robin over the groups with runnable work."""
@@ -1123,6 +1136,7 @@ class ServiceEngine:
             job.error = msg
             job.metrics.finished_at = time.monotonic()
             job.drop_frontier()
+            self._job_semantics_finalize(job)
             self._events.emit("job.error", job=job.id, trace=job.trace, error=msg)
             job.event.set()
         group.jobs.clear()

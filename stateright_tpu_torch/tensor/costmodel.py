@@ -91,6 +91,17 @@ BUCKET_ROW_BYTES = BUCKET * LANE_BYTES
 #: Bloom probe words the fused form reads for each active lane.
 SUMMARY_HASHES = 4
 
+#: Mirrors of the insert kernel's partitioning (tensor/pallas_hashtable.py
+#: `PARTITION_ALIGN`, `DEFAULT_PARTITIONS`; pinned by a test). This module
+#: stays torch-free, so the formula is restated, not imported.
+PALLAS_ROW_ALIGN = 1024
+PALLAS_DEFAULT_PARTITIONS = 64
+
+
+def pallas_partition_count(table_slots: int) -> int:
+    """pallas_hashtable.partitions without the torch import."""
+    return max(1, min(PALLAS_DEFAULT_PARTITIONS, table_slots // PALLAS_ROW_ALIGN))
+
 
 @dataclass(frozen=True)
 class DeviceSpec:
@@ -464,4 +475,49 @@ def rank_dedup(lanes: int, max_actions: int, traces: int, *, table_log2: int = 2
         sc = sim_step_cost(lanes, max_actions, traces, dedup=d, table_log2=table_log2,
                            launches=(launches or {}).get(d, 0.0), device=device)
         out.append({"dedup": d, "total_ms": round(sc.total_ms, 4)})
+    return sorted(out, key=lambda r: r["total_ms"])
+
+
+def sim_walks_per_sec(
+    lanes: int,
+    max_actions: int,
+    traces: int,
+    mean_walk_len: float,
+    *,
+    dedup: str = "trace",
+    device: DeviceSpec = H100,
+    **kw,
+) -> float:
+    """Predicted committed walks a second: with continuous batching every
+    lane completes a walk every `mean_walk_len` steps, so throughput is
+    traces / (mean_walk_len x step time). `kw` goes to `sim_step_cost`."""
+    sc = sim_step_cost(lanes, max_actions, traces, dedup=dedup, device=device, **kw)
+    return traces / (max(mean_walk_len, 1.0) * sc.total_ms * 1e-3)
+
+
+def predict_ranking(
+    lanes: int,
+    max_actions: int,
+    batch: int,
+    table_log2: int,
+    *,
+    new_frac: float = 0.5,
+    append: str = "dus",
+    device: DeviceSpec = H100,
+    variants: Optional[tuple] = None,
+    spill: Optional[dict] = None,
+) -> list:
+    """Insert variants ranked by predicted step time, fastest first:
+    [{"variant", "total_ms", "insert_ms", "bytes"}...], the JAX module's
+    record format. Like the JAX module's, it prices no dispatch."""
+    out = []
+    for v in variants or INSERT_VARIANTS:
+        sc = step_cost(lanes, max_actions, batch, table_log2, variant=v, append=append,
+                       new_frac=new_frac, device=device, spill=spill)
+        out.append({
+            "variant": v,
+            "total_ms": round(sc.total_ms, 3),
+            "insert_ms": round(sum(o.ms for o in sc.ops if o.name.startswith("insert_")), 3),
+            "bytes": int(sc.total_bytes),
+        })
     return sorted(out, key=lambda r: r["total_ms"])

@@ -101,6 +101,9 @@ class TensorModel:
     def format_action(self, action) -> str:
         return str(action)
 
+    def format_step(self, last_state, action) -> Any:
+        return None
+
     def property_by_name(self, name: str) -> TensorProperty:
         for p in self.properties():
             if p.name == name:
