@@ -1,0 +1,9 @@
+"""Stream ms a step of the fused Bloom insert inside the search (tiered
+cell): the `step.insert` span's CUDA-event seconds over the probe check's
+steps (program_layers)."""
+
+from benchmark.program_layers import per_step_ms
+
+
+def read(run):
+    return per_step_ms(run, "step.insert", "stream_s")

@@ -42,7 +42,10 @@ class CudaChecker(Checker):
         which takes `insert_variant`, `table_layout`, `append` and
         `donate_chunks` among them) or, with `resident=False`, `FrontierSearch`, which takes
         FRONTIER_OPTIONS only. `trace_out=<path>` records the host phases
-        as Chrome trace-event JSON, saved when the search thread ends.
+        and the resident steps' layers as Chrome trace-event JSON on the
+        Unix clock, with the layers' device track on a CUDA card
+        (obs.Tracer, `device_timing=True`), saved when the search thread
+        ends.
 
         Visitors run after the search over the resident engine's queue: a
         `StateRecorder` gets every evaluated state (`dump_states`), any
@@ -92,7 +95,7 @@ class CudaChecker(Checker):
                 )
         self._trace_out = trace_out
         if trace_out is not None:
-            engine_kwargs["tracer"] = Tracer(annotate=True)
+            engine_kwargs["tracer"] = Tracer(annotate=True, device_timing=True)
         engine = ResidentSearch if resident else FrontierSearch
         self._search = engine(model, batch_size, table_log2, **engine_kwargs)
         self._options = options

@@ -5,8 +5,10 @@ trimmed to what the port's engines and check service use):
    device ring drained at chunk boundaries (resident engine) or appended on
    the host (host-driven engine, check service); `StepRing.summary()` is
    `SearchResult.detail["telemetry"]`;
-2. span tracing (`trace.py`): host phases as Chrome trace-event JSON,
-   through `trace_out=`;
+2. span tracing (`trace.py`): host phases, and the layers of each
+   resident step, as Chrome trace-event JSON on the Unix clock, through
+   `trace_out=`, with per-span counters and the layers' stream time on the
+   card (`device_timing=True`);
 3. the metric-source registry and its Prometheus text (`registry.py`), and
    the documented detail keys and event vocabulary (`schema.py`);
 4. the event journal (`events.py`): the check service's and the fleet's
@@ -45,7 +47,7 @@ from .schema import (
     TERMINAL_EVENTS,
     validate_detail,
 )
-from .trace import NULL_TRACER, Tracer, as_tracer
+from .trace import NULL_TRACER, Tracer, as_tracer, layer_tracer
 
 __all__ = [
     "DETAIL_KEYS",
@@ -72,6 +74,7 @@ __all__ = [
     "as_events",
     "as_tracer",
     "build_detail",
+    "layer_tracer",
     "flatten_metrics",
     "merge_events",
     "mint_trace_id",

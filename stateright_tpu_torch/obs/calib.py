@@ -20,10 +20,12 @@
   holdout table, the overlay file).
 
 The port's step is host-bound, so its prediction counts the step's
-launches: `launch_scope` counts the aten ops of an engine's first step
+launches: `LaunchCount` counts the aten ops of an engine's first step
 under a TorchDispatchMode that calls every op unchanged (host only, once an
 engine build), and the insert kernel's launches for each registered insert
-op it sees.
+op it sees, split by the step layer (`Tracer.layer`) open at each op. The
+resident engine owns that count (its `detail["layers"]`) and hands the
+comparator its total; the other engines count through `launch_scope`.
 
 The observatory observes and never steers: results are bit-identical with
 the comparator on and off (``SR_TPU_CALIB=0``), and a fitted overlay
@@ -247,7 +249,7 @@ class Comparator:
         self._cache.clear()
 
     def set_launches(self, launches: float) -> None:
-        """The step's counted launches (`launch_scope`). The window that
+        """The step's counted launches (`LaunchCount`). The window that
         holds the counted step is not observed: counting slows it."""
         # srlint: host-ok a Python int (the counted launches), not a tensor: no wait
         self.config = replace(self.config, launches=float(launches))
@@ -459,13 +461,17 @@ NO_LAUNCH_OPS = frozenset({
     "empty", "empty_strided", "_local_scalar_dense", "lift_fresh", "detach", "alias",
     "set_", "resize_", "_unsafe_view", "unbind", "split", "split_with_sizes",
 })
+#: op namespaces that launch nothing: `record_function`'s ops (a tracer
+#: with `annotate=True` opens them inside the counted step).
+NO_LAUNCH_NAMESPACES = frozenset({"profiler"})
 
 _MODE_CLASS = None
 
 
 def _dispatch_mode():
-    """A TorchDispatchMode counting launches in its `launches` (the class is
-    made once, on the first count: torch is imported only then)."""
+    """A TorchDispatchMode counting launches in its `launches`, and in
+    `by_layer` under its `layer` at each op (the class is made once, on the
+    first count: torch is imported only then)."""
     global _MODE_CLASS
     if _MODE_CLASS is None:
         from torch.utils._python_dispatch import TorchDispatchMode
@@ -483,34 +489,79 @@ def _dispatch_mode():
             def __init__(self):
                 super().__init__()
                 self.launches = 0
+                self.layer = None
+                self.by_layer: dict = {}
 
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 name = func.overloadpacket.__name__
+                n = 0
                 if func.namespace == OP_NAMESPACE:  # the insert: its kernel's launches
-                    self.launches += costmodel.INSERT_LAUNCHES
-                elif not (getattr(func, "is_view", False) or name in NO_LAUNCH_OPS):
-                    self.launches += 1
+                    n = costmodel.INSERT_LAUNCHES
+                elif not (getattr(func, "is_view", False) or name in NO_LAUNCH_OPS
+                          or func.namespace in NO_LAUNCH_NAMESPACES):
+                    n = 1
+                if n:
+                    self.launches += n
+                    self.by_layer[self.layer] = self.by_layer.get(self.layer, 0) + n
                 return func(*args, **(kwargs or {}))
 
         _MODE_CLASS = _Count
     return _MODE_CLASS()
 
 
+class LaunchCount:
+    """Counts the launches of a block: every aten op that is not a view,
+    an allocation or a host read, and INSERT_LAUNCHES for each registered
+    insert op (either form, on either device: the op's body is not
+    recorded). The ops run unchanged; counting costs host time only.
+
+    It is also a layer tracer over `layers` (an engine's, obs.trace
+    `layer_tracer`): a step run with it as its tracer opens each layer's
+    span on `layers` as usual, and the ops issued inside land in `by_layer`
+    under that layer's name (None outside every layer). After the block,
+    `total` is the count and `by_layer` its split."""
+
+    def __init__(self, layers=None):
+        from .trace import NULL_TRACER
+
+        self._layers = NULL_TRACER if layers is None else layers
+        self._mode = None
+        self.total = 0
+        self.by_layer: dict = {}
+
+    def __enter__(self) -> "LaunchCount":
+        self._mode = _dispatch_mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self.total = self._mode.launches
+        self.by_layer = dict(self._mode.by_layer)
+        return False
+
+    @contextlib.contextmanager
+    def layer(self, name: str):
+        mode = self._mode
+        prev, mode.layer = mode.layer, name
+        try:
+            with self._layers.layer(name):
+                yield
+        finally:
+            mode.layer = prev
+
+
 @contextlib.contextmanager
 def launch_scope(comp: Optional[Comparator]):
     """Count the launches of the block (an engine's first step) into
-    `comp`'s prediction: every aten op that is not a view, an allocation or
-    a host read, and INSERT_LAUNCHES for each registered insert op (either
-    form, on either device: the op's body is not recorded). A no-op when
-    `comp` is None or has its count.
-    The ops run unchanged; counting costs host time only, once an engine
-    build."""
+    `comp`'s prediction (`LaunchCount`). A no-op when `comp` is None or has
+    its count."""
     if comp is None or comp.config.launches > 0:
         yield
         return
-    with _dispatch_mode() as mode:
+    with LaunchCount() as count:
         yield
-    comp.set_launches(mode.launches)
+    comp.set_launches(count.total)
 
 
 # -- durable record I/O (through the ckptio CRC seam) --------------------------------

@@ -46,6 +46,23 @@ DETAIL_KEYS = {
     # the calibration observatory (obs/calib.py Comparator): present only
     # when the comparator is on and has closed a chunk
     "calib": "measured-vs-predicted cost sub-dict (CALIB_DETAIL_KEYS)",
+    # the resident engine's layers (tensor/resident.py `_layer_detail`):
+    # present with telemetry on
+    "layers": "the run's steps issued ('steps'), one step's launches "
+              "('launches'), and a sub-dict per step layer and traced span "
+              "name (LAYER_COUNTER_KEYS)",
+}
+
+#: Keys of each span's sub-dict under `detail["layers"]` (the names are the
+#: resident engine's `step.*`, `tiered.*` and `resident.*` spans).
+LAYER_COUNTER_KEYS = {
+    "launches": "launches of one step issued inside the layer (counted once "
+                "an engine build, obs/calib.py LaunchCount)",
+    "count": "spans the run closed (with a tracer that keeps counters)",
+    "host_s": "host seconds inside the spans",
+    "self_s": "host_s less the seconds of the spans nested inside",
+    "stream_s": "seconds of the card's stream from each span's open to its "
+                "close (Tracer(device_timing=True) on a CUDA card)",
 }
 
 #: Keys of `detail["calib"]` (obs/calib.py Comparator.detail): the JAX

@@ -52,10 +52,21 @@ tables on their device, counts occupied slots per row there, copies only
 the evicted keys and parents to the host and zeroes their rows in place;
 `evict_host` takes whole numpy tables (tests). The Bloom summary lives on
 the table's device and is updated there, in place.
+
+Eviction's parts are timed on the host, always (`take_seconds`, which the
+resident engine adds to its `service_seconds`), and traced as child spans
+of the engine's `tiered.evict` on the store's `tracer`: `evict.sweep` (the
+reference's sweep), `evict.partitions` (the partition pass) and, inside
+either, each spill's `spill.copy_out` (the device->host copy of the evicted
+keys and parents, which first waits for the gather), `spill.host_append`
+(into the spill tier) and `spill.summary` (the summary insert, waited for,
+so that its device time is its own). The spans carry the `tiered.` prefix.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from dataclasses import dataclass
 from typing import Optional
 
@@ -63,6 +74,7 @@ import numpy as np
 import torch
 
 from ..faults.plan import maybe_fault
+from ..obs.trace import as_tracer
 from ..tensor.hashtable import BUCKET
 from ..tensor.inserts import resolve_reader
 from ..tensor.pallas_hashtable import LANES, partitions
@@ -108,7 +120,8 @@ class TieredConfig:
 
 class TieredStore:
     def __init__(self, table_size: int, config: TieredConfig = TieredConfig(),
-                 background: bool = True, device="cuda", insert_variant: str = "pallas"):
+                 background: bool = True, device="cuda", insert_variant: str = "pallas",
+                 tracer=None):
         """`insert_variant` is the engine's: the kernel's table ("pallas",
         the default) is split into the kernel's partitions, and one holding
         `risk_slots` keys (7/8 of it) is emptied whole at the next eviction
@@ -116,7 +129,7 @@ class TieredStore:
         mark of 0.5 or less (see the module docstring).
         The Bloom summary lives on `device`, the table's: the CUDA card
         unless `device="cpu"` is passed; with no CUDA device the default
-        raises."""
+        raises. `tracer` (obs.Tracer) records eviction's parts as spans."""
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             # srlint: fault-ok caller-contract guard (no CUDA device), not an I/O/device surface
@@ -155,6 +168,26 @@ class TieredStore:
         # parents) against what copying whole windows would have moved.
         self.evict_bytes_pcie = 0
         self.evict_bytes_unfiltered = 0
+        self.tracer = as_tracer(tracer)
+        # Host seconds of eviction's parts since the last take_seconds().
+        self._seconds: dict = {}
+
+    @contextlib.contextmanager
+    def _part(self, name: str):
+        """Time one part of eviction into `_seconds[name]`, inside a
+        `tiered.<name>` span."""
+        t0 = time.monotonic()
+        with self.tracer.span("tiered." + name, cat="store"):
+            yield
+        self._seconds[name] = self._seconds.get(name, 0.0) + time.monotonic() - t0
+
+    def take_seconds(self) -> dict:
+        """The host seconds of each part of eviction since the last call
+        ("evict.sweep", "evict.partitions", "spill.copy_out",
+        "spill.host_append", "spill.summary"; the spills lie inside the
+        two passes), and start again from zero."""
+        out, self._seconds = self._seconds, {}
+        return out
 
     @property
     def summary_cfg(self) -> tuple[int, int]:
@@ -166,10 +199,15 @@ class TieredStore:
         """Move evicted (key, parent) pairs into the spill tier (one copy
         to the host) and the summary (on the device): the tier first, so a
         faulted append leaves the summary as it was."""
-        k, p = keys.cpu().numpy(), parents.cpu().numpy()
+        with self._part("spill.copy_out"):
+            k, p = keys.cpu().numpy(), parents.cpu().numpy()
         self.evict_bytes_pcie += k.nbytes + p.nbytes
-        self.store.append(k.view(np.uint64), p.view(np.uint64))
-        insert(self.summary, keys, *self.summary_cfg)
+        with self._part("spill.host_append"):
+            self.store.append(k.view(np.uint64), p.view(np.uint64))
+        with self._part("spill.summary"):
+            insert(self.summary, keys, *self.summary_cfg)
+            if keys.is_cuda:
+                torch.cuda.synchronize(keys.device)
 
     def evict_host(self, t_key: np.ndarray, t_parent: np.ndarray, hot_claims: int) -> int:
         """Numpy-table eviction (int64 tables, in place; tests): `evict` on
@@ -207,10 +245,12 @@ class TieredStore:
         freed = 0
         if hot_claims - self.low_slots > 0:
             maybe_fault("store.spill", tier=tier, target=hot_claims - self.low_slots)
-            freed = self._sweep(t_key.view(-1, self.bucket), t_parent.view(-1, self.bucket),
-                                hot_claims - self.low_slots)
+            with self._part("evict.sweep"):
+                freed = self._sweep(t_key.view(-1, self.bucket),
+                                    t_parent.view(-1, self.bucket), hot_claims - self.low_slots)
         if self.partitioned:
-            freed += self._empty_partitions(t_key, t_parent)
+            with self._part("evict.partitions"):
+                freed += self._empty_partitions(t_key, t_parent)
         if freed:
             self.spill_events += 1
         return freed

@@ -38,7 +38,7 @@ from ..faults.ckptio import fenced_savez, load_latest
 from ..knobs import APPEND_KINDS, STORE_KINDS, WARM_KINDS
 from ..faults.plan import maybe_fault
 # `calib` as a module: obs.calib imports the tensor package, which imports this.
-from ..obs import REGISTRY, StepRing, as_tracer, build_detail, calib
+from ..obs import NULL_TRACER, REGISTRY, StepRing, as_tracer, build_detail, calib
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, device_fingerprint, pack_fp, salt_keys, to_host_fp
 from .costmodel import ENGINE_VARIANTS
@@ -88,27 +88,32 @@ def count_ge(clo, chi, tlo, thi):
     return (chi > thi) | ((chi == thi) & (clo >= tlo))
 
 
-def expand_keys(model, states, active):
+def expand_keys(model, states, active, tracer=NULL_TRACER):
     """Expand, boundary-mask and fingerprint a batch. Returns (flat_states
     int64[K*A, L], succ_keys int64[K*A], validf bool[K*A], gen_rows
     int64[K], has_succ bool[K]); flat row i came from input row
     i // max_actions. `gen_rows` is the per-row post-boundary pre-dedup
-    successor count (ref: bfs.rs:288-291)."""
+    successor count (ref: bfs.rs:288-291). The expand and the fingerprint
+    run in `tracer`'s layer spans "step.expand" and "step.fingerprint"
+    (obs.trace `layer_tracer`; the default records nothing)."""
     K = states.shape[0]
     A = model.max_actions
-    succs, valid = model.expand(states)
-    valid = valid & active[:, None]
-    flat = succs.reshape(K * A, model.lanes)
-    validf = valid.reshape(-1) & model.within_boundary(flat)
-    gen_rows = validf.view(K, A).sum(dim=1)
-    # Terminality counts deduped successors too, but not boundary-excluded
-    # ones (ref: bfs.rs:287-333).
-    has_succ = validf.view(K, A).any(dim=1)
-    return flat, state_fingerprint(model, flat), validf, gen_rows, has_succ
+    with tracer.layer("step.expand"):
+        succs, valid = model.expand(states)
+        valid = valid & active[:, None]
+        flat = succs.reshape(K * A, model.lanes)
+        validf = valid.reshape(-1) & model.within_boundary(flat)
+        gen_rows = validf.view(K, A).sum(dim=1)
+        # Terminality counts deduped successors too, but not boundary-excluded
+        # ones (ref: bfs.rs:287-333).
+        has_succ = validf.view(K, A).any(dim=1)
+    with tracer.layer("step.fingerprint"):
+        succ_keys = state_fingerprint(model, flat)
+    return flat, succ_keys, validf, gen_rows, has_succ
 
 
 def expand_insert(model, insert, t_key, t_parent, states, keys, active,
-                  summary=None, summary_cfg=None, salts=None):
+                  summary=None, summary_cfg=None, salts=None, tracer=NULL_TRACER):
     """The core of one step: `expand_keys`, then insert-if-absent into the
     visited table with parent keys (the insert also dedups within the
     batch).
@@ -127,22 +132,26 @@ def expand_insert(model, insert, t_key, t_parent, states, keys, active,
     the parent keys stored beside them, so that the check service's jobs
     share one table without colliding (fingerprint.salt_keys). The Bloom
     probe sees the salted keys, which are what the spill tier stores. The
-    returned `succ_keys` stay unsalted."""
-    flat, succ_keys, validf, gen_rows, has_succ = expand_keys(model, states, active)
-    parents = keys.repeat_interleave(model.max_actions)
-    table_keys = succ_keys
-    if salts is not None:
-        lane_salts = salts.repeat_interleave(model.max_actions)
-        table_keys = salt_keys(succ_keys, lane_salts)
-        parents = salt_keys(parents, lane_salts)
-    if summary is None:
-        _, _, is_new, overflow = insert(t_key, t_parent, table_keys, parents, validf)
-        suspect = torch.zeros_like(is_new)
-    else:
-        _, _, is_new, suspect, overflow = insert(
-            t_key, t_parent, table_keys, parents, validf,
-            summary=summary, summary_cfg=summary_cfg,
-        )
+    returned `succ_keys` stay unsalted.
+
+    `tracer` (a layer tracer, as in `expand_keys`) opens "step.expand",
+    "step.fingerprint" and, around the insert, "step.insert"."""
+    flat, succ_keys, validf, gen_rows, has_succ = expand_keys(model, states, active, tracer)
+    with tracer.layer("step.insert"):
+        parents = keys.repeat_interleave(model.max_actions)
+        table_keys = succ_keys
+        if salts is not None:
+            lane_salts = salts.repeat_interleave(model.max_actions)
+            table_keys = salt_keys(succ_keys, lane_salts)
+            parents = salt_keys(parents, lane_salts)
+        if summary is None:
+            _, _, is_new, overflow = insert(t_key, t_parent, table_keys, parents, validf)
+            suspect = torch.zeros_like(is_new)
+        else:
+            _, _, is_new, suspect, overflow = insert(
+                t_key, t_parent, table_keys, parents, validf,
+                summary=summary, summary_cfg=summary_cfg,
+            )
     return flat, succ_keys, is_new, suspect, gen_rows, has_succ, overflow
 
 

@@ -59,9 +59,33 @@ device ring of 2^telemetry_log2 rows from counters the step already holds
 on the device (one stack, one remainder, one indexed write: no host sync),
 and the host reads the new rows at each chunk boundary, where it reads the
 counters anyway. The digest is `detail["telemetry"]` (obs/ring.py), and a
-checkpoint carries the ring as the JAX engine's `tm_rows`. A `tracer`
-(obs/trace.py) records the chunks, the tiered service's parts and
-checkpoints as Chrome trace spans, under the JAX engine's span names.
+checkpoint carries the ring as the JAX engine's `tm_rows`.
+
+Tracing: a `tracer` (obs/trace.py) records the chunks (`resident.chunk`),
+the tiered service's parts (`tiered.queue_compact`,
+`tiered.suspect_resolve`, `tiered.evict` with its sweep, partition pass
+and spills, store/tiered.py) and checkpoints as Chrome trace spans, under
+the JAX engine's span names where it has them, and each layer of every
+step as a "step" span (`Tracer.layer`): `step.stop` (the stop condition),
+`step.pop` (pop, max depth, depth cut), `step.props`, `step.expand`
+(expand and boundary), `step.fingerprint`, `step.insert` (plain or fused),
+`step.eventually`, `step.append` (the queue append, the suspect append,
+the counters), `step.tiered` (the service-exit bits, `near_full` among
+them) and `step.telemetry` (the ring row and the step counter). The layers
+tile the step. On `NULL_TRACER`, the default, each is the shared no-op.
+A `Tracer` keeps each span's count, seconds and self seconds; with
+`device_timing=True` each layer's stream seconds too, from CUDA events
+the engine resolves (`tracer.resolve()`) right after each chunk's counter
+read, which has already waited for the card. Its timestamps are on the
+Unix clock, `torch.profiler`'s.
+
+With telemetry on, the engine counts the launches of its first step once
+a build, split by layer (obs/calib.py `LaunchCount`, host only, with the
+comparator on or off; the comparator takes its total), and reports the
+layers in `detail["layers"]` and its "resident" metric source: the
+launches a step of each layer and in all, the steps the run issued, and,
+with a `Tracer`, the run's counters of the `step.*`, `tiered.*` and
+`resident.*` spans.
 """
 
 from __future__ import annotations
@@ -79,7 +103,7 @@ from ..faults.ckptio import fenced_savez, load_latest
 from ..faults.plan import maybe_fault
 from ..knobs import FINISH_KINDS, STORE_KINDS, WARM_KINDS
 # `calib` as a module: obs.calib imports the tensor package, which imports this.
-from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail, calib
+from ..obs import N_COLS, REGISTRY, StepRing, as_tracer, build_detail, calib, layer_tracer
 from ..store import warm as warm_seam
 from .fingerprint import MASK32, from_host_fp, to_host_fp
 from .frontier import (
@@ -141,6 +165,14 @@ def _dev_cols(rows: np.ndarray) -> np.ndarray:
     zero = np.zeros_like(step)
     return np.stack([step, zero, active, zero, gen, claimed, queue_len + active, claims,
                      suspects, depth], axis=1)
+
+
+#: span-name prefixes whose counters `detail["layers"]` reports.
+LAYER_PREFIXES = ("step.", "tiered.", "resident.")
+
+
+def _no_resolve() -> None:
+    """`resolve` of a tracer that has none (one with only `span`/`instant`)."""
 
 
 def _abort_reason(code: int) -> str:
@@ -285,7 +317,8 @@ def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
     compacted live frontier still passes `queue_cap` rows (the carry is
     left compacted and sound: checkpoint, then regrow), or ABORT_TABLE when
     eviction could free nothing (every row full). Adds the seconds of each
-    part to `eng.service_seconds`. A sharded rank passes its `shard`: the
+    part to `eng.service_seconds`, eviction's own parts among them
+    (TieredStore.take_seconds). A sharded rank passes its `shard`: the
     ``shard.transfer`` fault point fires before its resolution and its
     eviction."""
     t0 = time.monotonic()
@@ -312,14 +345,14 @@ def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
     if s_tail > 0:
         if shard is not None:
             maybe_fault("shard.transfer", shard=shard, phase="resolve")
-        eng._tracer.instant("tiered.suspect_resolve", cat="store", suspects=s_tail)
-        dup = store.resolve_suspects(c["s_keys"][:s_tail])
-        keep = torch.from_numpy(~dup).to(dev)
-        n_conf = int((~dup).sum())
-        if n_conf:
-            sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
-            tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
-            unique += n_conf
+        with eng._tracer.span("tiered.suspect_resolve", cat="store", suspects=s_tail):
+            dup = store.resolve_suspects(c["s_keys"][:s_tail])
+            keep = torch.from_numpy(~dup).to(dev)
+            n_conf = int((~dup).sum())
+            if n_conf:
+                sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
+                tail = inject_rows(queue, tail, [b[:s_tail][keep] for b in sbuf])
+                unique += n_conf
     t2 = time.monotonic()
     if hot >= eng._spill_trigger or store.at_risk(c["t_key"]):
         if shard is not None:
@@ -341,8 +374,9 @@ def service_carry(eng, queue_cap: int, shard: Optional[int] = None) -> int:
         torch.cuda.synchronize(dev)
     t3 = time.monotonic()
     sec = eng.service_seconds
-    for part, dt in (("compact", t1 - t0), ("resolve", t2 - t1), ("evict", t3 - t2),
-                     ("service", t3 - t0)):
+    parts = [("compact", t1 - t0), ("resolve", t2 - t1), ("evict", t3 - t2),
+             ("service", t3 - t0)]
+    for part, dt in parts + list(store.take_seconds().items()):
         sec[part] = sec.get(part, 0.0) + dt
     sec["calls"] = sec.get("calls", 0) + 1
     return 0
@@ -429,8 +463,10 @@ class ResidentSearch:
         update the carry in place either way.
 
         `telemetry` keeps a device ring of the last 2^telemetry_log2 step
-        rows, drained at chunk boundaries into `detail["telemetry"]`;
-        `tracer` (obs.Tracer) records host phases as Chrome trace spans."""
+        rows, drained at chunk boundaries into `detail["telemetry"]`, and
+        the layers' launches and counters into `detail["layers"]`;
+        `tracer` (obs.Tracer, or an object with its `span` and `instant`)
+        records host phases and each step's layers as Chrome trace spans."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # srlint: fault-ok caller-contract guard (no CUDA device), not an I/O/device surface
@@ -438,6 +474,12 @@ class ResidentSearch:
                 "device='cuda' but torch.cuda.is_available() is False; "
                 "pass device='cpu' to run the search on the CPU"
             )
+        self._tracer = as_tracer(tracer)
+        self._layers = layer_tracer(self._tracer)  # the steps' layer spans
+        # What a step opens its layer spans on: `_layers`, or the launch
+        # count's wrapper of it on the counted step (see _chunk).
+        self._step_layers = self._layers
+        self._resolve = getattr(self._tracer, "resolve", _no_resolve)
         self.insert = resolve_insert(insert_variant, table_layout)  # JAX's refusals
         check_table_log2(insert_variant, table_log2)
         if store not in STORE_KINDS:  # knob universe: knobs.py
@@ -511,7 +553,13 @@ class ResidentSearch:
         # Host copy of the device ring in STEP_COLS form, filled with the new
         # rows at each drain (StepRing.drain reads it).
         self._tm_host = np.zeros((self._TMR, N_COLS), np.uint32)
-        self._tracer = as_tracer(tracer)
+        # The launches of one step by layer (calib.LaunchCount), counted on
+        # the first step of a build when telemetry is on; the steps issued
+        # (no-op ones past a stop too), and the counters and steps at the
+        # start of the last run(), which detail["layers"] reports from.
+        self._launches: Optional[calib.LaunchCount] = None
+        self._steps_issued = 0
+        self._layer_base: tuple = ({}, 0)
         self._metrics_name = REGISTRY.register("resident", self.metrics)
         # The calibration comparator (obs/calib.py): fed by the counter read
         # each chunk already makes; observes, never steers.
@@ -599,7 +647,7 @@ class ResidentSearch:
             1 << self.table_log2,
             TieredConfig(high_water=high_water, low_water=low_water,
                          summary_log2=summary_log2),
-            device=self.device, insert_variant=self.insert_variant,
+            device=self.device, insert_variant=self.insert_variant, tracer=self._tracer,
         )
 
     # -- the carry ---------------------------------------------------------
@@ -699,83 +747,93 @@ class ResidentSearch:
         return go
 
     def _step(self, c, go, tmd: int) -> None:  # srlint: step-region
-        """One BFS step on the device (no host sync); a no-op unless `go`."""
+        """One BFS step on the device (no host sync); a no-op unless `go`.
+        Each layer runs in a span of `_step_layers`."""
+        tr = self._step_layers
         model, props = self.model, self.props
         K, A = self.batch_size, model.max_actions
         tiered = self._store is not None
         queue = (c["q_states"], c["q_keys"], c["q_ebits"], c["q_depth"])
-        head0 = c["head"]
-        states, keys, ebits, depth, active, c["head"] = pop_batch(
-            queue, head0, c["tail"], go, self._arange_k
-        )
-        c["max_depth"] = torch.maximum(
-            c["max_depth"], torch.where(active, depth, 0).max()
-        )
-        # target_max_depth: states at the cutoff are neither evaluated nor
-        # expanded (ref: bfs.rs:219-224).
-        cut = self._zero
-        if tmd:
-            cut = (active & (depth >= tmd)).sum()
-            active = active & (depth < tmd)
+        with tr.layer("step.pop"):
+            head0 = c["head"]
+            states, keys, ebits, depth, active, c["head"] = pop_batch(
+                queue, head0, c["tail"], go, self._arange_k
+            )
+            c["max_depth"] = torch.maximum(
+                c["max_depth"], torch.where(active, depth, 0).max()
+            )
+            # target_max_depth: states at the cutoff are neither evaluated nor
+            # expanded (ref: bfs.rs:219-224).
+            cut = self._zero
+            if tmd:
+                cut = (active & (depth >= tmd)).sum()
+                active = active & (depth < tmd)
 
-        discovered, ebits = check_properties(model, props, states, keys, active, ebits,
-                                             c["discovered"], c["disc_keys"])
+        with tr.layer("step.props"):
+            discovered, ebits = check_properties(model, props, states, keys, active, ebits,
+                                                 c["discovered"], c["disc_keys"])
 
         # -- expand + fingerprint + dedup + insert ---------------------------
         flat, succ_keys, is_new, suspect, gen_rows, has_succ, ovf = expand_insert(
             model, self.insert, c["t_key"], c["t_parent"], states, keys, active,
             summary=c["summary"] if tiered else None,
-            summary_cfg=self._store.summary_cfg if tiered else None,
+            summary_cfg=self._store.summary_cfg if tiered else None, tracer=tr,
         )
-        gen = gen_rows.sum()
-        c["gen"] = c["gen"] + gen
 
-        c["discovered"] = check_eventually(props, active & ~has_succ, ebits, keys,
-                                           discovered, c["disc_keys"])
+        with tr.layer("step.eventually"):
+            c["discovered"] = check_eventually(props, active & ~has_succ, ebits, keys,
+                                               discovered, c["disc_keys"])
 
         # -- append the new states at the queue tail -------------------------
         # Tiered: a suspect is buffered for exact host resolution instead of
         # enqueued (a summary miss proves novelty); its claim stays in the
         # table either way, which dedups its further offers on the device.
-        rows = (flat, succ_keys, ebits.repeat_interleave(A),
-                depth.repeat_interleave(A) + 1)
-        append = append_new_dus if self.append == "dus" else append_new
-        tail = append(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
-        claimed = tail - c["tail"]
-        c["unique"] = c["unique"] + claimed
-        c["tail"] = tail
-        code = torch.where(ovf, ABORT_TABLE, 0)
+        with tr.layer("step.append"):
+            gen = gen_rows.sum()
+            c["gen"] = c["gen"] + gen
+            rows = (flat, succ_keys, ebits.repeat_interleave(A),
+                    depth.repeat_interleave(A) + 1)
+            append = append_new_dus if self.append == "dus" else append_new
+            tail = append(queue, c["tail"], rows, is_new & ~suspect if tiered else is_new)
+            claimed = tail - c["tail"]
+            c["unique"] = c["unique"] + claimed
+            c["tail"] = tail
+            code = torch.where(ovf, ABORT_TABLE, 0)
+            if tiered:
+                claimed = is_new.sum()
+                c["hot"] = c["hot"] + claimed
+                sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
+                c["s_tail"] = append_new(sbuf, c["s_tail"], rows, suspect)
+            else:
+                code = code | torch.where(tail > self._QL, ABORT_QUEUE, 0)
+                c["overflow"] = c["overflow"] | code
         if tiered:
-            claimed = is_new.sum()
-            c["hot"] = c["hot"] + claimed
-            sbuf = (c["s_states"], c["s_keys"], c["s_ebits"], c["s_depth"])
-            c["s_tail"] = append_new(sbuf, c["s_tail"], rows, suspect)
-            # The reference's three exits, and on the kernel's table a
-            # fourth of the port's: a partition near full (chains wrap
-            # inside a partition, so it would abort whatever the rest of
-            # the table holds).
-            service = (
-                (c["hot"] >= self._spill_trigger)
-                | (c["s_tail"] > self._SQ - K * A)
-                | (tail > self._QL)
-            )
-            near_full = self._store.near_full(c["t_key"])
-            if near_full is not None:
-                service = service | near_full
-            code = code | torch.where(service, EXIT_SERVICE, 0)
-        else:
-            code = code | torch.where(tail > self._QL, ABORT_QUEUE, 0)
-        c["overflow"] = c["overflow"] | code
-        go64 = go.to(torch.int64)
-        if self._TMR:
-            row = torch.stack([
-                c["steps"], head0, c["head"], cut, gen, claimed, tail,
-                c["hot"] if tiered else c["unique"],
-                c["s_tail"] if tiered else self._zero, c["max_depth"],
-            ])
-            slot = c["steps"] % self._TMR
-            c["tm_dev"].index_put_((go64.view(1), slot.view(1)), row.view(1, -1))
-        c["steps"] = c["steps"] + go64
+            with tr.layer("step.tiered"):
+                # The reference's three exits, and on the kernel's table a
+                # fourth of the port's: a partition near full (chains wrap
+                # inside a partition, so it would abort whatever the rest of
+                # the table holds).
+                service = (
+                    (c["hot"] >= self._spill_trigger)
+                    | (c["s_tail"] > self._SQ - K * A)
+                    | (tail > self._QL)
+                )
+                near_full = self._store.near_full(c["t_key"])
+                if near_full is not None:
+                    service = service | near_full
+                code = code | torch.where(service, EXIT_SERVICE, 0)
+                c["overflow"] = c["overflow"] | code
+        with tr.layer("step.telemetry"):
+            go64 = go.to(torch.int64)
+            if self._TMR:
+                row = torch.stack([
+                    c["steps"], head0, c["head"], cut, gen, claimed, tail,
+                    c["hot"] if tiered else c["unique"],
+                    c["s_tail"] if tiered else self._zero, c["max_depth"],
+                ])
+                slot = c["steps"] % self._TMR
+                c["tm_dev"].index_put_((go64.view(1), slot.view(1)), row.view(1, -1))
+            c["steps"] = c["steps"] + go64
 
     # -- static analysis -----------------------------------------------------
 
@@ -794,7 +852,7 @@ class ResidentSearch:
 
         def step(*tensors):
             c = dict(zip(names, tensors))
-            self._step(c, self._should_continue(c, req, anym, 0, 1 << 62), 0)
+            self._issue(c, req, anym, 0, 0, 1 << 62)
             return c
 
         return step, tuple(t.clone() for t in self._c.values()), ()
@@ -825,6 +883,7 @@ class ResidentSearch:
             raise ValueError("budget must be a positive step count")
         n_chunk = CHUNK_STEPS if budget is None else budget
         start = time.monotonic()
+        self._layer_base = (self._counters(), self._steps_issued)
         if self._ring is not None and self._c is None and self._ring.steps:
             self._ring = self._ring.fresh()  # a fresh search: fresh telemetry
         if finish_when.matches(self.props, set()) or not self.props:
@@ -865,6 +924,8 @@ class ResidentSearch:
                          (~go).to(torch.int64), c.get("s_tail", zero), c["steps"]]
                     ).cpu()
                 )
+                # The card is idle now: the layers' device times are read.
+                self._resolve()
             if self._ring is not None:
                 self._drain(steps, (time.monotonic() - t_chunk) * 1e6)
             if overflow & EXIT_SERVICE and not overflow & (ABORT_TABLE | ABORT_QUEUE):
@@ -975,6 +1036,39 @@ class ResidentSearch:
         stats = self.store_stats()
         if stats:
             out["store"] = stats
+        layers = self._layer_detail()
+        if layers is not None:
+            out["layers"] = layers
+        return out
+
+    def _counters(self) -> dict:
+        """The tracer's span counters (obs.Tracer.counters; {} for a tracer
+        without them)."""
+        counters = getattr(self._tracer, "counters", None)
+        return counters() if counters is not None else {}
+
+    def _layer_detail(self) -> Optional[dict]:
+        """`detail["layers"]` (None with telemetry off): "steps", the steps
+        the last run() issued (whole chunks, no-op steps past a stop
+        included); "launches", the launches of one step (counted once a
+        build; obs/calib.py LaunchCount); and for each layer and span, its
+        launches a step and, with a tracer that keeps counters, its
+        `count`, `host_s`, `self_s` and `stream_s` over the run (the
+        `step.*`, `tiered.*` and `resident.*` spans)."""
+        if not self._TMR:
+            return None
+        base, steps0 = self._layer_base
+        out: dict = {"steps": self._steps_issued - steps0}
+        if self._launches is not None:
+            out["launches"] = self._launches.total
+            for name, n in self._launches.by_layer.items():
+                out[name] = {"launches": n}
+        for name, now in self._counters().items():
+            if name.startswith(LAYER_PREFIXES):
+                was = base.get(name, {})
+                delta = {k: v - was.get(k, 0) for k, v in now.items()}
+                if delta["count"]:
+                    out.setdefault(name, {}).update(delta)
         return out
 
     def _detail(self) -> Optional[dict]:
@@ -982,6 +1076,9 @@ class ResidentSearch:
         if stats is not None:
             stats = dict(stats, service_seconds=dict(self.service_seconds))
         detail = build_detail(stats, self.telemetry_summary())
+        layers = self._layer_detail()
+        if layers is not None:
+            detail = dict(detail or {}, layers=layers)
         if self._calib is not None:
             self._calib.finish()
             if self._calib.chunks:
@@ -997,11 +1094,28 @@ class ResidentSearch:
             self._snap = (torch.stack([c[k] for k in self._scalars()]),
                           c["disc_keys"].clone())
         for i in range(n_steps):
-            # An engine's first step is counted for the calibration's
-            # prediction (host only; obs/calib.py launch_scope).
-            with calib.launch_scope(self._calib if i == 0 else None):
-                go = self._should_continue(c, req, anym, target, max_steps)
-                self._step(c, go, tmd)
+            if i == 0 and self._launches is None and self._TMR:
+                # An engine's first step is counted, by layer (host only;
+                # obs/calib.py LaunchCount); the comparator's prediction
+                # takes its total.
+                with calib.LaunchCount(self._layers) as count:
+                    self._step_layers = count
+                    try:
+                        self._issue(c, req, anym, target, tmd, max_steps)
+                    finally:
+                        self._step_layers = self._layers
+                self._launches = count
+                if self._calib is not None:
+                    self._calib.set_launches(count.total)
+            else:
+                self._issue(c, req, anym, target, tmd, max_steps)
+        self._steps_issued += n_steps
+
+    def _issue(self, c, req, anym, target, tmd, max_steps) -> None:  # srlint: step-region
+        """One step: the stop condition, then `_step` gated by it."""
+        with self._step_layers.layer("step.stop"):
+            go = self._should_continue(c, req, anym, target, max_steps)
+        self._step(c, go, tmd)
 
     def _undo_chunk(self) -> None:
         """Put the carry back at the chunk boundary after an abort
